@@ -1,0 +1,11 @@
+"""Hand-written Hopper kernels of the port, one package per TPU kernel of
+``repro/kernels``.
+
+Each kernel package: ``kernel.py`` (the CUDA kernel's wrapper: checks,
+launch, launch count), ``ops.py`` (the public op: layout glue, CUDA tensor
+-> kernel, CPU tensor -> plain version) and ``ref.py`` (the plain PyTorch
+version).  Sources live in ``repro_torch/csrc`` and build with
+:mod:`repro_torch.kernels.build`.
+
+  fedavg   weighted parameter average (the paper's server aggregation)
+"""

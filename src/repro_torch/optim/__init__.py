@@ -1,0 +1,3 @@
+from repro_torch.optim.optimizers import (  # noqa: F401
+    Optimizer, adamw, clip_by_global_norm, global_norm, make_optimizer, sgd,
+)

@@ -1,0 +1,116 @@
+"""Optimizers as pure (init, update) pairs over parameter trees.
+Port of ``repro/optim/optimizers.py``, written out exactly as the reference
+computes (not ``torch.optim``): fp32 moments, bias corrections from a
+float32 step count, the same order of operations.
+
+AdamW and SGD+momentum, with global-norm clipping and a state-dtype knob.
+``update`` returns new trees and never writes into its inputs.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Optional, Tuple
+
+import torch
+
+from repro_torch.tree import leaves, tree_map
+
+
+@dataclass(frozen=True)
+class Optimizer:
+    init: Callable[[Any], Any]
+    update: Callable[[Any, Any, Any, float], Tuple[Any, Any]]
+    # update(grads, state, params, lr) -> (new_params, new_state)
+
+
+def global_norm(tree) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(l.to(torch.float32)))
+                          for l in leaves(tree)))
+
+
+def clip_by_global_norm(tree, max_norm: float):
+    norm = global_norm(tree)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    return tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype),
+                    tree), norm
+
+
+def _zeros_like_tree(params, state_dtype: Optional[torch.dtype]):
+    return tree_map(lambda p: torch.zeros(p.shape, dtype=state_dtype or p.dtype,
+                                          device=p.device), params)
+
+
+def _step0(params) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.int32, device=leaves(params)[0].device)
+
+
+def _split3(out):
+    """Tree of (a, b, c) tuples -> three trees."""
+    return tuple(tree_map(lambda o, i=i: o[i], out) for i in range(3))
+
+
+def adamw(beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.0,
+          grad_clip=0.0, state_dtype=None) -> Optimizer:
+    def init(params):
+        return {"m": _zeros_like_tree(params, state_dtype),
+                "v": _zeros_like_tree(params, state_dtype),
+                "step": _step0(params)}
+
+    def update(grads, state, params, lr):
+        if grad_clip:
+            grads, _ = clip_by_global_norm(grads, grad_clip)
+        step = state["step"] + 1
+        t = step.to(torch.float32)
+        bc1 = 1 - beta1 ** t
+        bc2 = 1 - beta2 ** t
+
+        def upd(g, m, v, p):
+            g32 = g.to(torch.float32)
+            m32 = beta1 * m.to(torch.float32) + (1 - beta1) * g32
+            v32 = beta2 * v.to(torch.float32) + (1 - beta2) * g32 * g32
+            mh = m32 / bc1
+            vh = v32 / bc2
+            delta = mh / (torch.sqrt(vh) + eps)
+            if weight_decay:
+                delta = delta + weight_decay * p.to(torch.float32)
+            newp = p.to(torch.float32) - lr * delta
+            return (newp.to(p.dtype), m32.to(m.dtype), v32.to(v.dtype))
+
+        new_params, new_m, new_v = _split3(
+            tree_map(upd, grads, state["m"], state["v"], params))
+        return new_params, {"m": new_m, "v": new_v, "step": step}
+
+    return Optimizer(init=init, update=update)
+
+
+def sgd(momentum=0.9, grad_clip=0.0, state_dtype=None) -> Optimizer:
+    def init(params):
+        return {"mom": _zeros_like_tree(params, state_dtype),
+                "step": _step0(params)}
+
+    def update(grads, state, params, lr):
+        if grad_clip:
+            grads, _ = clip_by_global_norm(grads, grad_clip)
+
+        def upd(g, mo, p):
+            m32 = momentum * mo.to(torch.float32) + g.to(torch.float32)
+            newp = p.to(torch.float32) - lr * m32
+            return (newp.to(p.dtype), m32.to(mo.dtype), None)
+
+        new_params, new_m, _ = _split3(
+            tree_map(upd, grads, state["mom"], params))
+        return new_params, {"mom": new_m, "step": state["step"] + 1}
+
+    return Optimizer(init=init, update=update)
+
+
+def make_optimizer(cfg) -> Optimizer:
+    """cfg: OptimConfig."""
+    sd = getattr(torch, cfg.state_dtype) if cfg.state_dtype else None
+    if cfg.name in ("adam", "adamw"):
+        return adamw(cfg.beta1, cfg.beta2, cfg.eps,
+                     cfg.weight_decay if cfg.name == "adamw" else 0.0,
+                     cfg.grad_clip, sd)
+    if cfg.name == "sgd":
+        return sgd(cfg.beta1, cfg.grad_clip, sd)
+    raise ValueError(f"unknown optimizer {cfg.name!r}")

@@ -1,0 +1,276 @@
+"""The port's slice as a whole held against the JAX package on the CPU:
+``FSLGANTrainer.train_epoch`` through the federation engine (sync, loop
+backend, identity codec, ``fed.kernel_aggregation``), plus the planning,
+engine and entry-point contracts around it.
+
+Both trainers start from the same parameters (the JAX init, bridged) and
+draw the same host stream (``np.random.default_rng(seed)``).  The JAX
+trainer runs its fedavg Pallas kernel in interpret mode, the port its
+plain version.
+"""
+import os
+import subprocess
+import sys
+from dataclasses import astuple
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.registry import get_config as jget_config
+from repro.core.devices import make_pool as jmake_pool
+from repro.core.gan import FSLGANTrainer as JTrainer
+from repro.core.selection import plan_all_clients as jplan_all_clients
+from repro.core.simulate import plan_epoch_time as jplan_epoch_time
+from repro.data import partition_dirichlet, synthetic_mnist
+from repro.fed.engine import ClientSpec as JClientSpec
+from repro.fed.engine import FederationEngine as JEngine
+from repro.fed.events import BernoulliAvailability as JBernoulli
+from repro.fed.transport import apply_delta as japply_delta
+from repro.fed.transport import delta_tree as jdelta_tree
+from repro.fed.transport import tree_bytes as jtree_bytes
+from repro.models.dcgan import disc_layer_costs, disc_layer_names
+from repro_torch.bridge import params_from_numpy
+from repro_torch.configs.registry import get_config
+from repro_torch.core.devices import make_pool
+from repro_torch.core.gan import FSLGANTrainer
+from repro_torch.core.selection import STRATEGIES, plan_all_clients
+from repro_torch.core.simulate import plan_epoch_time
+from repro_torch.fed.engine import ClientSpec, FederationEngine
+from repro_torch.fed.events import BernoulliAvailability
+from repro_torch.fed.transport import apply_delta, delta_tree, tree_bytes
+from repro_torch.tree import leaves
+
+ROUNDS, BATCHES = 2, 2
+SMALL = {"shape.global_batch": 8, "fsl.num_clients": 2,
+         "model.dcgan.base_filters": 8}
+# the JAX kernel runs as the JAX tests run it; the port ignores the flag
+KERNEL = {"fed.kernel_aggregation": True, "fed.kernel_interpret": True}
+# Biases that feed straight into a batch norm: their analytic gradient is
+# zero, the float gradient is rounding noise of 1e-7 .. 7e-7 (10-70x
+# Adam's eps), so each Adam step moves them by about +-lr with a sign the
+# noise picks, and the noise differs between frameworks.  They change no
+# output.  Instead of the 1e-4 of the other leaves, each side must stay
+# within lr x Adam steps of the shared initial value; the two sides can
+# then differ by up to twice that.
+BN_FED_BIASES = {("conv1", "b"), ("conv2", "b"), ("deconv0", "b"),
+                 ("deconv1", "b")}
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _paths(tree, prefix=()):
+    if not isinstance(tree, dict):
+        return [prefix]
+    return [p for k in sorted(tree) for p in _paths(tree[k], prefix + (k,))]
+
+
+@pytest.fixture(scope="module")
+def parts():
+    imgs, labels = synthetic_mnist(120, seed=0)
+    return partition_dirichlet(imgs, labels, 2, alpha=0.5, seed=0)
+
+
+@pytest.fixture(scope="module")
+def jax_run(parts):
+    """The JAX trainer's run, once per module (it compiles for ~20 s):
+    initial params, per-round metrics, final params — all numpy."""
+    tr = JTrainer(jget_config("dcgan-mnist").override({**SMALL, **KERNEL}),
+                  parts, seed=0)
+    cid0 = tr.client_ids[0]
+    init = (_np(tr.state.g_params), _np(tr.state.d_params[cid0]))
+    metrics = [tr.train_epoch(batches_per_client=BATCHES)
+               for _ in range(ROUNDS)]
+    final = (_np(tr.state.g_params),
+             {cid: _np(d) for cid, d in tr.state.d_params.items()})
+    return init, metrics, final
+
+
+def _port_trainer(parts, over, init=None):
+    tr = FSLGANTrainer(get_config("dcgan-mnist").override(over), parts,
+                       seed=0, device="cpu")
+    if init is not None:
+        g, d = init
+        tr.state.g_params = params_from_numpy(g, tr.device)
+        tr.state.d_params = {cid: params_from_numpy(d, tr.device)
+                             for cid in tr.client_ids}
+    return tr
+
+
+def test_train_epoch_matches_jax(parts, jax_run):
+    init, jmetrics, (jg, jd) = jax_run
+    tr = _port_trainer(parts, {**SMALL, **KERNEL}, init)
+    metrics = [tr.train_epoch(batches_per_client=BATCHES)
+               for _ in range(ROUNDS)]
+    for m, jm in zip(metrics, jmetrics):
+        assert set(m) == set(jm)
+        for k in ("d_loss", "g_loss"):
+            np.testing.assert_allclose(m[k], jm[k], rtol=1e-4)
+        for k in ("round_time_s", "clock_s", "up_mbytes", "down_mbytes",
+                  "num_clients", "stragglers", "mean_staleness",
+                  "codec_error"):
+            assert m[k] == jm[k], k
+    drift = tr.cfg.optim.lr * ROUNDS * BATCHES    # Adam steps per tree
+    g0, d0 = init
+    for got, want, start in ([(tr.state.g_params, jg, g0)]
+                             + [(tr.state.d_params[cid], jd[cid], d0)
+                                for cid in tr.client_ids]):
+        for path, g, w, s in zip(_paths(got), leaves(got),
+                                 jax.tree.leaves(want),
+                                 jax.tree.leaves(start)):
+            if path[-2:] in BN_FED_BIASES:
+                for side in (g.numpy(), w):
+                    np.testing.assert_allclose(side, s, rtol=0, atol=drift,
+                                               err_msg=str(path))
+            else:
+                np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-4,
+                                           err_msg=str(path))
+
+
+def test_engine_sync_equals_sequential_bit_for_bit(parts):
+    """The port's twin of tests/test_fed_runtime.py's pin: with the host
+    FedAvg, the engine round is the sequential loop, bit for bit."""
+    ta = _port_trainer(parts, SMALL)
+    tb = _port_trainer(parts, SMALL)
+    for _ in range(ROUNDS):
+        ma = ta.train_epoch(batches_per_client=BATCHES)
+        mb = tb.train_epoch_sequential(batches_per_client=BATCHES)
+        for k in ("d_loss", "g_loss", "num_clients"):
+            assert ma[k] == mb[k]
+    for cid in ta.state.d_params:
+        for a, b in zip(leaves(ta.state.d_params[cid]),
+                        leaves(tb.state.d_params[cid])):
+            assert torch.equal(a, b)
+    for a, b in zip(leaves(ta.state.g_params), leaves(tb.state.g_params)):
+        assert torch.equal(a, b)
+
+
+def test_generate_gives_images(parts):
+    out = _port_trainer(parts, SMALL).generate(5, seed=1)
+    assert out.shape == (5, 28, 28, 1) and np.all(np.abs(out) <= 1.0)
+
+
+# ---------------------------------------------------------------------------
+# planning and the engine against the reference
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("strategy", STRATEGIES)
+@pytest.mark.parametrize("preset", ["paper", "uniform"])
+def test_plans_and_prices_match_reference(strategy, preset):
+    cfg = jget_config("dcgan-mnist").model.dcgan
+    costs = disc_layer_costs(cfg)
+    layers = [(n, costs[n]) for n in disc_layer_names(cfg)]
+    for seed in range(3):
+        jpool = jmake_pool(preset, 5, 4, seed)
+        pool = make_pool(preset, 5, 4, seed)
+        assert [astuple(c) for c in pool] == [astuple(c) for c in jpool]
+        jplans = jplan_all_clients(jpool, layers, strategy, seed)
+        plans = plan_all_clients(pool, layers, strategy, seed)
+        assert list(plans) == list(jplans)
+        for (cid, p), cl, jcl in zip(plans.items(), pool, jpool):
+            assert astuple(p) == astuple(jplans[cid])
+            assert plan_epoch_time(p, cl, 3, 0.05) == \
+                jplan_epoch_time(jplans[cid], jcl, 3, 0.05)
+
+
+def test_engine_round_matches_reference_with_deadline_and_churn():
+    """Scheduling alone (a bare callable as the program): availability
+    churn, the straggler deadline, link pricing and byte accounting."""
+    fed = {"fed.deadline_s": 3.0, "fed.availability": 0.7,
+           "fed.availability_seed": 3}
+    tree = {"w": np.ones((64, 32), np.float32),
+            "b": {"x": np.zeros(17, np.float32)}}
+    times = [0.5, 1.0, 2.9, 0.1, 2.0]
+    jeng = JEngine(jget_config("dcgan-mnist").override(fed).fed,
+                   [JClientSpec(f"c{i}", 10.0 + i, t)
+                    for i, t in enumerate(times)])
+    eng = FederationEngine(get_config("dcgan-mnist").override(fed).fed,
+                           [ClientSpec(f"c{i}", 10.0 + i, t)
+                            for i, t in enumerate(times)])
+    jtree = jax.tree.map(jnp.asarray, tree)
+    ttree = params_from_numpy(tree, "cpu")
+    for _ in range(4):
+        jrep = jeng.run_round(jtree, lambda cid, p: (p, {}),
+                              down_bytes=50_000)
+        rep = eng.run_round(ttree, lambda cid, p: (p, {}), down_bytes=50_000)
+        for k in ("participated", "unavailable", "stragglers",
+                  "round_time_s", "clock_s", "finish_s", "codec_error",
+                  "version"):
+            assert getattr(rep, k) == getattr(jrep, k), k
+        assert rep.traffic.up_bytes == jrep.traffic.up_bytes
+        assert rep.traffic.down_bytes == jrep.traffic.down_bytes
+
+
+def test_availability_trace_matches_reference():
+    ours, ref = BernoulliAvailability(0.5, 7), JBernoulli(0.5, 7)
+    for r in range(20):
+        for cid in ("c0", "c1", "c7"):
+            assert ours.available(cid, r) == ref.available(cid, r)
+
+
+def test_transport_helpers_match_reference():
+    rng = np.random.default_rng(0)
+    a = {"w": rng.standard_normal((5, 3)).astype(np.float32),
+         "b": {"x": rng.standard_normal(4).astype(np.float32)}}
+    b = jax.tree.map(lambda l: l * 0.5, a)
+    assert tree_bytes(params_from_numpy(a, "cpu")) == jtree_bytes(a)
+    d = delta_tree(params_from_numpy(a, "cpu"), params_from_numpy(b, "cpu"))
+    jd = jdelta_tree(a, b)
+    back = apply_delta(params_from_numpy(b, "cpu"), d)
+    jback = japply_delta(b, jd)
+    for x, y in zip(leaves(d) + leaves(back),
+                    jax.tree.leaves(jd) + jax.tree.leaves(jback)):
+        np.testing.assert_array_equal(x.numpy(), np.asarray(y))
+
+
+# ---------------------------------------------------------------------------
+# entry points and isolation
+# ---------------------------------------------------------------------------
+
+def test_trainer_runs_on_the_gpu_unless_told_otherwise(parts, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FSLGANTrainer(get_config("dcgan-mnist").override(SMALL), parts)
+
+
+@pytest.mark.parametrize("over", [
+    {"fed.mode": "fedasync"}, {"fed.mode": "fedbuff"},
+    {"fed.codec": "int8"}, {"fed.backend": "vectorized"},
+    {"fed.backend": "auto"}, {"fed.server_reduce": "stream"},
+    {"fed.hierarchy_cohorts": 2}, {"fed.shard_clients": True},
+    {"split.enabled": True}, {"privacy.enabled": True},
+    {"control.mode": "adaptive"}, {"obs.enabled": True},
+    {"obs.health.enabled": True},
+])
+def test_unported_option_raises(parts, over):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        FSLGANTrainer(get_config("dcgan-mnist").override({**SMALL, **over}),
+                      parts, device="cpu")
+
+
+def test_unported_backend_argument_raises(parts):
+    tr = _port_trainer(parts, SMALL)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tr.train_epoch(batches_per_client=1, backend="vectorized")
+
+
+def test_port_imports_neither_jax_nor_repro():
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages("
+        "repro_torch.__path__, 'repro_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "assert len(names) > 20, names\n"
+        "assert not bad, bad\n")
+    env = {**os.environ, "PYTHONPATH": os.path.abspath(src)}
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
