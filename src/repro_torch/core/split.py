@@ -1,15 +1,32 @@
-"""Model splitting (paper §3.2/§4): split plans.  Port of the planning
-part of ``repro/core/split.py``.
+"""Model splitting (paper §3.2/§4): the SplitPlan as the *executed* local
+step.  Port of ``repro/core/split.py`` for the sequential step; the
+pipelined (1F1B) step waits for ROADMAP Queue A item 12.
 
 A :class:`SplitPlan` records which device trains which contiguous layer
-range of the discriminator.  In this slice the plan prices the round
-(``core/simulate.plan_epoch_time``) while training runs the monolithic D;
-the executed split (``SplitExecution``) waits for ROADMAP Queue A item 5.
+range of the discriminator.  :class:`SplitExecution` compiles a plan into a
+staged ``value_and_grad``: the forward runs device segment by device
+segment, the backward walks the same segments in reverse, and EVERY tensor
+that crosses a segment boundary — the smashed activation on the way
+forward, its gradient on the way back — passes through a
+:class:`BoundaryStage` first.  With the identity stage the gradient is the
+monolithic one bit for bit; codec stages (``fed/transport``) and Gaussian
+clip+noise stages model lossy / noisy LAN links.  Stages are applied
+straight-through (never differentiated): they model the wire, not the math.
+
+The same object prices what it executes: ``step_wire_bytes`` measures the
+per-boundary LAN payload of one local step, which
+``core/simulate.plan_epoch_time`` consumes in place of the paper's fixed
+hop constant and ``fed/transport.TrafficLedger`` records per round.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch import keys
+from repro_torch.tree import leaves, tree_map, unflatten_like
 
 
 @dataclass(frozen=True)
@@ -68,3 +85,518 @@ def plan_segments(plan: SplitPlan) -> List[Tuple[str, Tuple[str, ...]]]:
         else:
             segs.append((p.device_id, p.layer_names))
     return segs
+
+
+@dataclass(frozen=True)
+class Boundary:
+    """One LAN hand-off in the executed chain."""
+    index: int
+    from_device: str
+    to_device: str
+    depth: int                  # layers applied before the hand-off
+
+
+def partition_params(plan: SplitPlan, params) -> List[Dict[str, Any]]:
+    """Partition a {layer_name: subtree} param tree by portion: what each
+    device actually holds.  Layers absent from ``params`` are skipped."""
+    return [{n: params[n] for n in p.layer_names if n in params}
+            for p in plan.portions]
+
+
+def tensor_wire_bytes(shape: Sequence[int],
+                      dtype: torch.dtype = torch.float32) -> int:
+    """Native payload bytes of one boundary tensor (identity wire)."""
+    n = 1
+    for s in shape:
+        n *= int(s)
+    return n * torch.empty((), dtype=dtype).element_size()
+
+
+# ---------------------------------------------------------------------------
+# boundary stages
+# ---------------------------------------------------------------------------
+
+class BoundaryStage:
+    """What happens to a tensor as it crosses a segment boundary.
+
+    ``apply(x, key)`` transforms the tensor (identity here); ``wire_bytes``
+    prices what the transformed tensor costs on the LAN.  Stages are
+    straight-through: the backward pass applies the stage to the crossing
+    *gradient* but never differentiates through the stage itself.
+    """
+    name = "identity"
+    stochastic = False          # True => ``apply`` consumes the key
+
+    @property
+    def signature(self) -> Tuple:
+        """Step identity: stages with equal signatures run the same staged
+        step (``fed/programs.LocalProgram`` dedups on this)."""
+        return (self.name,)
+
+    def apply(self, x: torch.Tensor, key=None) -> torch.Tensor:
+        del key
+        return x
+
+    def wire_bytes(self, shape: Sequence[int],
+                   dtype: torch.dtype = torch.float32) -> int:
+        return tensor_wire_bytes(shape, dtype)
+
+
+class CodecBoundaryStage(BoundaryStage):
+    """Run each boundary tensor through a transport codec round-trip: the
+    downstream device computes on what a compressed LAN link delivers.
+    Only stateless codecs qualify — ``make_boundary_stage`` builds top-k
+    without error feedback."""
+    stochastic = False
+
+    def __init__(self, codec):
+        if getattr(codec, "error_feedback", False):
+            raise ValueError(
+                "stateful codecs (top-k error feedback) cannot run as a "
+                "boundary stage; build with error_feedback=False")
+        self.codec = codec
+        self.name = codec.name
+
+    @property
+    def signature(self) -> Tuple:
+        return (self.name, float(getattr(self.codec, "frac", 0.0)))
+
+    def apply(self, x: torch.Tensor, key=None) -> torch.Tensor:
+        del key
+        dec, _ = self.codec.roundtrip(x)
+        return dec
+
+    def wire_bytes(self, shape: Sequence[int],
+                   dtype: torch.dtype = torch.float32) -> int:
+        _, nbytes = self.codec.roundtrip(torch.zeros(tuple(shape),
+                                                     dtype=dtype))
+        return int(nbytes)
+
+
+class GaussianBoundaryStage(BoundaryStage):
+    """Per-example clip + Gaussian noise on every crossing tensor — the
+    split-learning analogue of DP-SGD's privatized release, applied to the
+    smashed activation (fwd) and its gradient (bwd)."""
+    name = "dp"
+    stochastic = True
+
+    def __init__(self, clip: float, sigma: float):
+        self.clip = float(clip)
+        self.sigma = float(sigma)
+
+    @property
+    def signature(self) -> Tuple:
+        return (self.name, self.clip, self.sigma)
+
+    def apply(self, x: torch.Tensor, key=None) -> torch.Tensor:
+        flat = x.reshape(x.shape[0], -1).to(torch.float32)
+        norms = torch.linalg.vector_norm(flat, dim=1)
+        scale = torch.clamp(self.clip / torch.clamp(norms, min=1e-12),
+                            max=1.0)
+        y = flat * scale[:, None]
+        if self.sigma > 0.0 and key is not None:
+            y = y + self.sigma * self.clip * keys.normal(key, y.shape,
+                                                         y.device)
+        return y.reshape(x.shape).to(x.dtype)
+
+
+class ComposedBoundaryStage(BoundaryStage):
+    """Sequential composition of boundary stages (applied in listed order,
+    e.g. ``int8+dp`` = codec round-trip, then clip+noise).  Wire pricing
+    uses the first codec stage in the chain; the step key goes to every
+    sub-stage unchanged, so at most one stochastic stage may appear."""
+
+    def __init__(self, stages: Sequence[BoundaryStage]):
+        self.stages_seq = list(stages)
+        if sum(1 for s in self.stages_seq if s.stochastic) > 1:
+            raise ValueError("at most one stochastic stage per composition")
+        self.name = "+".join(s.name for s in self.stages_seq)
+        self.stochastic = any(s.stochastic for s in self.stages_seq)
+
+    @property
+    def signature(self) -> Tuple:
+        return ("compose",) + tuple(s.signature for s in self.stages_seq)
+
+    def apply(self, x: torch.Tensor, key=None) -> torch.Tensor:
+        for s in self.stages_seq:
+            x = s.apply(x, key)
+        return x
+
+    def wire_bytes(self, shape: Sequence[int],
+                   dtype: torch.dtype = torch.float32) -> int:
+        for s in self.stages_seq:
+            if isinstance(s, CodecBoundaryStage):
+                return s.wire_bytes(shape, dtype)
+        return tensor_wire_bytes(shape, dtype)
+
+
+class FusedBoundaryStage(BoundaryStage):
+    """``codec + dp`` in ONE traversal: quantize/dequantize, per-example
+    clip and Gaussian noise fused (``kernels/boundary_fuse``; the CUDA
+    kernel with ``use_kernel`` on the GPU).  It draws the same noise as the
+    composed stage for the same key, so fused == composed per sample.
+    Fusable codecs are the elementwise ones; top-k stays composed."""
+
+    FUSABLE = ("none", "fp16", "int8")
+    stochastic = True
+
+    def __init__(self, codec_name: str, clip: float, sigma: float, *,
+                 use_kernel: bool = False):
+        if codec_name not in self.FUSABLE:
+            raise ValueError(f"codec {codec_name!r} is not fusable "
+                             f"(expected one of {self.FUSABLE})")
+        self.codec_name = codec_name
+        self.clip = float(clip)
+        self.sigma = float(sigma)
+        self.use_kernel = bool(use_kernel)
+        self.name = "dp" if codec_name == "none" else f"{codec_name}+dp"
+
+    @property
+    def signature(self) -> Tuple:
+        return ("fused", self.codec_name, self.clip, self.sigma,
+                self.use_kernel)
+
+    def apply(self, x: torch.Tensor, key=None) -> torch.Tensor:
+        from repro_torch.kernels.boundary_fuse.ops import fused_boundary_flat
+        flat = x.reshape(x.shape[0], -1).to(torch.float32).contiguous()
+        noise_scale = 0.0
+        if self.sigma > 0.0 and key is not None:
+            noise_scale = self.sigma * self.clip
+            noise = keys.normal(key, flat.shape, flat.device)
+        else:
+            noise = torch.zeros_like(flat)
+        y = fused_boundary_flat(flat, self.clip, noise_scale, noise,
+                                codec=self.codec_name,
+                                use_kernel=self.use_kernel)
+        return y.reshape(x.shape).to(x.dtype)
+
+    def wire_bytes(self, shape: Sequence[int],
+                   dtype: torch.dtype = torch.float32) -> int:
+        if self.codec_name == "none":
+            return tensor_wire_bytes(shape, dtype)
+        from repro_torch.fed.transport import make_codec
+        _, nbytes = make_codec(self.codec_name).roundtrip(
+            torch.zeros(tuple(shape), dtype=dtype))
+        return int(nbytes)
+
+
+def make_boundary_stage(split_cfg, name: Optional[str] = None
+                        ) -> BoundaryStage:
+    """Factory keyed by ``config.SplitConfig.boundary_stage``; ``name``
+    overrides it.  Composed names (``"fp16+dp"``, ``"int8+dp"``,
+    ``"topk+dp"``) chain stages in order; a fusable codec followed by
+    ``dp`` takes the fused stage unless ``split_cfg.fuse_boundary`` is
+    off."""
+    if name is None:
+        name = getattr(split_cfg, "boundary_stage", "identity")
+    if "+" in name:
+        parts = [p for p in name.split("+") if p]
+        if (len(parts) == 2 and parts[1] == "dp"
+                and parts[0] in FusedBoundaryStage.FUSABLE
+                and getattr(split_cfg, "fuse_boundary", True)):
+            return FusedBoundaryStage(
+                parts[0], split_cfg.stage_clip, split_cfg.stage_sigma,
+                use_kernel=getattr(split_cfg, "use_kernel", False))
+        return ComposedBoundaryStage(
+            [make_boundary_stage(split_cfg, p) for p in parts])
+    if name in ("", "identity", "none"):
+        return BoundaryStage()
+    if name == "dp":
+        return GaussianBoundaryStage(split_cfg.stage_clip,
+                                     split_cfg.stage_sigma)
+    from repro_torch.fed.transport import make_codec
+    return CodecBoundaryStage(make_codec(
+        name, topk_frac=getattr(split_cfg, "topk_frac", 0.01),
+        error_feedback=False))
+
+
+# ---------------------------------------------------------------------------
+# the executed split
+# ---------------------------------------------------------------------------
+
+class SplitExecution:
+    """A :class:`SplitPlan` compiled into the executed local training step.
+
+    ``apply_layer(name, params, x) -> x`` applies one named layer;
+    ``tails`` is one scalar loss tail per forward pass (the GAN D loss is
+    two passes: BCE(real, 1) and BCE(fake, 0)).  Both passes traverse the
+    SAME boundaries per step.
+
+    Under the identity stage ``value_and_grad`` is bit-exact with the
+    monolithic gradient: each segment's forward is recorded by autograd
+    from a boundary input detached and re-leafed, its backward runs the
+    same operations the monolithic backward runs, and the cotangent chain
+    crosses the boundaries where the activations did.
+    """
+
+    def __init__(self, plan: SplitPlan, apply_layer, tails: Sequence, *,
+                 stage: Optional[BoundaryStage] = None,
+                 stages: Optional[Sequence[BoundaryStage]] = None,
+                 pipeline_microbatches: int = 1):
+        """``stage`` applies one stage at every boundary; ``stages`` assigns
+        one per boundary (index-aligned with ``self.boundaries``)."""
+        if int(pipeline_microbatches) > 1:
+            raise NotImplementedError(
+                "the pipelined split step (pipeline_microbatches > 1) is not "
+                "ported to repro_torch yet (ROADMAP Queue A item 12)")
+        self.plan = plan
+        self.apply_layer = apply_layer
+        self.tails = tuple(tails)
+        self.stage = stage or BoundaryStage()
+        self.pipeline_microbatches = 1
+        self.segments = plan_segments(plan)
+        self.boundaries: List[Boundary] = []
+        depth = 0
+        for i, (dev, names) in enumerate(self.segments[:-1]):
+            depth += len(names)
+            self.boundaries.append(Boundary(
+                i, dev, self.segments[i + 1][0], depth))
+        if stages is None:
+            self.stages: List[BoundaryStage] = \
+                [self.stage] * len(self.boundaries)
+        else:
+            self.stages = list(stages)
+            if len(self.stages) != len(self.boundaries):
+                raise ValueError(
+                    f"{len(self.stages)} stages for "
+                    f"{len(self.boundaries)} boundaries")
+        self._shape_cache: Dict[Tuple, List[Tuple[int, ...]]] = {}
+
+    # ------------------------------------------------------------------
+    @property
+    def num_boundaries(self) -> int:
+        return len(self.boundaries)
+
+    @property
+    def num_passes(self) -> int:
+        return len(self.tails)
+
+    @property
+    def stochastic(self) -> bool:
+        """True when ANY boundary's stage consumes the noise key."""
+        return any(s.stochastic for s in self.stages)
+
+    @property
+    def signature(self) -> Tuple:
+        """Step key: plans with the same boundary depths and the same
+        per-boundary stages run the same staged step — device identity
+        only affects pricing, never math."""
+        return (tuple(b.depth for b in self.boundaries),
+                tuple(s.signature for s in self.stages))
+
+    def _key(self, key, b: int, p: int, direction: int):
+        """Per-(boundary, pass, direction) stage key, distinct within one
+        step (direction: 0 fwd, 1 bwd)."""
+        if key is None:
+            return None
+        return keys.fold_in(key, 1 + (b * self.num_passes + p) * 2
+                            + direction)
+
+    def _segment(self, names, params, xs):
+        out = []
+        for x in xs:
+            for n in names:
+                x = self.apply_layer(n, params, x)
+            out.append(x)
+        return tuple(out)
+
+    # ------------------------------------------------------------------
+    def run(self, params, batches: Sequence[torch.Tensor], key=None,
+            collect: bool = False):
+        """One staged forward+backward over per-pass ``batches``.
+
+        Returns ``(loss, grads, records)``; ``records`` (when ``collect``)
+        holds the staged tensors that crossed each boundary:
+        ``records["fwd"][b][p]`` / ``records["bwd"][b][p]``.
+        """
+        if len(batches) != self.num_passes:
+            raise ValueError(f"{len(batches)} batches for "
+                             f"{self.num_passes} loss tails")
+        if key is None and self.stochastic:
+            # a stochastic stage never runs keyless-and-noiseless
+            key = keys.root(keys.DEFAULT, 0)
+        records = {"fwd": [None] * self.num_boundaries,
+                   "bwd": [None] * self.num_boundaries}
+        flat = leaves(params)
+        with torch.enable_grad():
+            live = [p.detach().requires_grad_(True) for p in flat]
+            tree = unflatten_like(params, live)
+            xs = tuple(batches)
+            seg_in, seg_out = [], []
+            last = len(self.segments) - 1
+            for si, (dev, names) in enumerate(self.segments):
+                if si > 0:
+                    xs = tuple(x.detach().requires_grad_(True) for x in xs)
+                seg_in.append(xs)
+                outs = self._segment(names, tree, xs)
+                seg_out.append(outs)
+                if si < last:
+                    with torch.no_grad():
+                        xs = tuple(self.stages[si].apply(
+                            x.detach(), self._key(key, si, p, 0))
+                            for p, x in enumerate(outs))
+                    if collect:
+                        records["fwd"][si] = xs
+            loss = sum(tail(z) for tail, z in zip(self.tails, seg_out[-1]))
+        grads: List[Optional[torch.Tensor]] = [None] * len(live)
+        g_act = None
+        for si in range(last, -1, -1):
+            # each segment's backward: its parameters' gradients (None for
+            # parameters it does not use) and the cotangent of its input
+            ins = list(seg_in[si]) if si > 0 else []
+            if si == last:
+                outputs, grad_outputs = [loss], None
+            else:
+                outputs, grad_outputs = list(seg_out[si]), list(g_act)
+            got = torch.autograd.grad(outputs, live + ins,
+                                      grad_outputs=grad_outputs,
+                                      allow_unused=True)
+            for i, g in enumerate(got[:len(live)]):
+                if g is not None:
+                    grads[i] = g if grads[i] is None else grads[i] + g
+            if si > 0:
+                with torch.no_grad():
+                    g_act = tuple(self.stages[si - 1].apply(
+                        g, self._key(key, si - 1, p, 1))
+                        for p, g in enumerate(got[len(live):]))
+                if collect:
+                    records["bwd"][si - 1] = g_act
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(flat, grads)]
+        return loss.detach(), unflatten_like(params, grads), records
+
+    def value_and_grad(self, params, real, fake, key=None):
+        """The D-loss contract of ``fed/programs.make_local_step``:
+        ``(params, real, fake, key) -> (loss, grads)`` through the staged
+        execution."""
+        loss, grads, _ = self.run(params, (real, fake), key)
+        return loss, grads
+
+    # ------------------------------------------------------------------
+    def forward_boundaries(self, params, x, key=None,
+                           upto: Optional[int] = None) -> List[torch.Tensor]:
+        """The staged activations ONE forward pass ships, per boundary
+        (post-codec, post-noise).  ``upto`` stops after that boundary."""
+        if key is None and self.stochastic:
+            key = keys.root(keys.DEFAULT, 0)
+        out = []
+        with torch.no_grad():
+            for si, (dev, names) in enumerate(self.segments[:-1]):
+                for n in names:
+                    x = self.apply_layer(n, params, x)
+                x = self.stages[si].apply(x, self._key(key, si, 0, 0))
+                out.append(x)
+                if upto is not None and si >= upto:
+                    break
+        return out
+
+    def boundary_shapes(self, params, x_shape: Sequence[int],
+                        dtype: torch.dtype = torch.float32
+                        ) -> List[Tuple[int, ...]]:
+        """Activation shape at each boundary for one pass of ``x_shape``
+        batches, traced on the ``meta`` device (no FLOPs)."""
+        ck = (tuple(x_shape), dtype)
+        if ck not in self._shape_cache:
+            meta = tree_map(lambda p: torch.empty_like(p, device="meta"),
+                            params)
+            x = torch.empty(tuple(x_shape), dtype=dtype, device="meta")
+            shapes = []
+            with torch.no_grad():
+                for dev, names in self.segments[:-1]:
+                    for n in names:
+                        x = self.apply_layer(n, meta, x)
+                    shapes.append(tuple(x.shape))
+            self._shape_cache[ck] = shapes
+        return self._shape_cache[ck]
+
+    def segment_costs(self) -> List[float]:
+        """Compute units per device segment (portions merged exactly as
+        ``plan_segments`` merges them)."""
+        costs: List[float] = []
+        prev: Optional[str] = None
+        for p in self.plan.portions:
+            if prev == p.device_id:
+                costs[-1] += p.cost
+            else:
+                costs.append(p.cost)
+                prev = p.device_id
+        return costs
+
+    def round_timeline(self, time_factors: Dict[str, float], *,
+                       lan_latency_s: float = 0.050,
+                       compute_unit_s: float = 0.010,
+                       bwd_fwd_ratio: float = 2.0,
+                       hop_bytes: Optional[Sequence[int]] = None,
+                       lan_bandwidth_bps: float = 100e6
+                       ) -> Tuple[List[Dict[str, Any]], float]:
+        """The ordered phases of ONE local batch under this plan: forward
+        segment computes and boundary hops chain down the device list, then
+        the backward pass walks the chain in reverse (segment computes
+        scaled ``bwd_fwd_ratio``).
+
+        ``hop_bytes`` lists the bytes of each hop event in the flattened
+        ``[b0.fwd, b0.bwd, b1.fwd, ...]`` order; given, each hop costs
+        ``lan_latency_s + 8*bytes/bw``, else ``lan_latency_s``.  Returns
+        ``(phases, batch_time_s)``; the durations sum to
+        ``core/simulate.plan_epoch_time``'s per-batch time under the same
+        arguments.
+        """
+        seg_costs = self.segment_costs()
+        bw = max(float(lan_bandwidth_bps), 1.0)
+
+        def hop_time(b: int, direction: int) -> float:
+            if hop_bytes is None:
+                return lan_latency_s
+            return lan_latency_s + 8.0 * int(hop_bytes[2 * b + direction]) / bw
+
+        def seg_time(si: int, ratio: float) -> float:
+            dev = self.segments[si][0]
+            return seg_costs[si] * compute_unit_s * time_factors[dev] * ratio
+
+        phases: List[Dict[str, Any]] = []
+        t = 0.0
+
+        def emit(name: str, cat: str, track: str, dur: float, **args):
+            nonlocal t
+            phases.append({"name": name, "cat": cat, "track": track,
+                           "t0": t, "t1": t + dur, "args": args})
+            t += dur
+
+        for si, (dev, names) in enumerate(self.segments):
+            emit(f"fwd {dev}", "segment", dev, seg_time(si, 1.0),
+                 layers=len(names))
+            if si < len(self.segments) - 1:
+                b = self.boundaries[si]
+                emit(f"b{b.index} fwd {b.from_device}->{b.to_device}",
+                     "boundary", b.from_device, hop_time(si, 0),
+                     boundary=b.index, direction="fwd",
+                     stage=self.stages[si].name)
+        for si in range(len(self.segments) - 1, -1, -1):
+            dev = self.segments[si][0]
+            emit(f"bwd {dev}", "segment", dev, seg_time(si, bwd_fwd_ratio))
+            if si > 0:
+                b = self.boundaries[si - 1]
+                emit(f"b{b.index} bwd {b.to_device}->{b.from_device}",
+                     "boundary", b.to_device, hop_time(si - 1, 1),
+                     boundary=b.index, direction="bwd",
+                     stage=self.stages[si - 1].name)
+        return phases, t
+
+    def step_wire_bytes(self, params, x_shape: Sequence[int],
+                        dtype: torch.dtype = torch.float32
+                        ) -> Tuple[int, List[Dict[str, int]]]:
+        """Measured LAN bytes of ONE local step under this plan + stage.
+
+        Returns ``(total, per_boundary)`` where ``per_boundary[b]`` has
+        ``fwd``/``bwd`` bytes for one pass; the total counts both
+        directions across all passes (the cotangent has the activation's
+        shape, so fwd == bwd under every stage here).
+        """
+        per = []
+        total = 0
+        for si, shp in enumerate(self.boundary_shapes(params, x_shape,
+                                                      dtype)):
+            wb = self.stages[si].wire_bytes(shp, dtype)
+            per.append({"fwd": wb, "bwd": wb})
+            total += 2 * wb * self.num_passes
+        return total, per

@@ -8,7 +8,9 @@ Each round, every available client
   1. downloads the server's fake batches      (downlink, LinkModel-priced),
   2. runs local discriminator training       (compute, priced by the
      paper's analytic model ``core/simulate.plan_epoch_time``),
-  3. uplinks its discriminator through the codec (``fed/transport``), and
+  3. uplinks its discriminator through the codec (``fed/transport``) —
+     lossy codecs compress the delta vs the downloaded tree, after the
+     optional pre-codec ``uplink_stage`` (uplink DP) privatized it — and
   4. the server aggregates per its policy     (``fed/policies``).
 
 Sync mode is a barrier with batched dispatch: all clients that can possibly
@@ -30,7 +32,8 @@ from typing import Any, Dict, List, Optional, Tuple
 from repro_torch.fed.events import make_availability
 from repro_torch.fed.policies import ClientUpdate, make_policy
 from repro_torch.fed.programs import as_program
-from repro_torch.fed.transport import LinkModel, TrafficLedger, make_codec
+from repro_torch.fed.transport import (LinkModel, TrafficLedger, apply_delta,
+                                      delta_tree, make_codec, tree_rel_error)
 
 
 @dataclass(frozen=True)
@@ -63,8 +66,8 @@ class RoundReport:
     # per-client virtual finish times (download + compute + uplink);
     # provably-late stragglers that never ran record download + compute
     finish_s: Dict[str, float] = field(default_factory=dict)
-    # relative L2 error the codec cost each executed client's update
-    # (0.0 under the identity codec)
+    # relative L2 error the codec cost each executed client's (possibly
+    # privatized) delta (0.0 under the identity codec)
     codec_error: Dict[str, float] = field(default_factory=dict)
 
     @property
@@ -76,7 +79,7 @@ class RoundReport:
 
 class FederationEngine:
     def __init__(self, fed_cfg, specs: List[ClientSpec], *,
-                 weighted: bool = True):
+                 weighted: bool = True, uplink_stage=None):
         if fed_cfg.mode != "sync":
             raise NotImplementedError(
                 f"fed.mode={fed_cfg.mode!r} is not ported to repro_torch yet "
@@ -94,8 +97,15 @@ class FederationEngine:
         self.specs = {s.client_id: s for s in specs}
         self.weighted = bool(weighted)
         self.policy = make_policy(fed_cfg, weighted=weighted)
+        # pre-codec uplink transform (privacy/defenses.DPUplinkStage): runs
+        # on the update delta BEFORE compression, so the codec and the
+        # server only ever see the privatized delta.  None: no transform.
+        self.uplink_stage = uplink_stage
         self.codec_name = fed_cfg.codec
-        self.codecs = {cid: make_codec(fed_cfg.codec) for cid in self.roster}
+        self.codecs = {cid: make_codec(fed_cfg.codec,
+                                       topk_frac=fed_cfg.topk_frac,
+                                       error_feedback=fed_cfg.error_feedback)
+                       for cid in self.roster}
         self.deadline_s = float(fed_cfg.deadline_s)
         self.uplink = LinkModel(fed_cfg.wan_latency_s, fed_cfg.uplink_bps)
         self.downlink = LinkModel(fed_cfg.wan_latency_s, fed_cfg.downlink_bps)
@@ -108,11 +118,22 @@ class FederationEngine:
         self._lan_by: Dict[str, int] = {}  # this round's LAN bytes/client
 
     # ------------------------------------------------------------------
-    def _codec_roundtrip(self, cid: str, params) -> Tuple[Any, int, float]:
-        """Uplink params through the client's codec.  Returns ``(decoded,
-        wire_bytes, rel_error)``; only the identity codec is ported, which
-        sends the parameters themselves at zero error."""
-        dec, nbytes = self.codecs[cid].roundtrip(params)
+    def _codec_roundtrip(self, cid: str, base_tree, params
+                         ) -> Tuple[Any, int, float]:
+        """Uplink params through the client's codec; lossy codecs compress
+        the delta vs the tree the client downloaded (``base_tree``).  An
+        ``uplink_stage`` runs on the delta first.  Returns ``(decoded,
+        wire_bytes, rel_error)``, ``rel_error`` being the relative L2 error
+        the codec cost the (possibly privatized) delta."""
+        codec = self.codecs[cid]
+        if codec.encodes_delta or self.uplink_stage is not None:
+            delta = delta_tree(params, base_tree)
+            if self.uplink_stage is not None:
+                delta = self.uplink_stage(cid, delta)
+            dec, nbytes = codec.roundtrip(delta)
+            err = tree_rel_error(dec, delta) if codec.encodes_delta else 0.0
+            return apply_delta(base_tree, dec), nbytes, err
+        dec, nbytes = codec.roundtrip(params)
         return dec, nbytes, 0.0
 
     def _split_roster(self) -> Tuple[List[str], List[str]]:
@@ -175,7 +196,8 @@ class FederationEngine:
         for res in results:
             cid = res.client_id
             spec = self.specs[cid]
-            decoded, up_b, cerr = self._codec_roundtrip(cid, res.params)
+            decoded, up_b, cerr = self._codec_roundtrip(cid, global_tree,
+                                                       res.params)
             finish = down_t[cid] + spec.compute_time_s \
                 + self.uplink.transfer_time(up_b)
             rep.traffic.record(cid, up=up_b, down=db(cid),

@@ -7,5 +7,7 @@ launch, launch count), ``ops.py`` (the public op: layout glue, CUDA tensor
 version).  Sources live in ``repro_torch/csrc`` and build with
 :mod:`repro_torch.kernels.build`.
 
-  fedavg   weighted parameter average (the paper's server aggregation)
+  fedavg          weighted parameter average (the paper's server aggregation)
+  dp_clip         DP-SGD per-example clip, sum and noise
+  boundary_fuse   codec qdq + per-example clip + noise on a split crossing
 """

@@ -19,7 +19,8 @@ import time
 from pathlib import Path
 from typing import Dict, Optional, Sequence
 
-SOURCES: Dict[str, str] = {"fedavg": "fedavg.cu"}
+SOURCES: Dict[str, str] = {"fedavg": "fedavg.cu", "dp_clip": "dp_clip.cu",
+                           "boundary_fuse": "boundary_fuse.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,0 +1,421 @@
+"""The port's privacy slice held against the JAX package on the CPU: the
+dp_clip op, per-example gradients, the DP-SGD step, the uplink DP stage
+and the RDP accountant; plus the in-port pins of DP-SGD and uplink DP.
+
+On the CPU the port's ``dp_clip_noise_flat`` takes its plain version; it
+must match the JAX Pallas kernel run in interpret mode, fed the same noise
+array, to rtol 1e-5 / atol 1e-6 (a sum over B clipped examples in another
+order).  The RDP math is the reference's own Python, so epsilon must be
+equal to the last bit.  The CUDA kernel runs only on a GPU: its tests
+carry the ``gpu`` marker and skip here.
+"""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.config import DCGANConfig as JDCGANConfig
+from repro.config import OptimConfig as JOptimConfig
+from repro.core.gan import d_loss_fn as jd_loss_fn
+from repro.kernels.dp_clip.ops import dp_clip_noise_flat as jdp_clip_noise_flat
+from repro.kernels.dp_clip.ops import flatten_per_example as jflatten
+from repro.kernels.dp_clip.ops import unflatten_summed as junflatten
+from repro.models.dcgan import disc_init as jdisc_init
+from repro.optim import make_optimizer as jmake_optimizer
+from repro.privacy import defenses as jdef
+from repro_torch import keys
+from repro_torch.bridge import params_from_numpy
+from repro_torch.config import DCGANConfig, OptimConfig, PrivacyConfig
+from repro_torch.configs.registry import get_config
+from repro_torch.core.gan import FSLGANTrainer, d_loss_fn
+from repro_torch.data import partition_dirichlet, synthetic_mnist
+from repro_torch.fed.programs import make_local_step
+from repro_torch.kernels.dp_clip.kernel import dp_clip_noise_kernel
+from repro_torch.kernels.dp_clip.ops import (dp_clip_noise_flat,
+                                             dp_clip_noise_tree,
+                                             flatten_per_example,
+                                             unflatten_summed)
+from repro_torch.kernels.dp_clip.ref import dp_clip_noise_ref
+from repro_torch.optim import make_optimizer
+from repro_torch.privacy import defenses as tdef
+from repro_torch.tree import leaves
+
+TOL = dict(rtol=1e-5, atol=1e-6)
+SMALL = {"shape.global_batch": 8, "fsl.num_clients": 2,
+         "model.dcgan.base_filters": 8}
+DP = {"privacy.enabled": True, "privacy.mode": "dp_sgd",
+      "privacy.clip_norm": 0.1}
+BATCHES = 2
+# D biases that feed straight into a batch norm: their analytic gradient is
+# zero and the float one is rounding noise that differs between frameworks
+# (ROADMAP Queue C), so they are held to the scale of the whole gradient,
+# and after an Adam step to lr of their start.
+BN_FED_BIASES = {("conv1", "b"), ("conv2", "b")}
+
+
+def _paths(tree, prefix=()):
+    if not isinstance(tree, dict):
+        return [prefix]
+    return [p for k in sorted(tree) for p in _paths(tree[k], prefix + (k,))]
+
+
+def _stack(b, n, seed, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return ((rng.standard_normal((b, n)) * scale).astype(np.float32),
+            rng.standard_normal(n).astype(np.float32))
+
+
+# ---------------------------------------------------------------------------
+# the dp_clip op
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,n", [(6, 16865), (1, 1), (3, 4097), (5, 7),
+                                 (2, 2048)])
+@pytest.mark.parametrize("clip,noise_scale", [(0.5, 0.0), (0.5, 0.7),
+                                              (1e6, 0.0), (1e6, 1.3)])
+def test_dp_clip_flat_matches_jax_kernel(b, n, clip, noise_scale):
+    """clip 0.5 binds every row; 1e6 leaves every row under the clip."""
+    x, z = _stack(b, n, seed=b * 7919 + n)
+    want = jdp_clip_noise_flat(jnp.asarray(x), clip, noise_scale,
+                               jnp.asarray(z), use_kernel=True,
+                               interpret=True)
+    got = dp_clip_noise_flat(torch.tensor(x), clip, noise_scale,
+                             torch.tensor(z))
+    assert got.shape == (n,) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_dp_clip_zero_rows_pass_as_zero():
+    x, z = _stack(4, 300, seed=3)
+    x[1] = 0.0
+    got = dp_clip_noise_flat(torch.tensor(x), 0.5, 0.0, torch.tensor(z))
+    want = jdp_clip_noise_flat(jnp.asarray(x), 0.5, 0.0, jnp.asarray(z),
+                               use_kernel=True, interpret=True)
+    assert np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def _per_example_tree(b, seed):
+    rng = np.random.default_rng(seed)
+    return {"conv0": {"w": rng.standard_normal((b, 5, 5, 1, 3)),
+                      "b": rng.standard_normal((b, 3))},
+            "classifier": {"w": rng.standard_normal((b, 12, 1)),
+                           "b": rng.standard_normal((b, 1))}}
+
+
+def test_flat_order_is_the_jax_leaf_order():
+    """Noise element n lands on the same parameter as in the JAX package:
+    the (B, N) stack and the unflattened sum are laid out alike."""
+    tree = jax.tree.map(lambda a: a.astype(np.float32),
+                        _per_example_tree(3, seed=1))
+    jflat, jspec = jflatten(jax.tree.map(jnp.asarray, tree))
+    flat, spec = flatten_per_example(params_from_numpy(tree, "cpu"))
+    np.testing.assert_array_equal(flat.numpy(), np.asarray(jflat))
+    vec = np.arange(flat.shape[1], dtype=np.float32)
+    got = unflatten_summed(torch.tensor(vec), spec)
+    want = junflatten(jnp.asarray(vec), jspec)
+    for g, w in zip(leaves(got), jax.tree.leaves(want)):
+        assert tuple(g.shape) == w.shape
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_dp_clip_tree_draws_one_normal_per_parameter_from_its_key():
+    tree = params_from_numpy(jax.tree.map(
+        lambda a: a.astype(np.float32), _per_example_tree(4, seed=2)), "cpu")
+    key = keys.fold_in(keys.root(keys.DP_SGD, 5), 1, 0, 0, 0, 1)
+    a = dp_clip_noise_tree(tree, 0.3, 0.8, key)
+    flat, spec = flatten_per_example(tree)
+    noise = keys.normal(key, (flat.shape[1],), "cpu")
+    want = unflatten_summed(dp_clip_noise_ref(flat, 0.3, 0.8, noise), spec)
+    for g, w in zip(leaves(a), leaves(want)):
+        assert torch.equal(g, w)
+    b = dp_clip_noise_tree(tree, 0.3, 0.8, keys.fold_in(key, 0))
+    assert not torch.equal(leaves(a)[0], leaves(b)[0])
+
+
+def test_cpu_tensors_take_the_plain_version_not_the_kernel():
+    x, z = _stack(3, 100, seed=1)
+    before = dp_clip_noise_kernel.launches
+    dp_clip_noise_flat(torch.tensor(x), 1.0, 0.5, torch.tensor(z))
+    assert dp_clip_noise_kernel.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        dp_clip_noise_kernel(torch.tensor(x), 1.0, 0.5, torch.tensor(z))
+
+
+# ---------------------------------------------------------------------------
+# per-example gradients and the DP-SGD step
+# ---------------------------------------------------------------------------
+
+def _d_setup(b=6, seed=0):
+    jc = JDCGANConfig(base_filters=8)
+    jparams = jax.tree.map(np.asarray, jdisc_init(jax.random.PRNGKey(seed),
+                                                  jc))
+    rng = np.random.default_rng(seed)
+    real = rng.uniform(-1, 1, (b, 28, 28, 1)).astype(np.float32)
+    fake = np.tanh(rng.standard_normal((b, 28, 28, 1))).astype(np.float32)
+    return jc, DCGANConfig(base_filters=8), jparams, real, fake
+
+
+def test_per_example_grads_match_jax():
+    """torch.func.vmap(grad_and_value) over singleton batches against
+    jax.vmap(value_and_grad): losses at 1e-5, each leaf's per-example
+    gradients at 1e-5 of that leaf's largest magnitude (BN-fed biases: of
+    the largest gradient element of any leaf).  Every example's gradient
+    norm exceeds the trainer tests' DP clip of 0.1."""
+    jc, c, jparams, real, fake = _d_setup()
+
+    def jone(p, r, f):
+        return jd_loss_fn(p, r[None], f[None], jc)
+
+    jl, jg = jax.vmap(jax.value_and_grad(jone), in_axes=(None, 0, 0))(
+        jax.tree.map(jnp.asarray, jparams), jnp.asarray(real),
+        jnp.asarray(fake))
+    loss_fn = functools.partial(d_loss_fn, c=c)
+    tg, tl = torch.func.vmap(
+        torch.func.grad_and_value(lambda p, r, f: loss_fn(p, r[None],
+                                                           f[None])),
+        in_dims=(None, 0, 0))(params_from_numpy(jparams, "cpu"),
+                              torch.tensor(real), torch.tensor(fake))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-5)
+    top = max(float(np.abs(np.asarray(w)).max())
+              for w in jax.tree.leaves(jg))
+    for path, g, w in zip(_paths(tg), leaves(tg), jax.tree.leaves(jg)):
+        w = np.asarray(w)
+        scale = top if path[-2:] in BN_FED_BIASES else np.abs(w).max()
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-5 * scale,
+                                   err_msg=str(path))
+    norms = np.sqrt(sum(np.sum(np.asarray(w).reshape(w.shape[0], -1) ** 2,
+                               axis=1) for w in jax.tree.leaves(jg)))
+    assert norms.min() > 0.1
+
+
+def test_dp_step_matches_jax_without_noise():
+    """One DP-SGD step (clip binding, noise off) against the JAX step:
+    parameters at 1e-6, BN-fed biases within lr of their start."""
+    jc, c, jparams, real, fake = _d_setup(b=5, seed=1)
+    ocfg = dict(name="adam", lr=2e-4, beta1=0.5, beta2=0.999)
+    jopt = jmake_optimizer(JOptimConfig(**ocfg))
+    topt = make_optimizer(OptimConfig(**ocfg))
+    jstep = jdef.make_dp_d_step(
+        jopt, functools.partial(jd_loss_fn, c=jc), 2e-4, 0.1, 0.0)
+    tstep = tdef.make_dp_d_step(
+        topt, functools.partial(d_loss_fn, c=c), 2e-4, 0.1, 0.0)
+    jp = jax.tree.map(jnp.asarray, jparams)
+    jp2, _, jl = jstep(jp, jopt.init(jp), jnp.asarray(real),
+                       jnp.asarray(fake), jax.random.PRNGKey(0))
+    tp = params_from_numpy(jparams, "cpu")
+    tp2, _, tl = tstep(tp, topt.init(tp), torch.tensor(real),
+                       torch.tensor(fake), keys.root(keys.DP_SGD, 0))
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
+    for path, g, w, s in zip(_paths(tp2), leaves(tp2), jax.tree.leaves(jp2),
+                             jax.tree.leaves(jparams)):
+        if path[-2:] in BN_FED_BIASES:
+            for side in (g.numpy(), np.asarray(w)):
+                np.testing.assert_allclose(side, s, rtol=0, atol=2e-4)
+        else:
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                       atol=1e-6, err_msg=str(path))
+
+
+def test_dp_step_refuses_the_executed_split():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_local_step(None, None, PrivacyConfig(enabled=True),
+                        split_exec=object())
+
+
+# ---------------------------------------------------------------------------
+# the RDP accountant (the reference's own math)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("q", [1.0, 0.01, 0.25])
+@pytest.mark.parametrize("sigma", [0.5, 1.0, 3.7])
+def test_rdp_matches_reference(q, sigma):
+    for order in (1.5, 2, 2.75, 7, 32, 40.5, 128):
+        assert tdef.rdp_sampled_gaussian(q, sigma, order) == \
+            jdef.rdp_sampled_gaussian(q, sigma, order)
+    for steps in (1, 24, 480):
+        assert tdef.dp_epsilon(sigma, q, steps) == \
+            jdef.dp_epsilon(sigma, q, steps)
+
+
+def test_accountant_matches_reference_with_changing_sigma():
+    ta, ja = tdef.RDPAccountant(1.1, 0.05), jdef.RDPAccountant(1.1, 0.05)
+    for n, s in ((3, None), (10, 0.8), (0, 0.0), (5, 2.0)):
+        ta.step(n, noise_multiplier=s)
+        ja.step(n, noise_multiplier=s)
+        assert ta.epsilon(1e-5) == ja.epsilon(1e-5)
+        assert ta.projected_epsilon(7) == ja.projected_epsilon(7)
+    assert ta.steps == ja.steps == 18
+
+
+@pytest.mark.parametrize("eps,steps,q", [(1.0, 100, 0.01), (8.0, 24, 1.0),
+                                         (3.0, 1000, 0.05)])
+def test_sigma_inversion_matches_reference(eps, steps, q):
+    s = tdef.sigma_for_epsilon(eps, steps, sample_rate=q)
+    assert s == jdef.sigma_for_epsilon(eps, steps, sample_rate=q)
+    assert tdef.dp_epsilon(s, q, steps) <= eps
+    feasible = lambda x: x >= 2.5  # noqa: E731
+    assert tdef.min_feasible_sigma(feasible, 0.1, 10.0) == \
+        jdef.min_feasible_sigma(feasible, 0.1, 10.0)
+
+
+# ---------------------------------------------------------------------------
+# the uplink DP stage
+# ---------------------------------------------------------------------------
+
+def _delta(seed, scale):
+    rng = np.random.default_rng(seed)
+    return {"a": (rng.standard_normal((4, 5)) * scale).astype(np.float32),
+            "b": {"c": (rng.standard_normal(9) * scale).astype(np.float32)}}
+
+
+@pytest.mark.parametrize("scale", [0.001, 1.0])
+def test_uplink_stage_clips_like_jax_without_noise(scale):
+    d = _delta(0, scale)
+    got = tdef.DPUplinkStage(0.5, 0.0)("c0", params_from_numpy(d, "cpu"))
+    want = jdef.DPUplinkStage(0.5, 0.0)("c0", jax.tree.map(jnp.asarray, d))
+    for g, w in zip(leaves(got), jax.tree.leaves(want)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+    norm = float(np.sqrt(sum(np.sum(g.numpy().astype(np.float64) ** 2)
+                             for g in leaves(got))))
+    raw = float(np.sqrt(sum(np.sum(x.astype(np.float64) ** 2)
+                            for x in jax.tree.leaves(d))))
+    np.testing.assert_allclose(norm, min(raw, 0.5), rtol=1e-6)
+
+
+def test_uplink_stage_noise_is_a_function_of_seed_client_and_round():
+    d = params_from_numpy(_delta(1, 1.0), "cpu")
+    a, b = tdef.DPUplinkStage(1.0, 0.7, seed=3), tdef.DPUplinkStage(
+        1.0, 0.7, seed=3)
+    a0, b0 = a("c0", d), b("c0", d)
+    a1 = a("c1", d)                      # another client
+    a0r1, b1 = a("c0", d), b("c1", d)    # c0's second round; c1 in b
+    assert all(torch.equal(x, y) for x, y in zip(leaves(a0), leaves(b0)))
+    assert all(torch.equal(x, y) for x, y in zip(leaves(a1), leaves(b1)))
+    assert not torch.equal(leaves(a0)[0], leaves(a1)[0])
+    assert not torch.equal(leaves(a0)[0], leaves(a0r1)[0])
+    c0 = tdef.DPUplinkStage(1.0, 0.7, seed=4)("c0", d)
+    assert not torch.equal(leaves(a0)[0], leaves(c0)[0])
+
+
+def test_make_uplink_stage_only_in_uplink_mode():
+    assert tdef.make_uplink_stage(None) is None
+    assert tdef.make_uplink_stage(PrivacyConfig(enabled=False,
+                                                mode="uplink")) is None
+    assert tdef.make_uplink_stage(PrivacyConfig(enabled=True)) is None
+    st = tdef.make_uplink_stage(PrivacyConfig(
+        enabled=True, mode="uplink", clip_norm=0.3, noise_multiplier=2.0,
+        seed=9))
+    assert (st.clip_norm, st.noise_multiplier, st.seed) == (0.3, 2.0, 9)
+
+
+# ---------------------------------------------------------------------------
+# in-port pins
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def parts():
+    imgs, labels = synthetic_mnist(120, seed=0)
+    return partition_dirichlet(imgs, labels, 2, alpha=0.5, seed=0)
+
+
+def _trainer(parts, over):
+    return FSLGANTrainer(get_config("dcgan-mnist").override(
+        {**SMALL, **over}), parts, seed=0, device="cpu")
+
+
+def _assert_same_state(ta, tb):
+    for cid in ta.state.d_params:
+        for a, b in zip(leaves(ta.state.d_params[cid]),
+                        leaves(tb.state.d_params[cid])):
+            assert torch.equal(a, b)
+    for a, b in zip(leaves(ta.state.g_params), leaves(tb.state.g_params)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("over", [
+    {**DP, "privacy.noise_multiplier": 0.0},
+    {**DP, "privacy.noise_multiplier": 1.0},
+    {"privacy.enabled": True, "privacy.mode": "uplink",
+     "privacy.clip_norm": 0.01, "privacy.noise_multiplier": 1.0},
+], ids=["dp_sgd", "dp_sgd_noisy", "uplink_noisy"])
+def test_engine_equals_sequential_bit_for_bit(parts, over):
+    """The engine's round is the sequential loop under DP-SGD and uplink
+    DP: the same step definition, the same noise key paths."""
+    ta, tb = _trainer(parts, over), _trainer(parts, over)
+    for _ in range(2):
+        ma = ta.train_epoch(batches_per_client=BATCHES)
+        mb = tb.train_epoch_sequential(batches_per_client=BATCHES)
+        for k in ("d_loss", "g_loss", "num_clients", "dp_epsilon"):
+            assert ma[k] == mb[k], k
+    _assert_same_state(ta, tb)
+    assert ta.accountant.steps == tb.accountant.steps
+
+
+def test_noisy_dp_sgd_runs_repeat_bit_for_bit(parts):
+    """With noise on, a seed fixes the run; another seed changes it."""
+    over = {**DP, "privacy.noise_multiplier": 1.0, "privacy.seed": 7}
+    ta, tb = _trainer(parts, over), _trainer(parts, over)
+    tc = _trainer(parts, {**over, "privacy.seed": 8})
+    for _ in range(2):
+        ma = ta.train_epoch(batches_per_client=1)
+        assert ma == tb.train_epoch(batches_per_client=1)
+        tc.train_epoch(batches_per_client=1)
+    _assert_same_state(ta, tb)
+    assert not torch.equal(leaves(ta.state.d_params["c0"])[0],
+                           leaves(tc.state.d_params["c0"])[0])
+
+
+def test_dp_epsilon_grows_with_rounds(parts):
+    tr = _trainer(parts, {**DP, "privacy.noise_multiplier": 1.0})
+    eps = [tr.train_epoch(batches_per_client=1)["dp_epsilon"]
+           for _ in range(2)]
+    assert np.isfinite(eps).all() and eps[1] > eps[0] > 0
+    acct = tdef.RDPAccountant(1.0, 1.0)
+    acct.step(2 * len(tr.client_ids))
+    assert eps[1] == acct.epsilon(1e-5)[0]
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel (GPU only)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the dp_clip kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n", [(1, 1), (1, 4097), (256, 4097),
+                                 (3, 4096), (256, 16865)])
+@pytest.mark.parametrize("noise_scale", [0.0, 0.9])
+def test_kernel_matches_plain_version_on_gpu(cuda, b, n, noise_scale):
+    x, z = _stack(b, n, seed=n + b)
+    xs, zs = torch.tensor(x, device=cuda), torch.tensor(z, device=cuda)
+    before = dp_clip_noise_kernel.launches
+    got = dp_clip_noise_kernel(xs, 0.5, noise_scale, zs)
+    torch.cuda.synchronize()
+    assert dp_clip_noise_kernel.launches == before + 1
+    want = dp_clip_noise_ref(xs, 0.5, noise_scale, zs)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    again = dp_clip_noise_kernel(xs, 0.5, noise_scale, zs)
+    assert torch.equal(got, again)      # a fixed summation order
+
+
+@pytest.mark.gpu
+def test_kernel_rejects_what_it_does_not_take(cuda):
+    x = torch.ones((3, 8), device=cuda)
+    z = torch.zeros(8, device=cuda)
+    with pytest.raises(TypeError):
+        dp_clip_noise_kernel(x.double(), 1.0, 0.0, z)
+    with pytest.raises(ValueError):
+        dp_clip_noise_kernel(x.t(), 1.0, 0.0, torch.zeros(3, device=cuda))
+    with pytest.raises(ValueError):
+        dp_clip_noise_kernel(x, 1.0, 0.0, z[:4])
+    with pytest.raises(ValueError):
+        dp_clip_noise_kernel(x[:, :0].contiguous(), 1.0, 0.0, z[:0])

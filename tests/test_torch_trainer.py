@@ -131,6 +131,65 @@ def test_train_epoch_matches_jax(parts, jax_run):
                                            err_msg=str(path))
 
 
+# The slice's privacy and split options.  Noise is off (the port's noise
+# streams are not JAX's), the clips bind: DP-SGD's per-example gradient
+# norms at this size exceed 0.1 (test_torch_privacy.py checks it), and a
+# 2-step round delta's norm exceeds 0.01.
+PRIVATE_AND_SPLIT = {
+    "dp_sgd": {"privacy.enabled": True, "privacy.mode": "dp_sgd",
+               "privacy.clip_norm": 0.1, "privacy.noise_multiplier": 0.0},
+    "uplink_int8": {"privacy.enabled": True, "privacy.mode": "uplink",
+                    "privacy.clip_norm": 0.01,
+                    "privacy.noise_multiplier": 0.0, "fed.codec": "int8"},
+    "split_int8_dp": {"split.enabled": True,
+                      "split.boundary_stage": "int8+dp",
+                      "split.stage_sigma": 0.0},
+}
+
+
+@pytest.mark.parametrize("case", sorted(PRIVATE_AND_SPLIT))
+def test_private_and_split_rounds_match_jax(parts, case):
+    """``train_epoch`` under DP-SGD, uplink DP with the int8 codec, and the
+    executed split with the fused int8+dp stage, against the JAX trainer
+    (loop backend) from the same parameters: losses at 1e-4 relative,
+    parameters at 1e-4 absolute (BN-fed biases to their drift bound),
+    bytes, times and epsilon exactly.  The codec error is a relative L2
+    error of int8 rounding, so a rounding that flips between frameworks
+    moves it in the 3rd digit; it is held to 1e-2 relative."""
+    over = {**SMALL, **KERNEL, **PRIVATE_AND_SPLIT[case]}
+    jtr = JTrainer(jget_config("dcgan-mnist").override(over), parts, seed=0)
+    cid0 = jtr.client_ids[0]
+    init = (_np(jtr.state.g_params), _np(jtr.state.d_params[cid0]))
+    tr = _port_trainer(parts, over, init)
+    if case.startswith("split"):
+        assert any(ex.num_boundaries >= 1 for ex in tr.split_execs.values())
+    for _ in range(ROUNDS):
+        jm = jtr.train_epoch(batches_per_client=BATCHES)
+        m = tr.train_epoch(batches_per_client=BATCHES)
+        assert set(m) == set(jm)
+        for k in ("d_loss", "g_loss"):
+            np.testing.assert_allclose(m[k], jm[k], rtol=1e-4, err_msg=k)
+        np.testing.assert_allclose(m["codec_error"], jm["codec_error"],
+                                   rtol=1e-2, atol=1e-12)
+        for k in set(m) - {"d_loss", "g_loss", "codec_error"}:
+            assert m[k] == jm[k], k
+    drift = tr.cfg.optim.lr * ROUNDS * BATCHES
+    g0, d0 = init
+    for got, want, start in (
+            (tr.state.g_params, _np(jtr.state.g_params), g0),
+            (tr.state.d_params[cid0], _np(jtr.state.d_params[cid0]), d0)):
+        for path, g, w, s in zip(_paths(got), leaves(got),
+                                 jax.tree.leaves(want),
+                                 jax.tree.leaves(start)):
+            if path[-2:] in BN_FED_BIASES:
+                for side in (g.numpy(), w):
+                    np.testing.assert_allclose(side, s, rtol=0, atol=drift,
+                                               err_msg=str(path))
+            else:
+                np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-4,
+                                           err_msg=str(path))
+
+
 def test_engine_sync_equals_sequential_bit_for_bit(parts):
     """The port's twin of tests/test_fed_runtime.py's pin: with the host
     FedAvg, the engine round is the sequential loop, bit for bit."""
@@ -239,10 +298,13 @@ def test_trainer_runs_on_the_gpu_unless_told_otherwise(parts, monkeypatch):
 
 @pytest.mark.parametrize("over", [
     {"fed.mode": "fedasync"}, {"fed.mode": "fedbuff"},
-    {"fed.codec": "int8"}, {"fed.backend": "vectorized"},
+    {"split.enabled": True, "split.pipeline_microbatches": 2},
+    {"fed.backend": "vectorized"},
     {"fed.backend": "auto"}, {"fed.server_reduce": "stream"},
     {"fed.hierarchy_cohorts": 2}, {"fed.shard_clients": True},
-    {"split.enabled": True}, {"privacy.enabled": True},
+    {"split.enabled": True, "privacy.enabled": True,
+     "privacy.mode": "dp_sgd"},
+    {"privacy.enabled": True, "control.mode": "adaptive"},
     {"control.mode": "adaptive"}, {"obs.enabled": True},
     {"obs.health.enabled": True},
 ])
