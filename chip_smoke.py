@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's main path once on one NVIDIA GPU and check it.
+"""Run the PyTorch/CUDA port's main paths once on one NVIDIA GPU and check
+them.
 
     python3 chip_smoke.py        # from the repository root; needs one GPU
 
@@ -8,7 +9,7 @@ non-zero exit, and no result line:
 
 1. the card — CUDA required; nvidia-smi's name and power limit printed;
    TF32 off, since the configuration computes in float32;
-2. build — every kernel (fedavg, dp_clip, boundary_fuse), from
+2. build — every kernel (fedavg, dp_clip, boundary_fuse, agg_fuse), from
    ``src/repro_torch/csrc``, one ``nvcc`` (sm_90a) per source, all started
    together;
 3. kernel vs plain — each kernel on the card at the shapes the main paths
@@ -18,17 +19,23 @@ non-zero exit, and no result line:
 4. the main paths — ``FSLGANTrainer.train_epoch`` on ``dcgan-mnist`` at
    full width (5 clients, batch 256, base_filters 64, latent 100, Adam
    2e-4) with ``fed.kernel_aggregation``, 2 rounds x 2 batches per client,
-   three times: plain; with DP-SGD through the dp_clip kernel
+   seven times: plain; with DP-SGD through the dp_clip kernel
    (``privacy.use_kernel``); with the executed split and the fused
    ``int8+dp`` boundary stage through the boundary_fuse kernel
-   (``split.use_kernel``).  Every launch count is set to 0 just before a
-   path and read just after it;
+   (``split.use_kernel``); the int8 uplink with the stream server reduce
+   (dequant_acc) and with the batched one (dequant_reduce); the top-k
+   uplink with the stream reduce (scatter_acc); the edge hierarchy (2
+   cohorts) with int8 and the stream reduce.  Every launch count is set to
+   0 just before a path and read just after it, and must be exactly what
+   the path runs;
 5. the output — finite losses, every parameter on the card, generated
-   images in range, epsilon finite and growing, the LAN bytes the split
-   predicts; and on small inputs the kernel round against the sequential
-   round with the host FedAvg, the DP-SGD engine round against the
-   sequential one, the identity-stage split round against the unsplit one,
-   and one uplink-DP round with the int8 codec.
+   images in range, epsilon finite and growing, the LAN and edge bytes the
+   split and the codec predict, the server's peak of live trees; and on
+   small inputs the kernel round against the sequential round with the
+   host FedAvg, the DP-SGD engine round against the sequential one, the
+   identity-stage split round against the unsplit one, one uplink-DP round
+   with the int8 codec, and the stream and batched reduce against the
+   decode reduce (flat, hierarchical, fedasync, fedbuff).
 
 Prints ``{"kernels": [...]}`` on a line of its own and, as the last line,
 ``{"ok": true, "device": {...}}``.
@@ -344,10 +351,32 @@ def phase_boundary_fuse(dev):
         check(torch.equal(boundary_fuse_kernel(zero, 1.0, 0.0, zero,
                                                codec=codec), zero),
               f"boundary_fuse {codec}: an all-zero tensor did not stay 0")
+    # a NaN propagates as in the reference: int8 scale 1.0, the NaN's whole
+    # row NaN (its norm is NaN), every other element as the plain version
+    x = torch.randn(main_shapes[0], generator=gen, device=dev) * 0.05
+    z = torch.randn(main_shapes[0], generator=gen, device=dev)
+    nan_row = main_shapes[0][0] // 3
+    x[nan_row, 1234] = float("nan")
+    for clip, ns in ((1e30, 0.0), (1.0, 0.5)):
+        got = boundary_fuse_kernel(x, clip, ns, z, codec="int8")
+        want = fused_boundary_ref(x, clip, ns, z, codec="int8")
+        torch.cuda.synchronize()
+        check(torch.equal(torch.isnan(got), torch.isnan(want))
+              and bool(torch.isnan(want[nan_row]).all())
+              and int(torch.isnan(want).sum()) == want.shape[1],
+              f"boundary_fuse int8 with a NaN: NaN at other places than the "
+              f"plain version (clip {clip})")
+        keep = ~torch.isnan(want)
+        if clip == 1e30:
+            check(torch.equal(got[keep], want[keep]),
+                  "boundary_fuse int8 with a NaN: the qdq differs")
+        else:
+            torch.testing.assert_close(got[keep], want[keep], **KERNEL_TOL)
     print(f"boundary_fuse vs plain: {n_cases} cases (codecs none/fp16/int8, "
           f"N up to 6272), max abs err {max_abs:.3e} (tolerance "
           f"{KERNEL_TOL}); qdq before the clip equal bit for bit; all-zero "
-          f"tensors stay 0")
+          f"tensors stay 0; int8 with one NaN in {main_shapes[0]}: NaN in the "
+          f"same places (its row), the qdq equal bit for bit elsewhere")
 
     rows = {}
     for b, n in main_shapes:
@@ -385,18 +414,242 @@ def phase_boundary_fuse(dev):
             "bound_by": by, "library_ms": d["library"]}
 
 
+def encode_round(dev, codec_name, sizes, seed):
+    """The wires a round's CLIENTS uplinks give the server reduce: each
+    client's per-leaf delta (about the size of two Adam steps) through the
+    codec, as ``Codec.encode`` makes them on the main path."""
+    from repro_torch.fed.transport import make_codec
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    codec = make_codec("none" if codec_name == "fp32" else codec_name)
+    return [[codec.encode(torch.randn((n,), generator=gen, device=dev)
+                          * 4e-4) for n in sizes] for _ in range(CLIENTS)]
+
+
+def agg_case_rows(rounds, k):
+    """Leaf ``k``'s (C, N) wire stack and (C,) scales from encoded rounds."""
+    wires = torch.stack([c[k][0] for c in rounds])
+    scales = (torch.stack([c[k][1] for c in rounds])
+              if wires.dtype == torch.int8
+              else torch.ones((len(rounds),), device=wires.device))
+    return wires, scales
+
+
+def phase_agg_fuse(dev):
+    """The three agg_fuse kernels against their plain versions at the main
+    path's shapes (every D leaf, C = 5; the whole D; int8, fp16 and fp32
+    wires; top-k at 1%), at ragged sizes, with an all-zero int8 leaf and a
+    scatter with colliding and out-of-range indices; then times of a
+    round's work against the bound, the plain version and one library
+    call."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.fed.transport import make_codec
+    from repro_torch.kernels.agg_fuse.kernel import (dequant_acc_kernel,
+                                                     dequant_reduce_kernel,
+                                                     scatter_acc_kernel)
+    from repro_torch.kernels.agg_fuse.ref import (dequant_acc_ref,
+                                                  dequant_reduce_ref,
+                                                  scatter_acc_ref)
+    from repro_torch.models.dcgan import disc_init
+    from repro_torch.tree import leaves
+
+    c = get_config("dcgan-mnist").model.dcgan
+    sizes = [l.numel() for l in leaves(disc_init(
+        torch.Generator().manual_seed(0), c, "meta"))]
+    gen = torch.Generator(device=dev).manual_seed(4)
+    w = torch.rand((CLIENTS,), generator=gen, device=dev) + 0.5
+    w = w / w.sum()
+    w_host = [float(x) for x in w.cpu()]
+    big = int(np.argmax(sizes))
+    rounds = {d: encode_round(dev, d, sizes + [1, 4097, 5000], 10 + i)
+              for i, d in enumerate(("int8", "fp16", "fp32", "topk"))}
+    err = {"dequant_reduce": 0.0, "dequant_acc": 0.0, "scatter_acc": 0.0}
+    n_cases = {k: 0 for k in err}
+
+    def held(name, got, want, exact):
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **KERNEL_TOL)
+        check(not exact or torch.equal(got, want),
+              f"{name} differs from its plain version bit for bit")
+        err[name] = max(err[name], float((got - want).abs().max()))
+        n_cases[name] += 1
+
+    for d in ("int8", "fp16", "fp32"):
+        rnd = rounds[d]
+        stacks = [agg_case_rows(rnd, k) for k in range(len(rnd[0]))]
+        whole = (torch.cat([x for x, _ in stacks[:len(sizes)]], dim=1),
+                 stacks[0][1])
+        for x, sc in stacks + [whole]:
+            coefs = torch.stack([w, sc], dim=1)
+            got = dequant_reduce_kernel(x, coefs)
+            held("dequant_reduce", got, dequant_reduce_ref(x, coefs), False)
+            check(torch.equal(got, dequant_reduce_kernel(x, coefs)),
+                  f"dequant_reduce {d} is not deterministic")
+        # the largest leaf and a whole round's 60 folds (5 clients x 12
+        # leaves), then the ragged leaves
+        for k in [big] + list(range(len(rnd[0]))):
+            acc = torch.randn((rnd[0][k][0].numel(),), generator=gen,
+                              device=dev)
+            for ci, client in enumerate(rnd):
+                wire, scale = client[k]
+                want = dequant_acc_ref(acc, wire, w_host[ci],
+                                       1.0 if scale is None else scale)
+                acc = dequant_acc_kernel(acc, wire, w_host[ci], scale)
+                held("dequant_acc", acc, want, True)
+    zero_wire, zero_scale = make_codec("int8").encode(
+        torch.zeros((sizes[big],), device=dev))
+    check(float(zero_scale) == 1.0, "int8 scale of an all-zero leaf is not 1")
+    zstack = zero_wire.expand(CLIENTS, -1).contiguous()
+    check(torch.equal(dequant_reduce_kernel(zstack, torch.stack(
+        [w, zero_scale.expand(CLIENTS)], dim=1)),
+        torch.zeros((sizes[big],), device=dev)),
+        "dequant_reduce of an all-zero int8 leaf is not 0")
+    acc = torch.randn((sizes[big],), generator=gen, device=dev)
+    check(torch.equal(dequant_acc_kernel(acc.clone(), zero_wire, 0.3,
+                                         zero_scale), acc),
+          "dequant_acc of an all-zero int8 leaf changed the accumulator")
+
+    # top-k: K = 8192 distinct indices into conv2.w, every leaf, ragged
+    # leaves (all distinct: equal to index_add bit for bit); then colliding
+    # and out-of-range indices (atomic order varies: at tolerance)
+    for k in [big] + list(range(len(rounds["topk"][0]))):
+        acc = torch.randn((rounds["topk"][0][k][1][0],), generator=gen,
+                          device=dev)
+        for ci, client in enumerate(rounds["topk"]):
+            (vals, idx), _ = client[k]
+            want = scatter_acc_ref(acc, vals, idx, w_host[ci])
+            acc = scatter_acc_kernel(acc, vals, idx, w_host[ci])
+            held("scatter_acc", acc, want, True)
+    for n in (sizes[big], 4097, 1):
+        acc = torch.randn((n,), generator=gen, device=dev)
+        idx = torch.randint(-3, n + 3, (8192,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        idx[:64] = n // 2                           # 64 adds to one element
+        vals = torch.randn((8192,), generator=gen, device=dev)
+        want = scatter_acc_ref(acc, vals, idx, 0.7)
+        held("scatter_acc", scatter_acc_kernel(acc.clone(), vals, idx, 0.7),
+             want, False)
+    print(f"agg_fuse vs plain: dequant_reduce {n_cases['dequant_reduce']} "
+          f"cases (every D leaf, the whole D, N = 1, 4097, 5000; int8, fp16, "
+          f"fp32), max abs err {err['dequant_reduce']:.3e} (tolerance "
+          f"{KERNEL_TOL}), two launches equal bit for bit; dequant_acc "
+          f"{n_cases['dequant_acc']} folds (largest leaf, a round's 60, "
+          f"ragged; int8, fp16, fp32), equal bit for bit, max abs err "
+          f"{err['dequant_acc']:.3e}; scatter_acc {n_cases['scatter_acc']} "
+          f"folds (K = 1% of each leaf, distinct: equal to index_add bit for "
+          f"bit; colliding and out-of-range at tolerance), max abs err "
+          f"{err['scatter_acc']:.3e}; an all-zero int8 leaf (scale 1.0) "
+          f"adds 0")
+
+    rows = {}
+    # row 4: a round's batched reduce, one launch a leaf
+    for d in ("int8", "fp16", "fp32"):
+        rnd = rounds[d]
+        cases = [agg_case_rows(rnd, k) for k in range(len(sizes))]
+        coefs = [torch.stack([w, sc], dim=1) for _, sc in cases]
+        coef = [cf[:, 0] * cf[:, 1] for cf in coefs]
+        xs = [x for x, _ in cases]
+        t = time_variants({
+            "kernel": lambda: [dequant_reduce_kernel(x, cf)
+                               for x, cf in zip(xs, coefs)],
+            "plain": lambda: [dequant_reduce_ref(x, cf)
+                              for x, cf in zip(xs, coefs)],
+            "library": lambda: [k @ x.to(torch.float32)
+                                for k, x in zip(coef, xs)]})
+        nbytes = sum(x.numel() * x.element_size() + 4 * x.shape[1]
+                     + cf.numel() * 4 for x, cf in zip(xs, coefs))
+        bound, by = bound_ms(nbytes, sum(2 * x.numel() for x in xs))
+        rows[("dequant_reduce", d)] = (t["device"], bound, by)
+        print(f"dequant_reduce {d}, a round (12 leaves, C = {CLIENTS}): "
+              f"bound {bound:.5f} ms ({by}: {nbytes} B at 3.35 TB/s)")
+        for mode, tm in t.items():
+            print(f"  {mode:6s} kernel {tm['kernel']:.5f} ms, plain "
+                  f"{tm['plain']:.5f} ms, cast + coef @ wires "
+                  f"{tm['library']:.5f} ms")
+    # row 5: a round's 60 streamed folds, in place
+    for d in ("int8", "fp16"):
+        rnd = rounds[d]
+        accs = [torch.zeros((n,), device=dev) for n in sizes]
+        folds = [(accs[k], client[k][0], w_host[ci], client[k][1],
+                  w[ci] * (1.0 if client[k][1] is None else client[k][1]))
+                 for ci, client in enumerate(rnd) for k in range(len(sizes))]
+        t = time_variants({
+            "kernel": lambda: [dequant_acc_kernel(a, x, wc, sc)
+                               for a, x, wc, sc, _ in folds],
+            "plain": lambda: [dequant_acc_ref(a, x, wc,
+                                              1.0 if sc is None else sc)
+                              for a, x, wc, sc, _ in folds],
+            "library": lambda: [a.addcmul_(x.to(torch.float32), k)
+                                for a, x, _, _, k in folds]})
+        nbytes = sum(x.numel() * x.element_size() + 8 * x.numel()
+                     + (0 if sc is None else 4) for _, x, _, sc, _ in folds)
+        bound, by = bound_ms(nbytes, sum(2 * x.numel()
+                                         for _, x, _, _, _ in folds))
+        rows[("dequant_acc", d)] = (t["device"], bound, by)
+        print(f"dequant_acc {d}, a round's {len(folds)} folds: bound "
+              f"{bound:.5f} ms ({by}: {nbytes} B at 3.35 TB/s)")
+        for mode, tm in t.items():
+            print(f"  {mode:6s} kernel {tm['kernel']:.5f} ms, plain "
+                  f"{tm['plain']:.5f} ms, cast + addcmul_ "
+                  f"{tm['library']:.5f} ms")
+    # row 6: a round's 60 top-k folds, in place
+    accs = [torch.zeros((n,), device=dev) for n in sizes]
+    folds = [(accs[k], client[k][0][0], client[k][0][1], w_host[ci])
+             for ci, client in enumerate(rounds["topk"])
+             for k in range(len(sizes))]
+    t = time_variants({
+        "kernel": lambda: [scatter_acc_kernel(a, v, i, wc)
+                           for a, v, i, wc in folds],
+        "plain": lambda: [scatter_acc_ref(a, v, i, wc)
+                          for a, v, i, wc in folds],
+        "library": lambda: [a.index_add_(0, i, v, alpha=wc)
+                            for a, v, i, wc in folds]})
+    kept = sum(v.numel() for _, v, _, _ in folds)
+    nbytes = 16 * kept
+    bound, by = bound_ms(nbytes, 2 * kept)
+    rows[("scatter_acc", "topk")] = (t["device"], bound, by)
+    print(f"scatter_acc, a round's {len(folds)} top-k folds ({kept} kept "
+          f"entries): bound {bound:.6f} ms ({by}: {nbytes} B at 3.35 TB/s)")
+    for mode, tm in t.items():
+        print(f"  {mode:6s} kernel {tm['kernel']:.5f} ms, plain "
+              f"{tm['plain']:.5f} ms, index_add_ {tm['library']:.5f} ms")
+
+    def row(name, key, line):
+        d, bound, by = rows[key]
+        return {"name": name, "route": "cuda",
+                "source": "src/repro_torch/csrc/agg_fuse.cu",
+                "replaces": f"src/repro/kernels/agg_fuse/kernel.py:{line}",
+                "launches": None, "max_abs_err": err[name],
+                "ms": d["kernel"], "plain_ms": d["plain"], "bound_ms": bound,
+                "bound_by": by, "library_ms": d["library"]}
+
+    return [row("dequant_reduce", ("dequant_reduce", "int8"), 61),
+            row("dequant_acc", ("dequant_acc", "int8"), 91),
+            row("scatter_acc", ("scatter_acc", "topk"), 133)]
+
+
+AGG_KERNELS = {"dequant_reduce", "dequant_acc", "scatter_acc"}
+
+
 def kernel_wrappers():
+    from repro_torch.kernels.agg_fuse.kernel import (dequant_acc_kernel,
+                                                     dequant_reduce_kernel,
+                                                     scatter_acc_kernel)
     from repro_torch.kernels.boundary_fuse.kernel import boundary_fuse_kernel
     from repro_torch.kernels.dp_clip.kernel import dp_clip_noise_kernel
     from repro_torch.kernels.fedavg.kernel import fedavg_kernel
     return {"fedavg": fedavg_kernel, "dp_clip": dp_clip_noise_kernel,
-            "boundary_fuse": boundary_fuse_kernel}
+            "boundary_fuse": boundary_fuse_kernel,
+            "dequant_reduce": dequant_reduce_kernel,
+            "dequant_acc": dequant_acc_kernel,
+            "scatter_acc": scatter_acc_kernel}
 
 
-def drive_path(dev, label, over, parts):
+def drive_path(dev, label, over, parts, expect):
     """One main path: ``train_epoch`` at full width, ROUNDS x BATCHES, with
     every kernel's launch count set to 0 just before and read just after.
-    Checks finite losses and every parameter finite on the card."""
+    Checks finite losses, every parameter finite on the card, and each
+    kernel's launches: ``expect[name]`` for the kernels the path runs, 0
+    for every other (``expect`` may be a function of the trainer)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.core.gan import FSLGANTrainer
     from repro_torch.tree import leaves
@@ -418,7 +671,8 @@ def drive_path(dev, label, over, parts):
         torch.cuda.synchronize()
         hist.append(m)
         extra = "".join(f", {k} {m[k]:.6g}" for k in (
-            "dp_epsilon", "lan_mbytes") if k in m)
+            "dp_epsilon", "lan_mbytes", "edge_mbytes", "codec_error")
+            if k in m)
         print(f"{label} round {r}: wall {time.perf_counter() - t0:.3f} s, "
               f"d_loss {m['d_loss']:.6f}, g_loss {m['g_loss']:.6f}, clients "
               f"{m['num_clients']:.0f}, virtual round "
@@ -436,49 +690,62 @@ def drive_path(dev, label, over, parts):
                   f"{label}: a parameter on {leaf.device}")
             check(bool(torch.isfinite(leaf.float()).all()),
                   f"{label}: non-finite parameter")
-    n_leaves = len(leaves(st.d_params[tr.client_ids[0]]))
-    check(counts["fedavg"] == n_leaves * ROUNDS,
-          f"{label}: fedavg kernel launched {counts['fedavg']} times, "
-          f"expected {n_leaves} leaves x {ROUNDS} rounds")
+    if callable(expect):
+        expect = expect(tr)
+    want = {k: expect.get(k, 0) for k in counts}
+    check(counts == want, f"{label}: kernel launches {counts}, expected "
+          f"{want}")
     print(f"{label}: {ROUNDS} rounds x {BATCHES} batches x {CLIENTS} "
-          f"clients, launches {counts}, parameters finite on {dev}")
+          f"clients, launches {counts} as expected, peak_live_trees "
+          f"{tr.engine.last_report.peak_live_trees}, parameters finite on "
+          f"{dev}")
     return tr, hist, counts
 
 
 def phase_main_paths(dev):
+    from repro_torch.configs.registry import get_config
     from repro_torch.data import partition_dirichlet, synthetic_mnist
+    from repro_torch.fed.transport import predict_codec_bytes
+    from repro_torch.models.dcgan import disc_init
+    from repro_torch.tree import leaves
 
     # the paper's 24 batches x 256 examples per client
     imgs, labels = synthetic_mnist(24 * BATCH * CLIENTS, seed=0)
     parts = partition_dirichlet(imgs, labels, CLIENTS, alpha=0.5, seed=0)
+    sizes = [l.numel() for l in leaves(disc_init(
+        torch.Generator().manual_seed(0),
+        get_config("dcgan-mnist").model.dcgan, "meta"))]
+    n_leaves = len(sizes)
+    reduce_round = n_leaves * ROUNDS                  # one launch a leaf
+    folds = CLIENTS * n_leaves * ROUNDS               # one a client x leaf
     launches = {}
 
-    tr, _, counts = drive_path(dev, "main path", {}, parts)
-    check(counts["dp_clip"] == counts["boundary_fuse"] == 0,
-          f"main path: a DP or split kernel ran: {counts}")
+    tr, _, counts = drive_path(dev, "main path", {}, parts,
+                               {"fedavg": reduce_round})
     launches["fedavg"] = counts["fedavg"]
     img = tr.generate(16)
     check(img.shape == (16, 28, 28, 1) and np.isfinite(img).all()
           and np.abs(img).max() <= 1.0, "generated images out of shape/range")
 
-    tr, hist, counts = drive_path(dev, "dp-sgd path", DP_SGD, parts)
-    want = CLIENTS * BATCHES * ROUNDS
-    check(counts["dp_clip"] == want,
-          f"dp_clip launched {counts['dp_clip']} times, expected {CLIENTS} "
-          f"clients x {BATCHES} batches x {ROUNDS} rounds = {want}")
+    tr, hist, _ = drive_path(
+        dev, "dp-sgd path", DP_SGD, parts,
+        {"fedavg": reduce_round, "dp_clip": CLIENTS * BATCHES * ROUNDS})
     eps = [m["dp_epsilon"] for m in hist]
     check(all(math.isfinite(e) for e in eps) and eps[1] > eps[0] > 0,
           f"dp_epsilon not finite and growing: {eps}")
-    launches["dp_clip"] = counts["dp_clip"]
+    launches["dp_clip"] = CLIENTS * BATCHES * ROUNDS
 
-    tr, hist, counts = drive_path(dev, "split path", SPLIT, parts)
+    def split_launches(tr):
+        # 4 crossings a boundary a batch: the real and fake passes, forward
+        # and backward
+        return {"fedavg": reduce_round, "boundary_fuse": sum(
+            4 * ex.num_boundaries * BATCHES * ROUNDS
+            for ex in tr.split_execs.values())}
+
+    tr, hist, counts = drive_path(dev, "split path", SPLIT, parts,
+                                  split_launches)
     bounds = sum(ex.num_boundaries for ex in tr.split_execs.values())
-    want = sum(4 * ex.num_boundaries * BATCHES * ROUNDS
-               for ex in tr.split_execs.values())
-    check(counts["boundary_fuse"] == want,
-          f"boundary_fuse launched {counts['boundary_fuse']} times, expected"
-          f" 4 x {bounds} boundaries x {BATCHES} batches x {ROUNDS} rounds "
-          f"= {want}")
+    want = counts["boundary_fuse"]
     x_shape = (BATCH, 28, 28, 1)
     lan = sum(BATCHES * ex.step_wire_bytes(tr.state.d_params[cid],
                                            x_shape)[0]
@@ -487,8 +754,50 @@ def phase_main_paths(dev):
         check(m["lan_mbytes"] == lan / 1e6,
               f"lan_mbytes {m['lan_mbytes']} != step_wire_bytes {lan / 1e6}")
     print(f"split path: {bounds} boundaries over {CLIENTS} clients, "
+          f"boundary_fuse 4 x {bounds} x {BATCHES} x {ROUNDS} = {want}, "
           f"lan_mbytes {lan / 1e6} as step_wire_bytes predicts")
-    launches["boundary_fuse"] = counts["boundary_fuse"]
+    launches["boundary_fuse"] = want
+
+    # the compressed-domain server reduce: the fedavg kernel does not run
+    # on the flat paths; every client's wire folds leaf by leaf
+    int8 = {"fed.codec": "int8"}
+    for label, over, expect in (
+            ("stream int8 path", {**int8, "fed.server_reduce": "stream"},
+             {"dequant_acc": folds}),
+            ("batched int8 path", {**int8, "fed.server_reduce": "batched"},
+             {"dequant_reduce": reduce_round}),
+            ("stream top-k path", {"fed.codec": "topk",
+                                   "fed.server_reduce": "stream"},
+             {"scatter_acc": folds})):
+        tr, hist, _ = drive_path(dev, label, over, parts, expect)
+        check(tr.engine.last_report.peak_live_trees == 1,
+              f"{label}: peak_live_trees "
+              f"{tr.engine.last_report.peak_live_trees}, expected 1")
+        check(all(0.0 < m["codec_error"] < 1.0 for m in hist),
+              f"{label}: codec_error out of range")
+        launches.update(expect)
+
+    # the edge hierarchy: cohorts of 3 and 2 clients fold their int8 wires
+    # at the edge, the server averages the 2 cohort aggregates (fedavg)
+    tr, hist, _ = drive_path(
+        dev, "hierarchy stream path",
+        {**int8, "fed.server_reduce": "stream", "fed.hierarchy_cohorts": 2},
+        parts, {"dequant_acc": folds, "fedavg": reduce_round})
+    groups = tr.engine.hierarchy.group(tr.engine.roster)
+    cohort_sizes = sorted(len(m) for m in groups.values())
+    check(cohort_sizes == [2, 3], f"cohorts {groups}")
+    check(tr.engine.last_report.peak_live_trees == 3,
+          f"hierarchy: peak_live_trees "
+          f"{tr.engine.last_report.peak_live_trees}, expected 3")
+    edge = CLIENTS * predict_codec_bytes("int8", sizes) / 1e6
+    up = 2 * 4 * sum(sizes) / 1e6
+    for m in hist:
+        check(m["edge_mbytes"] == edge and m["up_mbytes"] == up,
+              f"hierarchy bytes: edge {m['edge_mbytes']} (expected {edge}),"
+              f" up {m['up_mbytes']} (expected {up})")
+    print(f"hierarchy stream path: cohorts {cohort_sizes}, edge_mbytes "
+          f"{edge} = {CLIENTS} x the int8 "
+          f"wire, up_mbytes {up} = 2 cohorts x 4 x {sum(sizes)} B")
     return launches
 
 
@@ -534,7 +843,8 @@ def phase_small_reference(dev):
     sequential round with the host FedAvg; the DP-SGD engine round
     (dp_clip kernel, noise off) against the sequential DP round; the
     identity-stage split round against the unsplit round; one uplink-DP
-    round with the int8 codec."""
+    round with the int8 codec; the stream and batched reduce against the
+    decode reduce, flat, through the hierarchy and in the async modes."""
     from repro_torch.fed.transport import predict_codec_bytes
     from repro_torch.tree import leaves
 
@@ -577,6 +887,58 @@ def phase_small_reference(dev):
           f"codec error {m['codec_error']:.3e}, epsilon "
           f"{m['dp_epsilon']:.3f}, no kernel launched")
 
+    # the compressed-domain reduce against decode, one round from the same
+    # start, kernels on: the aggregated D within 2e-5 (the reference's own
+    # pin, tests/test_agg_stream.py), wire bytes equal exactly.  The pin
+    # holds the server reduce, so both trainers must train their clients
+    # alike: cuDNN's default convolution algorithms may sum in another
+    # order from one call to the next, and Adam turns the BN-fed biases'
+    # rounding-level gradients into steps of about lr (on an H100, two
+    # decode trainers with the same seed parted by 8.1e-5 after one round
+    # without deterministic cuDNN)
+    def against_decode(label, over, reduces, agg_kernels):
+        base = {"fed.kernel_aggregation": True, **over}
+        ta = small_trainer(base)
+        ma = ta.train_epoch(batches_per_client=BATCHES)
+        for reduce in reduces:
+            tb = small_trainer({**base, "fed.server_reduce": reduce})
+            before = {k: w.launches for k, w in kernel_wrappers().items()}
+            mb = tb.train_epoch(batches_per_client=BATCHES)
+            after = {k: w.launches for k, w in kernel_wrappers().items()}
+            ran = {k for k in after if after[k] != before[k]}
+            check(ran & AGG_KERNELS == agg_kernels.get(reduce, set()),
+                  f"{label} {reduce}: kernels launched {ran}")
+            worst, where = max(
+                (float((a - b).abs().max()), p) for p, a, b in zip(
+                    paths(ta.state.d_params["c0"]),
+                    leaves(ta.state.d_params["c0"]),
+                    leaves(tb.state.d_params["c0"])))
+            check(worst <= 2e-5,
+                  f"{label} {reduce}: D differs by {worst} at {where}")
+            for k in ("up_mbytes", "edge_mbytes"):
+                check(ma.get(k) == mb.get(k),
+                      f"{label} {reduce}: {k} {mb.get(k)} vs {ma.get(k)}")
+            print(f"small input, {label}, {reduce} vs decode: D max abs diff "
+                  f"{worst:.3e}, up_mbytes {mb['up_mbytes']}, edge_mbytes "
+                  f"{mb.get('edge_mbytes')}, agg_fuse kernels "
+                  f"{sorted(ran & AGG_KERNELS)}")
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    for codec in ("int8", "topk"):
+        kern = ("scatter_acc" if codec == "topk" else "dequant_acc")
+        against_decode(f"flat {codec}", {"fed.codec": codec},
+                       ("stream", "batched"),
+                       {"stream": {kern}, "batched": set()
+                        if codec == "topk" else {"dequant_reduce"}})
+    against_decode("hierarchy int8", {"fed.codec": "int8",
+                                      "fed.hierarchy_cohorts": 2},
+                   ("stream",), {"stream": {"dequant_acc"}})
+    for mode in ("fedasync", "fedbuff"):
+        against_decode(f"{mode} int8", {"fed.codec": "int8",
+                                        "fed.mode": mode}, ("stream",), {})
+    torch.backends.cudnn.deterministic = deterministic
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -603,7 +965,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     rows = [phase_kernel_vs_plain(dev), phase_dp_clip(dev),
-            phase_boundary_fuse(dev)]
+            phase_boundary_fuse(dev), *phase_agg_fuse(dev)]
     print(f"kernel vs plain: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     launches = phase_main_paths(dev)

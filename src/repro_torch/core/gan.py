@@ -22,8 +22,10 @@ Losses: non-saturating DCGAN BCE.
     L_G = BCE(D(G(z)), 1)
 
 ``train_epoch`` runs one federation-engine round per epoch (sync barrier,
-loop backend, any uplink codec; ``fed.kernel_aggregation`` sends the server
-reduce through the fedavg CUDA kernel).  Privacy (``cfg.privacy``) is
+flat or through the edge hierarchy, or the async FedAsync/FedBuff modes;
+loop backend; any uplink codec; the decode, stream or batched server
+reduce, which ``fed.kernel_aggregation`` sends through the fedavg and
+agg_fuse CUDA kernels).  Privacy (``cfg.privacy``) is
 DP-SGD inside the local step (the dp_clip CUDA kernel with
 ``privacy.use_kernel``) or the pre-codec uplink DP stage in the engine,
 with an RDP accountant either way.  ``train_epoch_sequential`` keeps the
@@ -37,7 +39,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -52,6 +54,7 @@ from repro_torch.core.split import (SplitExecution, SplitPlan,
                                     make_boundary_stage)
 from repro_torch.device import resolve_device
 from repro_torch.fed.engine import ClientSpec, FederationEngine
+from repro_torch.fed.hierarchy import assign_cohorts
 from repro_torch.fed.programs import ClientHyper, LocalProgram, RoundExecutor
 from repro_torch.fed.transport import apply_delta, delta_tree, fake_batch_bytes
 from repro_torch.models.dcgan import (disc_apply, disc_apply_layer, disc_init,
@@ -83,15 +86,8 @@ def g_loss_fn(g_params, d_params, z, c) -> torch.Tensor:
 
 # (is the option set?, what it is, the ROADMAP Queue A item that ports it)
 _UNPORTED = (
-    (lambda cfg: cfg.fed.mode != "sync", "fed.mode other than 'sync'",
-     "item 6 (async engine)"),
     (lambda cfg: cfg.fed.backend != "loop", "fed.backend other than 'loop'",
      "item 7 (vectorized backend)"),
-    (lambda cfg: cfg.fed.server_reduce != "decode",
-     "fed.server_reduce other than 'decode'",
-     "item 6 (compressed-domain reduce)"),
-    (lambda cfg: cfg.fed.hierarchy_cohorts >= 2, "fed.hierarchy_cohorts >= 2",
-     "item 6 (edge hierarchy)"),
     (lambda cfg: cfg.fed.shard_clients, "fed.shard_clients",
      "item 7 (client mesh)"),
     (lambda cfg: cfg.split.enabled and cfg.split.pipeline_microbatches > 1,
@@ -194,6 +190,7 @@ class FSLGANTrainer:
         # depend on batches_per_client)
         self.engine: Optional[FederationEngine] = None
         self._engine_batches: Optional[int] = None
+        self._cohort_of: Optional[Callable[[str], int]] = None
 
     # ------------------------------------------------------------------
     def _build_steps(self):
@@ -270,8 +267,8 @@ class FSLGANTrainer:
         """Root noise key of this round — (privacy.seed, round) under
         DP-SGD, (split.seed, round) for a stochastic boundary stage alone,
         None when the step draws no noise.  The engine's executor extends
-        it by (cohort 0, client roster index, execution index) and the
-        step by the batch index."""
+        it by (cohort, client roster index, execution index) and the step
+        by the batch index."""
         if self.program.is_dp:
             return keys.fold_in(keys.root(keys.DP_SGD,
                                           self.cfg.privacy.seed),
@@ -333,9 +330,19 @@ class FSLGANTrainer:
                 cid, float(len(self.client_data[cid])), ct,
                 lr_scale=float(self.cfg.fed.client_lr_scales.get(cid, 1.0)),
                 local_steps=steps))
+        # static cohort map of the edge hierarchy: roster order cut into
+        # contiguous cohorts, shared by the engine's pre-reduce and the
+        # executor's (round, cohort, client) key chain, so grouping and
+        # noise keys cannot disagree
+        self._cohort_of = None
+        if self.cfg.fed.hierarchy_cohorts >= 2:
+            grouped = assign_cohorts([s.client_id for s in specs],
+                                     self.cfg.fed.hierarchy_cohorts)
+            cmap = {cid: c for c, ms in grouped.items() for cid in ms}
+            self._cohort_of = lambda cid: cmap.get(cid, 0)
         self.engine = FederationEngine(
             self.cfg.fed, specs, weighted=self.cfg.fsl.weighted_average,
-            uplink_stage=self._uplink_stage)
+            uplink_stage=self._uplink_stage, cohort_of=self._cohort_of)
         self._engine_batches = batches_per_client
         return self.engine
 
@@ -366,7 +373,7 @@ class FSLGANTrainer:
             sample=self._sample_round_batches,
             opt_lookup=lambda cid: self.state.d_opt[cid],
             default_steps=batches_per_client, hyper=hyper,
-            round_key=self._round_key())
+            round_key=self._round_key(), cohort_of=self._cohort_of)
 
     def _g_updates(self, d_avg, batches: int) -> List[float]:
         """Server G update against the averaged D (never touches real data)."""
@@ -386,8 +393,9 @@ class FSLGANTrainer:
     # ------------------------------------------------------------------
     def train_epoch(self, batches_per_client: int = 24,
                     backend: Optional[str] = None) -> Dict[str, float]:
-        """One FL round on the federation engine (sync barrier, the
-        configured uplink codec).  ``backend`` (default ``cfg.fed.backend``)
+        """One FL round on the federation engine (``cfg.fed``: sync, flat
+        or hierarchical, or async scheduling; the uplink codec; the server
+        reduce).  ``backend`` (default ``cfg.fed.backend``)
         selects how the client program runs; ``"loop"`` (per-client steps)
         is the one ported.  Privacy composes: DP-SGD inside the step, uplink
         DP as the engine's pre-codec stage.  Optimizer state commits only
@@ -444,6 +452,8 @@ class FSLGANTrainer:
             "stragglers": float(len(rep.stragglers)),
             "mean_staleness": rep.mean_staleness,
         }
+        if rep.traffic.total_edge:
+            metrics["edge_mbytes"] = rep.traffic.total_edge / 1e6
         if self.split_execs:
             # executed split: measured boundary bytes that crossed the LAN
             # this round, and the compute load each device carried

@@ -34,6 +34,11 @@
 //  * int8: s = amax > 0 ? amax / 127 : 1;  q = clamp(rint(x / s), -127, 127)
 //    * s, with a true IEEE division and round-half-even (rintf);
 //  * fp16: __half2float(__float2half_rn(x)).
+// NaN propagates as in the reference (jnp.max, jnp.clip, jnp.maximum): a
+// NaN anywhere makes the amax NaN, so the int8 scale is 1.0 (NaN > 0 is
+// false); a NaN element stays NaN through the qdq; a NaN in a row makes
+// its norm and clip scale NaN, so the whole row comes out NaN.  fmaxf and
+// fminf drop a NaN operand, so they never see one here.
 // Build without --use_fast_math: the division, sqrtf and rintf stay IEEE.
 
 #include <cuda_fp16.h>
@@ -47,11 +52,16 @@ constexpr int kAmaxBlocks = 256;  // partial maxima folded by every row CTA
 
 enum Codec { kNone = 0, kFp16 = 1, kInt8 = 2 };
 
+// max that returns NaN when either operand is NaN (fmaxf returns the other)
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+
 __device__ __forceinline__ float block_reduce(float v, float* smem,
                                               bool is_max) {
   for (int o = 16; o > 0; o >>= 1) {
     const float w = __shfl_xor_sync(0xffffffffu, v, o);
-    v = is_max ? fmaxf(v, w) : v + w;
+    v = is_max ? nan_max(v, w) : v + w;
   }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   __syncthreads();  // smem may still be read by a previous reduction
@@ -59,7 +69,9 @@ __device__ __forceinline__ float block_reduce(float v, float* smem,
   __syncthreads();
   const int nwarps = blockDim.x >> 5;
   v = 0.f;  // the identity of both: maxima here are of |x|
-  for (int i = 0; i < nwarps; ++i) v = is_max ? fmaxf(v, smem[i]) : v + smem[i];
+  for (int i = 0; i < nwarps; ++i) {
+    v = is_max ? nan_max(v, smem[i]) : v + smem[i];
+  }
   return v;  // the same value in every thread
 }
 
@@ -71,7 +83,7 @@ amax_partial(const float* __restrict__ x, float* __restrict__ partial,
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
        i += stride) {
-    m = fmaxf(m, fabsf(__ldg(x + i)));
+    m = nan_max(m, fabsf(__ldg(x + i)));
   }
   m = block_reduce(m, smem, true);
   if (threadIdx.x == 0) partial[blockIdx.x] = m;
@@ -82,7 +94,8 @@ __device__ __forceinline__ float qdq(float v, float s) {
   if constexpr (kCodec == kFp16) {
     return __half2float(__float2half_rn(v));
   } else if constexpr (kCodec == kInt8) {
-    return fminf(fmaxf(rintf(v / s), -127.f), 127.f) * s;
+    const float r = rintf(v / s);
+    return (r != r ? r : fminf(fmaxf(r, -127.f), 127.f)) * s;
   } else {
     return v;
   }
@@ -98,7 +111,7 @@ fuse_rows(const float* __restrict__ x, const float* __restrict__ z,
   if constexpr (kCodec == kInt8) {
     float m = 0.f;
     for (int i = threadIdx.x; i < n_partial; i += blockDim.x) {
-      m = fmaxf(m, __ldg(partial + i));
+      m = nan_max(m, __ldg(partial + i));
     }
     const float amax = block_reduce(m, smem, true);
     s = amax > 0.f ? amax / 127.f : 1.f;
@@ -111,7 +124,9 @@ fuse_rows(const float* __restrict__ x, const float* __restrict__ z,
     ss = fmaf(q, q, ss);
   }
   ss = block_reduce(ss, smem, false);
-  const float scale = fminf(1.f, clip / fmaxf(sqrtf(ss), 1e-12f));
+  const float norm = sqrtf(ss);
+  const float scale =
+      norm != norm ? norm : fminf(1.f, clip / fmaxf(norm, 1e-12f));
   const float* zr = z + off;
   float* o = out + off;
   for (int64_t i = threadIdx.x; i < N; i += blockDim.x) {

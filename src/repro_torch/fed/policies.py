@@ -1,17 +1,31 @@
-"""Server aggregation policies.  Port of ``repro/fed/policies.py``: the
-paper's sync barrier FedAvg; FedAsync and FedBuff wait for ROADMAP Queue A
-item 6.
+"""Server aggregation policies.  Port of ``repro/fed/policies.py``.
 
-The engine calls ``on_update`` for every arriving update and
-``on_round_end`` once per round.
+  SyncFedAvg   the paper's rule: barrier on all surviving clients, weighted
+               average (host ``core/fedavg``, or the fedavg CUDA kernel
+               with ``use_kernel``).
+  FedAsync     Xie et al.: apply every update the moment it arrives,
+               down-weighted by staleness
+                   global <- (1 - a_t) * global + a_t * params,
+                   a_t = alpha * (1 + staleness) ** -staleness_power.
+  FedBuff      Nguyen et al.: buffer K updates (staleness-discounted
+               weights), aggregate the buffer, mix with server_lr.
+
+The engine calls ``on_update`` for every arriving update (in virtual-time
+order) and ``on_round_end`` once per round; a policy returns the possibly
+updated global tree plus whether it advanced the global model version
+(which is what staleness counts).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any, List, Tuple
 
+import torch
+
 from repro_torch.core.fedavg import fedavg
+from repro_torch.kernels.agg_fuse.ref import f32
 from repro_torch.kernels.fedavg.ops import fedavg_trees
+from repro_torch.tree import tree_map
 
 
 @dataclass
@@ -23,7 +37,33 @@ class ClientUpdate:
     recv_time: float = 0.0      # virtual arrival time at the server
 
 
-class SyncFedAvg:
+def _mix(global_tree, update_tree, rate: float):
+    """fp32 convex blend ``(1 - r) * global + r * update`` with r and 1 - r
+    rounded to fp32 as the reference's ``jnp.float32`` arithmetic does,
+    cast back to the global tree's dtypes."""
+    r = f32(rate)
+    keep = f32(1.0 - r)
+    return tree_map(
+        lambda g, u: (keep * g.to(torch.float32)
+                      + r * u.to(torch.float32)).to(g.dtype),
+        global_tree, update_tree)
+
+
+class AggregationPolicy:
+    """Base: buffer everything, do nothing until told."""
+    name = "base"
+
+    def on_update(self, global_tree, up: ClientUpdate) -> Tuple[Any, bool]:
+        return global_tree, False
+
+    def on_round_end(self, global_tree) -> Any:
+        return global_tree
+
+    def reset(self) -> None:
+        pass
+
+
+class SyncFedAvg(AggregationPolicy):
     """Barrier aggregation — the sequential trainer's exact rule.
 
     Updates are buffered in arrival order (== participation order under the
@@ -56,12 +96,68 @@ class SyncFedAvg:
         return fedavg(trees, weights)
 
 
-def make_policy(fed_cfg, *, weighted: bool = True) -> SyncFedAvg:
+class FedAsync(AggregationPolicy):
+    """Staleness-weighted immediate application (FedAsync)."""
+    name = "fedasync"
+
+    def __init__(self, alpha: float = 0.6, staleness_power: float = 0.5):
+        self.alpha = float(alpha)
+        self.staleness_power = float(staleness_power)
+
+    def rate(self, staleness: int) -> float:
+        return self.alpha * (1.0 + staleness) ** (-self.staleness_power)
+
+    def on_update(self, global_tree, up: ClientUpdate) -> Tuple[Any, bool]:
+        return _mix(global_tree, up.params, self.rate(up.staleness)), True
+
+
+class FedBuff(AggregationPolicy):
+    """Buffered async aggregation: fire once K updates are waiting.
+
+    Buffered updates are weighted by ``weight * (1+staleness)^-power`` and
+    averaged (host FedAvg, as in the reference); the server blends the
+    buffer mean in at ``server_lr`` (1.0 == replace, the FedBuff default).
+    A non-empty buffer at round end is flushed, so no client work is
+    silently dropped.
+    """
+    name = "fedbuff"
+
+    def __init__(self, buffer_size: int = 2, server_lr: float = 1.0,
+                 staleness_power: float = 0.5):
+        self.buffer_size = max(1, int(buffer_size))
+        self.server_lr = float(server_lr)
+        self.staleness_power = float(staleness_power)
+        self._buffer: List[ClientUpdate] = []
+
+    def _flush(self, global_tree):
+        ws = [u.weight * (1.0 + u.staleness) ** (-self.staleness_power)
+              for u in self._buffer]
+        mean = fedavg([u.params for u in self._buffer], ws)
+        self._buffer = []
+        return _mix(global_tree, mean, self.server_lr)
+
+    def on_update(self, global_tree, up: ClientUpdate) -> Tuple[Any, bool]:
+        self._buffer.append(up)
+        if len(self._buffer) >= self.buffer_size:
+            return self._flush(global_tree), True
+        return global_tree, False
+
+    def on_round_end(self, global_tree) -> Any:
+        if self._buffer:
+            return self._flush(global_tree)
+        return global_tree
+
+    def reset(self) -> None:
+        self._buffer = []
+
+
+def make_policy(fed_cfg, *, weighted: bool = True) -> AggregationPolicy:
     """Factory keyed by ``config.FedConfig.mode``."""
     if fed_cfg.mode == "sync":
         return SyncFedAvg(weighted, fed_cfg.kernel_aggregation)
-    if fed_cfg.mode in ("fedasync", "fedbuff"):
-        raise NotImplementedError(
-            f"fed.mode={fed_cfg.mode!r} is not ported to repro_torch yet "
-            f"(ROADMAP Queue A item 6: async engine)")
+    if fed_cfg.mode == "fedasync":
+        return FedAsync(fed_cfg.fedasync_alpha, fed_cfg.staleness_power)
+    if fed_cfg.mode == "fedbuff":
+        return FedBuff(fed_cfg.buffer_size,
+                       staleness_power=fed_cfg.staleness_power)
     raise ValueError(f"unknown fed mode {fed_cfg.mode!r}")

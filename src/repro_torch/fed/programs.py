@@ -19,21 +19,50 @@ waits for ROADMAP Queue A item 7.
 
 Noise-key contract (:mod:`repro_torch.keys`): a step's noise depends only
 on (round key, cohort, client roster index, execution index, batch index).
+
+:func:`stack_trees` / :func:`fedavg_stacked` are the stacked-tree reduce
+the edge hierarchy's decode pre-reduce uses.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch import keys
-from repro_torch.tree import tree_map, value_and_grad
+from repro_torch.kernels.fedavg.ops import fedavg_flat
+from repro_torch.tree import leaves, tree_map, value_and_grad
 
 # loss_fn(params, real_batch, fake_batch) -> scalar loss
 LossFn = Callable[[Any, torch.Tensor, torch.Tensor], torch.Tensor]
 
 BACKENDS = ("loop",)
+
+
+def stack_trees(trees: Sequence) -> Any:
+    """[tree_0 .. tree_{C-1}] -> one tree with a leading client axis."""
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def fedavg_stacked(stacked_tree, weights: Sequence[float], *,
+                   use_kernel: bool = False):
+    """Weighted average over the leading client axis of a stacked tree.
+    ``use_kernel`` sends each leaf through ``kernels/fedavg`` (the CUDA
+    kernel for a CUDA tensor); otherwise a tensordot in fp32."""
+    w = torch.tensor(list(weights), dtype=torch.float32,
+                     device=leaves(stacked_tree)[0].device)
+    w = w / torch.sum(w)
+    if use_kernel:
+        def avg(leaf):
+            flat = leaf.reshape(leaf.shape[0], -1).to(torch.float32)
+            return fedavg_flat(flat.contiguous(), w).reshape(
+                leaf.shape[1:]).to(leaf.dtype)
+    else:
+        def avg(leaf):
+            return torch.tensordot(w, leaf.to(torch.float32),
+                                   dims=([0], [0])).to(leaf.dtype)
+    return tree_map(avg, stacked_tree)
 
 
 def _is_dp(privacy) -> bool:
@@ -210,7 +239,8 @@ class RoundExecutor:
                                   Tuple[torch.Tensor, torch.Tensor]],
                  opt_lookup: Callable[[str], Any], default_steps: int,
                  hyper: Optional[Dict[str, ClientHyper]] = None,
-                 round_key: Optional[keys.Key] = None):
+                 round_key: Optional[keys.Key] = None,
+                 cohort_of: Optional[Callable[[str], int]] = None):
         if backend not in BACKENDS:
             raise NotImplementedError(
                 f"backend {backend!r} is not ported to repro_torch yet "
@@ -223,6 +253,9 @@ class RoundExecutor:
         self.default_steps = int(default_steps)
         self.hyper = hyper or {}
         self.round_key = round_key
+        # the edge hierarchy's cohort of a client, folded into the key
+        # chain; None: cohort 0 for everyone
+        self.cohort_of = cohort_of
         self._opt_overlay: Dict[str, Any] = {}
         self._exec_idx: Dict[str, int] = {}
         # stable roster index for noise keys: a hash of the id could hand
@@ -241,16 +274,17 @@ class RoundExecutor:
         return self.program.base_lr * (h.lr_scale if h else 1.0)
 
     def _key_for(self, cid: str) -> Optional[keys.Key]:
-        """Noise key of this execution: (round key, cohort 0, client roster
+        """Noise key of this execution: (round key, cohort, client roster
         index, execution index) — deterministic per schedule and distinct
-        across clients."""
+        across clients (the roster index alone is unique)."""
         if self.round_key is None:
             return None
         if cid not in self._cid_index:
             self._cid_index[cid] = len(self._cid_index)
         i = self._exec_idx.get(cid, 0)
         self._exec_idx[cid] = i + 1
-        return keys.fold_in(self.round_key, 0, self._cid_index[cid], i)
+        cohort = int(self.cohort_of(cid)) if self.cohort_of else 0
+        return keys.fold_in(self.round_key, cohort, self._cid_index[cid], i)
 
     def _opt_for(self, cid: str):
         if cid in self._opt_overlay:

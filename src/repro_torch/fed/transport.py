@@ -94,12 +94,16 @@ class LinkModel:
 
 @dataclass
 class TrafficLedger:
-    """Per-round, per-client byte accounting: WAN uplink (D params), WAN
-    downlink (fake batches) and the LAN inside each client's split chain
-    (zero while clients train unsplit)."""
+    """Per-round, per-client byte accounting: WAN uplink (D params or
+    deltas; under the edge hierarchy keyed ``cohort<k>``, since only the
+    cohorts' pre-reduced aggregates cross the WAN), WAN downlink (fake
+    batches), the LAN inside each client's split chain (zero while clients
+    train unsplit) and the client->edge hop before a cohort's pre-reduce
+    (empty on the flat path)."""
     up_bytes: Dict[str, int] = field(default_factory=dict)
     down_bytes: Dict[str, int] = field(default_factory=dict)
     lan_bytes: Dict[str, int] = field(default_factory=dict)
+    edge_bytes: Dict[str, int] = field(default_factory=dict)
 
     def record(self, client_id: str, *, up: int = 0, down: int = 0,
                lan: int = 0) -> None:
@@ -109,6 +113,11 @@ class TrafficLedger:
         if lan:
             self.lan_bytes[client_id] = (self.lan_bytes.get(client_id, 0)
                                          + int(lan))
+
+    def record_edge(self, client_id: str, nbytes: int) -> None:
+        """Client->edge uplink bytes (the pre-reduce hop)."""
+        self.edge_bytes[client_id] = (self.edge_bytes.get(client_id, 0)
+                                      + int(nbytes))
 
     @property
     def total_up(self) -> int:
@@ -121,6 +130,10 @@ class TrafficLedger:
     @property
     def total_lan(self) -> int:
         return sum(self.lan_bytes.values())
+
+    @property
+    def total_edge(self) -> int:
+        return sum(self.edge_bytes.values())
 
 
 # ---------------------------------------------------------------------------

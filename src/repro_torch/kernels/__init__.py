@@ -10,4 +10,7 @@ version).  Sources live in ``repro_torch/csrc`` and build with
   fedavg          weighted parameter average (the paper's server aggregation)
   dp_clip         DP-SGD per-example clip, sum and noise
   boundary_fuse   codec qdq + per-example clip + noise on a split crossing
+  agg_fuse        the compressed-domain server reduce: dequantise-and-reduce
+                  over wire stacks, a streamed dequantise-accumulate, and a
+                  sparse top-k scatter-accumulate
 """

@@ -1,7 +1,9 @@
 """The port's slice as a whole held against the JAX package on the CPU:
 ``FSLGANTrainer.train_epoch`` through the federation engine (sync, loop
-backend, identity codec, ``fed.kernel_aggregation``), plus the planning,
-engine and entry-point contracts around it.
+backend, identity codec, ``fed.kernel_aggregation``; the privacy and split
+options; the stream and batched server reduce, the edge hierarchy and the
+async modes), plus the planning, engine and entry-point contracts around
+it.
 
 Both trainers start from the same parameters (the JAX init, bridged) and
 draw the same host stream (``np.random.default_rng(seed)``).  The JAX
@@ -190,6 +192,126 @@ def test_private_and_split_rounds_match_jax(parts, case):
                                            err_msg=str(path))
 
 
+# The compressed-domain server reduce, the edge hierarchy and the async
+# engine.  hier: 2 clients in 2 cohorts of 1; async: fedasync with each
+# client cycling twice.
+TOPOLOGIES = {"flat": {}, "hier": {"fed.hierarchy_cohorts": 2},
+              "async": {"fed.mode": "fedasync", "fed.async_cycles": 2}}
+
+
+def _close_to_reference(tr, got, want, start, noise_steps=False):
+    """The parity rule of ``test_train_epoch_matches_jax``: every leaf
+    within 1e-4 absolute, BN-fed biases each within lr x Adam steps of
+    their shared start.
+
+    ``noise_steps`` (the generator): Adam's first step moves an element by
+    lr * g / (|g| + eps), so an element whose gradient is at rounding level
+    (|g| ~ eps = 1e-8) moves by a fraction of lr that the rounding picks,
+    as the BN-fed biases do every step.  Measured in the async round:
+    G proj.w[53, 569] had a first-step gradient of +4.2e-9 here and -6.7e-9
+    in JAX, a step difference of 1.39e-4 (ROADMAP Queue C).  Such elements
+    may exceed 1e-4, at most one in 10,000 of a leaf, each within
+    2 x lr x steps (the most two Adam walks can part)."""
+    drift = tr.cfg.optim.lr * ROUNDS * BATCHES
+    for path, g, w, s in zip(_paths(got), leaves(got),
+                             jax.tree.leaves(want), jax.tree.leaves(start)):
+        if path[-2:] in BN_FED_BIASES:
+            for side in (g.numpy(), w):
+                np.testing.assert_allclose(side, s, rtol=0, atol=drift,
+                                           err_msg=str(path))
+        elif noise_steps:
+            diff = np.abs(g.numpy() - w)
+            assert int((diff > 1e-4).sum()) <= g.numel() // 10_000, path
+            assert float(diff.max()) <= 2 * drift, path
+        else:
+            np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-4,
+                                       err_msg=str(path))
+
+
+@pytest.mark.parametrize("codec", ["none", "fp16", "int8"])
+@pytest.mark.parametrize("topo", sorted(TOPOLOGIES))
+def test_stream_rounds_match_jax(parts, topo, codec):
+    """``fed.server_reduce="stream"`` rounds against the JAX trainer's same
+    rounds from the same parameters (its agg_fuse kernels in interpret
+    mode): losses at 1e-4 relative, D to the parity rule, G to that rule
+    with rounding-level Adam steps allowed (``_close_to_reference``),
+    bytes, times and staleness exactly, the codec error at 1e-2 relative
+    (an int8 rounding that flips between frameworks moves it in the 3rd
+    digit)."""
+    over = {**SMALL, **KERNEL, **TOPOLOGIES[topo], "fed.codec": codec,
+            "fed.server_reduce": "stream"}
+    jtr = JTrainer(jget_config("dcgan-mnist").override(over), parts, seed=0)
+    cid0 = jtr.client_ids[0]
+    init = (_np(jtr.state.g_params), _np(jtr.state.d_params[cid0]))
+    tr = _port_trainer(parts, over, init)
+    for _ in range(ROUNDS):
+        jm = jtr.train_epoch(batches_per_client=BATCHES)
+        m = tr.train_epoch(batches_per_client=BATCHES)
+        assert set(m) == set(jm)
+        assert ("edge_mbytes" in m) == (topo == "hier")
+        for k in ("d_loss", "g_loss"):
+            np.testing.assert_allclose(m[k], jm[k], rtol=1e-4, err_msg=k)
+        np.testing.assert_allclose(m["codec_error"], jm["codec_error"],
+                                   rtol=1e-2, atol=1e-12)
+        for k in set(m) - {"d_loss", "g_loss", "codec_error"}:
+            assert m[k] == jm[k], k
+        assert tr.engine.last_report.peak_live_trees == \
+            jtr.engine.last_report.peak_live_trees
+    g0, d0 = init
+    _close_to_reference(tr, tr.state.g_params, _np(jtr.state.g_params), g0,
+                        noise_steps=True)
+    _close_to_reference(tr, tr.state.d_params[cid0],
+                        _np(jtr.state.d_params[cid0]), d0)
+
+
+@pytest.fixture(scope="module")
+def parts3():
+    imgs, labels = synthetic_mnist(180, seed=0)
+    return partition_dirichlet(imgs, labels, 3, alpha=0.5, seed=0)
+
+
+def _one_round(parts3, over):
+    tr = _port_trainer(parts3, {**SMALL, "fsl.num_clients": 3,
+                                "fed.kernel_aggregation": True, **over})
+    return tr, tr.train_epoch(batches_per_client=2)
+
+
+@pytest.mark.parametrize("codec", ["none", "fp16", "int8", "topk"])
+@pytest.mark.parametrize("topo", sorted(TOPOLOGIES))
+def test_stream_and_batched_rounds_match_decode(parts3, topo, codec):
+    """Inside the port, one round per server reduce from the same start:
+    the aggregated D within 2e-5 of the decode round's (the reference's
+    own pin, tests/test_agg_stream.py), wire bytes equal exactly."""
+    over = {**TOPOLOGIES[topo], "fed.codec": codec}
+    ta, ma = _one_round(parts3, over)
+    for reduce in ("stream", "batched"):
+        tb, mb = _one_round(parts3, {**over, "fed.server_reduce": reduce})
+        for a, b in zip(leaves(ta.state.d_params["c0"]),
+                        leaves(tb.state.d_params["c0"])):
+            assert float((a - b).abs().max()) <= 2e-5, reduce
+        assert ma["up_mbytes"] == mb["up_mbytes"]
+        assert ma.get("edge_mbytes") == mb.get("edge_mbytes")
+        if codec != "none":
+            assert mb["codec_error"] == pytest.approx(
+                ma["codec_error"], rel=1e-3, abs=1e-6)
+
+
+@pytest.mark.parametrize("over, peak", [
+    ({}, 3), ({"fed.server_reduce": "stream"}, 1),
+    ({"fed.server_reduce": "batched"}, 1),
+    ({"fed.hierarchy_cohorts": 2, "fed.server_reduce": "stream"}, 3),
+    ({"fed.hierarchy_cohorts": 2}, 5),
+])
+def test_peak_live_trees_match_reference(parts3, over, peak):
+    """The reference's numbers (tests/test_agg_stream.py): decode stages
+    one decoded tree per landed client (3), the compressed-domain reduce
+    only its accumulator (1); under the hierarchy the stream reduce holds
+    the 2 cohort aggregates and one accumulator (3), decode the 3 landed
+    trees and the 2 reductions (5)."""
+    tr, _ = _one_round(parts3, {"fed.codec": "int8", **over})
+    assert tr.engine.last_report.peak_live_trees == peak
+
+
 def test_engine_sync_equals_sequential_bit_for_bit(parts):
     """The port's twin of tests/test_fed_runtime.py's pin: with the host
     FedAvg, the engine round is the sequential loop, bit for bit."""
@@ -297,11 +419,9 @@ def test_trainer_runs_on_the_gpu_unless_told_otherwise(parts, monkeypatch):
 
 
 @pytest.mark.parametrize("over", [
-    {"fed.mode": "fedasync"}, {"fed.mode": "fedbuff"},
     {"split.enabled": True, "split.pipeline_microbatches": 2},
     {"fed.backend": "vectorized"},
-    {"fed.backend": "auto"}, {"fed.server_reduce": "stream"},
-    {"fed.hierarchy_cohorts": 2}, {"fed.shard_clients": True},
+    {"fed.backend": "auto"}, {"fed.shard_clients": True},
     {"split.enabled": True, "privacy.enabled": True,
      "privacy.mode": "dp_sgd"},
     {"privacy.enabled": True, "control.mode": "adaptive"},
@@ -312,6 +432,20 @@ def test_unported_option_raises(parts, over):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         FSLGANTrainer(get_config("dcgan-mnist").override({**SMALL, **over}),
                       parts, device="cpu")
+
+
+@pytest.mark.parametrize("over", [
+    {"fed.mode": "fedasync"}, {"fed.mode": "fedbuff"},
+    {"fed.server_reduce": "stream"}, {"fed.hierarchy_cohorts": 2},
+])
+def test_ported_option_runs_one_round(parts, over):
+    """The options this slice ported, which used to raise: one CPU round
+    each, with finite losses and both clients' updates landed."""
+    tr = _port_trainer(parts, {**SMALL, **over})
+    m = tr.train_epoch(batches_per_client=1)
+    assert np.isfinite(m["d_loss"]) and np.isfinite(m["g_loss"])
+    assert m["num_clients"] == 2
+    assert ("edge_mbytes" in m) == ("fed.hierarchy_cohorts" in over)
 
 
 def test_unported_backend_argument_raises(parts):
