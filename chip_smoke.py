@@ -9,13 +9,13 @@ non-zero exit, and no result line:
 
 1. the card — CUDA required; nvidia-smi's name and power limit printed;
    TF32 off, since the configuration computes in float32;
-2. build — every kernel (fedavg, dp_clip, boundary_fuse, agg_fuse), from
-   ``src/repro_torch/csrc``, one ``nvcc`` (sm_90a) per source, all started
-   together;
+2. build — every kernel (fedavg, dp_clip, boundary_fuse, agg_fuse,
+   flash_attention, wkv6), from ``src/repro_torch/csrc``, one ``nvcc``
+   (sm_90a) per source, all started together;
 3. kernel vs plain — each kernel on the card at the shapes the main paths
-   give it, and at ragged sizes, held against its plain PyTorch version;
-   kernel, plain and library-call times from CUDA events, beside the
-   card's bound for the same work;
+   give it, and at ragged sizes and edge cases, held against its plain
+   PyTorch version; kernel, plain and library-call times from CUDA events,
+   beside the card's bound for the same work;
 4. the main paths — ``FSLGANTrainer.train_epoch`` on ``dcgan-mnist`` at
    full width (5 clients, batch 256, base_filters 64, latent 100, Adam
    2e-4) with ``fed.kernel_aggregation``, 2 rounds x 2 batches per client,
@@ -25,17 +25,26 @@ non-zero exit, and no result line:
    (``split.use_kernel``); the int8 uplink with the stream server reduce
    (dequant_acc) and with the batched one (dequant_reduce); the top-k
    uplink with the stream reduce (scatter_acc); the edge hierarchy (2
-   cohorts) with int8 and the stream reduce.  Every launch count is set to
-   0 just before a path and read just after it, and must be exactly what
-   the path runs;
+   cohorts) with int8 and the stream reduce.  Then the LM substrate at
+   full width: ``lm_loss`` forward (``torch.no_grad``,
+   ``parallel.use_flash_kernel``) and ``serve_batch`` (4 requests, 16
+   greedy tokens, bf16 cache) on qwen3-14b (40 layers, bf16, 29.5 GB;
+   B 2 x S 2048: 40 flash_attention launches) and on rwkv6-1.6b (24
+   layers, fp32; B 4 x T 2048: 24 wkv6 launches); serving launches
+   neither, as in the reference.  Every launch count is set to 0 just
+   before a path and read just after it, and must be exactly what the path
+   runs;
 5. the output — finite losses, every parameter on the card, generated
    images in range, epsilon finite and growing, the LAN and edge bytes the
-   split and the codec predict, the server's peak of live trees; and on
-   small inputs the kernel round against the sequential round with the
-   host FedAvg, the DP-SGD engine round against the sequential one, the
-   identity-stage split round against the unsplit one, one uplink-DP round
-   with the int8 codec, and the stream and batched reduce against the
-   decode reduce (flat, hierarchical, fedasync, fedbuff).
+   split and the codec predict, the server's peak of live trees, generated
+   tokens in the vocabulary; and on small inputs the kernel round against
+   the sequential round with the host FedAvg, the DP-SGD engine round
+   against the sequential one, the identity-stage split round against the
+   unsplit one, one uplink-DP round with the int8 codec, the stream and
+   batched reduce against the decode reduce (flat, hierarchical, fedasync,
+   fedbuff), the LM forward through the kernels against the plain path,
+   and prefill + decode against the teacher-forced forward (full and
+   sliding-window caches).
 
 Prints ``{"kernels": [...]}`` on a line of its own and, as the last line,
 ``{"ok": true, "device": {...}}``.
@@ -637,11 +646,16 @@ def kernel_wrappers():
     from repro_torch.kernels.boundary_fuse.kernel import boundary_fuse_kernel
     from repro_torch.kernels.dp_clip.kernel import dp_clip_noise_kernel
     from repro_torch.kernels.fedavg.kernel import fedavg_kernel
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_kernel
+    from repro_torch.kernels.wkv6.kernel import wkv6_kernel
     return {"fedavg": fedavg_kernel, "dp_clip": dp_clip_noise_kernel,
             "boundary_fuse": boundary_fuse_kernel,
             "dequant_reduce": dequant_reduce_kernel,
             "dequant_acc": dequant_acc_kernel,
-            "scatter_acc": scatter_acc_kernel}
+            "scatter_acc": scatter_acc_kernel,
+            "flash_attention": flash_attention_kernel,
+            "wkv6": wkv6_kernel}
 
 
 def drive_path(dev, label, over, parts, expect):
@@ -940,6 +954,357 @@ def phase_small_reference(dev):
     torch.backends.cudnn.deterministic = deterministic
 
 
+# ---------------------------------------------------------------------------
+# the LM substrate: flash_attention and wkv6
+# ---------------------------------------------------------------------------
+
+# the cases of tests/test_kernels.py: (b, sq, sk, h, hkv, d, causal, window)
+FLASH_CASES = [(2, 128, 128, 4, 4, 64, True, 0), (1, 256, 256, 4, 2, 64, True, 0),
+               (2, 200, 200, 4, 1, 128, True, 0), (1, 256, 256, 2, 2, 64, True, 64),
+               (1, 384, 384, 8, 8, 32, True, 0), (1, 1, 384, 4, 2, 64, False, 0),
+               (3, 64, 64, 2, 2, 64, True, 0)]
+# (b, t, h, n)
+WKV_CASES = [(2, 64, 2, 32), (1, 100, 4, 64), (2, 17, 1, 16), (1, 128, 2, 8)]
+QWEN_FWD = (2, 2048)            # lm_loss batch x sequence on qwen3-14b
+RWKV_FWD = (4, 2048)            # and on rwkv6-1.6b
+SERVE_REQUESTS, SERVE_TOKENS = 4, 16
+# the bf16 tensor-core peak (NVIDIA data sheet, H100 SXM, dense)
+BF16_FLOPS = 989e12
+# flash kernel vs plain: fp32 sums of up to 2048 terms in another order;
+# bf16: both round their fp32 result once, so they differ by at most one
+# bf16 ulp (2^-7 relative) where the fp32 results straddle a rounding point
+FLASH_TOL = {torch.float32: dict(rtol=0, atol=2e-5),
+             torch.bfloat16: dict(rtol=2 ** -7, atol=1e-5)}
+# wkv6 kernel vs plain: fp32 sums over N in another order, carried through
+# up to 2048 decaying steps (the reference's own kernel tests use 1e-4)
+WKV_TOL = dict(rtol=1e-5, atol=1e-4)
+
+
+def causal_pairs(s, window=0):
+    """Unmasked (query, key) pairs of causal self-attention over s
+    positions, banded to ``window`` when it is > 0."""
+    qp = np.arange(s)
+    lo = np.maximum(qp - window + 1, 0) if window else 0
+    return int((qp - lo + 1).sum())
+
+
+def phase_flash_attention(dev):
+    """The flash_attention kernel against its plain version: the qwen3-14b
+    forward's (2, 2048) x 40 heads / 8 kv heads x 128 in bf16 and fp32,
+    causal and with a 512 window; the seven cases of the reference's
+    kernel tests in both types; Sq < Sk with q_offset; a padded kv whose
+    valid length leaves rows fully masked.  Then times at the main path's
+    shape beside SDPA, which the port never calls."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_kernel
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def qkv(b, sq, sk, h, hkv, d, dtype):
+        # model layout (B, S, H, D), read through (B, H, S, D) views
+        return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
+                     .transpose(1, 2) for shape in
+                     ((b, sq, h, d), (b, sk, hkv, d), (b, sk, hkv, d)))
+
+    main_shape = (QWEN_FWD[0], QWEN_FWD[1], QWEN_FWD[1], 40, 8, 128)
+    cases = []
+    for dt in (torch.bfloat16, torch.float32):
+        cases += [("main", main_shape, dict(causal=True), dt),
+                  ("main window 512", main_shape,
+                   dict(causal=True, window=512), dt)]
+        cases += [(f"reference {c}", c[:6], dict(causal=c[6], window=c[7]),
+                   dt) for c in FLASH_CASES]
+        cases += [("q_offset", (1, 100, 300, 8, 2, 128),
+                   dict(causal=True, q_offset=200), dt),
+                  ("fully masked rows", (2, 70, 150, 4, 2, 64),
+                   dict(causal=True, window=16, q_offset=100,
+                        seq_k_valid=100), dt)]
+    err = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    for label, shape, kw, dt in cases:
+        q, k, v = qkv(*shape, dt)
+        got = flash_attention_kernel(q, k, v, **kw)
+        want = attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        check(got.dtype == dt and got.shape == want.shape,
+              f"flash {label}: {got.dtype} {tuple(got.shape)}")
+        try:
+            torch.testing.assert_close(got, want, **FLASH_TOL[dt])
+        except AssertionError as e:
+            raise RuntimeError(f"flash_attention {label} {dt}: {e}") from None
+        err[dt] = max(err[dt], float((got.float() - want.float()).abs().max()))
+    print(f"flash_attention vs plain: {len(cases)} cases, max abs err "
+          f"bf16 {err[torch.bfloat16]:.3e} (tolerance "
+          f"{FLASH_TOL[torch.bfloat16]}), fp32 {err[torch.float32]:.3e} "
+          f"(tolerance {FLASH_TOL[torch.float32]})")
+
+    rows = {}
+    for label, dt, window in (("bf16 causal", torch.bfloat16, 0),
+                              ("bf16 window 512", torch.bfloat16, 512),
+                              ("fp32 causal", torch.float32, 0)):
+        q, k, v = qkv(*main_shape, dt)
+        variants = {
+            "kernel": lambda: flash_attention_kernel(q, k, v, causal=True,
+                                                     window=window),
+            "plain": lambda: attention_ref(q, k, v, causal=True,
+                                           window=window)}
+        if not window:
+            variants["library"] = lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)
+        t = time_variants(variants, iters=10, reps=3)
+        b, sq, sk, h, hkv, d = main_shape
+        pairs = causal_pairs(sq, window)
+        flops = 4 * b * h * d * pairs
+        nbytes = q.element_size() * (2 * b * sq * h * d + 2 * b * sk * hkv * d)
+        peak = BF16_FLOPS if dt == torch.bfloat16 else FP32_FLOPS
+        t_b, t_o = nbytes / HBM_BPS, flops / peak
+        bound, by = 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o
+                                          else "operations")
+        rows[label] = (t["device"], bound, by)
+        print(f"flash_attention {label} {main_shape}: bound {bound:.4f} ms, "
+              f"set by {by} ({flops:.4g} flops at {peak / 1e12:.0f} "
+              f"TFLOP/s = {1e3 * t_o:.4f} ms; {nbytes} B at 3.35 TB/s = "
+              f"{1e3 * t_b:.4f} ms)")
+        for mode, tm in t.items():
+            lib = (f", SDPA {tm['library']:.4f} ms" if "library" in tm
+                   else "")
+            print(f"  {mode:6s} kernel {tm['kernel']:.4f} ms, plain "
+                  f"{tm['plain']:.4f} ms{lib}")
+    d, bound, by = rows["bf16 causal"]
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:91",
+            "launches": None, "max_abs_err": max(err.values()),
+            "ms": d["kernel"], "plain_ms": d["plain"], "bound_ms": bound,
+            "bound_by": by, "library_ms": d["library"]}
+
+
+def phase_wkv6(dev):
+    """The wkv6 kernel against its plain version: the rwkv6-1.6b forward's
+    (4, 2048, 32, 64) with a random state0 and with none; the four cases of
+    the reference's kernel tests; two halves chained through the state
+    equal to one pass.  Then times at the main path's shape; no single
+    PyTorch call computes the recurrence."""
+    from repro_torch.kernels.wkv6.kernel import wkv6_kernel
+    from repro_torch.kernels.wkv6.ref import wkv6_ref
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def inputs(b, t, h, n, state=True):
+        r, k, v = (torch.randn((b, t, h, n), generator=gen, device=dev)
+                   for _ in range(3))
+        w = torch.exp(-torch.exp(0.5 * torch.randn(
+            (b, t, h, n), generator=gen, device=dev)))
+        u = 0.1 * torch.randn((h, n), generator=gen, device=dev)
+        s0 = (0.1 * torch.randn((b, h, n, n), generator=gen, device=dev)
+              if state else None)
+        return r, k, v, w, u, s0
+
+    main_shape = (RWKV_FWD[0], RWKV_FWD[1], 32, 64)
+    cases = [("main, state0", inputs(*main_shape)),
+             ("main, no state0", inputs(*main_shape, state=False))]
+    cases += [(f"reference {c}", inputs(*c)) for c in WKV_CASES]
+    max_abs = 0.0
+    for label, args in cases:
+        got = wkv6_kernel(*args)
+        want = wkv6_ref(*args)
+        torch.cuda.synchronize()
+        for g, w_, what in zip(got, want, ("out", "state")):
+            try:
+                torch.testing.assert_close(g, w_, **WKV_TOL)
+            except AssertionError as e:
+                raise RuntimeError(f"wkv6 {label} {what}: {e}") from None
+            max_abs = max(max_abs, float((g - w_).abs().max()))
+    r, k, v, w, u, s0 = inputs(2, 300, 4, 64)
+    full, sT = wkv6_kernel(r, k, v, w, u, s0)
+    h1, s1 = wkv6_kernel(*(a[:, :137].contiguous() for a in (r, k, v, w)),
+                         u, s0)
+    h2, s2 = wkv6_kernel(*(a[:, 137:].contiguous() for a in (r, k, v, w)),
+                         u, s1)
+    torch.cuda.synchronize()
+    check(torch.equal(torch.cat([h1, h2], 1), full) and torch.equal(s2, sT),
+          "wkv6: two chained halves differ from one pass")
+    print(f"wkv6 vs plain: {len(cases)} cases, max abs err {max_abs:.3e} "
+          f"(tolerance {WKV_TOL}); two halves chained through the state "
+          f"equal one pass bit for bit")
+
+    args = inputs(*main_shape)
+    t = time_variants({"kernel": lambda: wkv6_kernel(*args),
+                       "plain": lambda: wkv6_ref(*args)}, iters=3, reps=1)
+    b, t_, h, n = main_shape
+    nbytes = 4 * (5 * b * t_ * h * n + h * n + 2 * b * h * n * n)
+    flops = 7 * b * t_ * h * n * n
+    bound, by = bound_ms(nbytes, flops)
+    print(f"wkv6 {main_shape}: bound {bound:.4f} ms, set by {by} ({nbytes} "
+          f"B at 3.35 TB/s = {1e3 * nbytes / HBM_BPS:.4f} ms; {flops:.4g} fp32 "
+          f"flops at 67 TFLOP/s = {1e3 * flops / FP32_FLOPS:.4f} ms); "
+          f"{t_} dependent steps on {b * h} chains")
+    for mode, tm in t.items():
+        print(f"  {mode:6s} kernel {tm['kernel']:.4f} ms, plain "
+              f"{tm['plain']:.4f} ms ({tm['kernel'] * 1e3 / t_:.3f} us a "
+              f"step)")
+    d = t["device"]
+    return {"name": "wkv6", "route": "cuda",
+            "source": "src/repro_torch/csrc/wkv6.cu",
+            "replaces": "src/repro/kernels/wkv6/kernel.py:64",
+            "launches": None, "max_abs_err": max_abs,
+            "ms": d["kernel"], "plain_ms": d["plain"], "bound_ms": bound,
+            "bound_by": by, "library_ms": None}
+
+
+def drive_lm(dev, arch, fwd_shape, kernel, full_width):
+    """One LM at full width: ``lm_loss`` forward under ``torch.no_grad``
+    with ``parallel.use_flash_kernel`` on a synthetic batch, then
+    ``serve_batch`` (4 requests of 128-1024 prompt tokens, 16 greedy
+    tokens, bf16 cache).  Every kernel's launch count is set to 0 just
+    before each of the two and read just after: the forward must launch
+    ``kernel`` once a layer and nothing else, serving nothing at all.
+    Returns the forward's launches of ``kernel``."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import synthetic_lm_batch, synthetic_tokens
+    from repro_torch.launch.serve import Request, serve_batch
+    from repro_torch.models.transformer import lm_init, lm_loss
+    from repro_torch.runtime.serve import _dtype
+    from repro_torch.tree import leaves
+
+    cfg = get_config(arch).override({"parallel.use_flash_kernel": True})
+    m = cfg.model
+    check({k: getattr(m, k) for k in full_width} == full_width,
+          f"{arch} is not at full width: {m}")
+    wrappers = kernel_wrappers()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = lm_init(0, m, _dtype(cfg.parallel.param_dtype), dev)
+    torch.cuda.synchronize()
+    pbytes = sum(l.numel() * l.element_size() for l in leaves(params))
+    print(f"{arch}: {m.num_layers} layers, d_model {m.d_model}, "
+          f"{len(leaves(params))} leaves, {pbytes / 1e9:.3f} GB of "
+          f"{cfg.parallel.param_dtype} parameters, init "
+          f"{time.perf_counter() - t0:.2f} s")
+    b, s = fwd_shape
+    batch = {k: torch.as_tensor(a, device=dev) for k, a in
+             synthetic_lm_batch(b, s, m.vocab_size, seed=0).items()}
+    cd = _dtype(cfg.parallel.compute_dtype)
+
+    def forward():
+        with torch.no_grad():
+            return lm_loss(params, batch, m, cd, cfg.parallel.remat,
+                           use_kernel=cfg.parallel.use_flash_kernel)
+
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    loss, met = forward()
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    counts = {k: w.launches for k, w in wrappers.items()}
+    want = {k: (m.num_layers if k == kernel else 0) for k in counts}
+    check(counts == want, f"{arch} forward: launches {counts}, expected "
+          f"{want}")
+    fwd_launches = counts[kernel]
+    check(math.isfinite(float(loss)) and float(met["tokens"]) == b * s,
+          f"{arch} forward: loss {float(loss)}, tokens {met['tokens']}")
+    t0 = time.perf_counter()
+    loss2, _ = forward()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    check(torch.equal(loss, loss2), f"{arch}: two forwards differ")
+    print(f"{arch} lm_loss forward, B {b} x S {s}, use_flash_kernel: loss "
+          f"{float(loss):.6f} (ln vocab {math.log(m.vocab_size):.3f}), wall "
+          f"{cold:.3f} s cold, {warm:.3f} s warm, launches {counts} as "
+          f"expected, peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    del batch, loss, loss2, met
+
+    scfg = get_config(arch, "decode_32k")
+    check(scfg.parallel.cache_dtype == "bfloat16", "cache is not bf16")
+    rng = np.random.default_rng(0)
+    lens = [int(n) for n in rng.integers(128, 1025, SERVE_REQUESTS)]
+    reqs = [Request(i, synthetic_tokens(1, n, m.vocab_size, seed=i)[0])
+            for i, n in enumerate(lens)]
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    serve_batch(scfg, reqs, SERVE_TOKENS, device=dev, params=params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: w.launches for k, w in wrappers.items()}
+    check(not any(counts.values()), f"{arch} serve: launches {counts}")
+    for r in reqs:
+        check(len(r.generated) == SERVE_TOKENS and all(
+            0 <= t < m.vocab_size for t in r.generated),
+              f"{arch} serve: request {r.rid} generated {r.generated}")
+    print(f"{arch} serve_batch: prompts {lens}, {SERVE_TOKENS} tokens each, "
+          f"wall {wall:.3f} s, no kernel launched (prefill and decode take "
+          f"the plain attention / scan, as in the reference)")
+    del params
+    torch.cuda.empty_cache()
+    return fwd_launches
+
+
+def phase_lm_paths(dev):
+    launches = {}
+    launches["flash_attention"] = drive_lm(
+        dev, "qwen3-14b", QWEN_FWD, "flash_attention",
+        dict(num_layers=40, d_model=5120, num_heads=40, num_kv_heads=8,
+             head_dim=128, d_ff=17408, vocab_size=151936))
+    launches["wkv6"] = drive_lm(
+        dev, "rwkv6-1.6b", RWKV_FWD, "wkv6",
+        dict(num_layers=24, d_model=2048, num_heads=32, head_dim=64,
+             d_ff=7168, vocab_size=65536))
+    return launches
+
+
+def phase_lm_small_reference(dev):
+    """On the card at smoke width, fp32, TF32 off: ``lm_apply`` through the
+    kernels against the plain path (1e-4), and prefill + decode against
+    the teacher-forced forward (5e-4, the reference's pin), for both
+    architectures and the sliding-window ring."""
+    from repro_torch.config import reduce_for_smoke
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import (lm_apply, lm_decode_step,
+                                                lm_init, lm_prefill)
+
+    def setup(arch, seq, over=None):
+        cfg = reduce_for_smoke(get_config(arch, "train_4k"), seq_len=seq,
+                               batch=2)
+        if over:
+            cfg = cfg.override(over)
+        m = cfg.model
+        params = lm_init(0, m, torch.float32, dev)
+        toks = torch.as_tensor(np.random.default_rng(1).integers(
+            0, m.vocab_size, (2, seq)), device=dev)
+        return m, params, toks
+
+    with torch.no_grad():
+        for arch in ("qwen3-14b", "rwkv6-1.6b"):
+            m, params, toks = setup(arch, 100)
+            a, _ = lm_apply(params, {"tokens": toks}, m, use_kernel=False)
+            b, _ = lm_apply(params, {"tokens": toks}, m, use_kernel=True)
+            d = float((a - b).abs().max())
+            check(d <= 1e-4, f"{arch} small: kernel path vs plain {d}")
+            print(f"small input, {arch} lm_apply (2 x 100), kernel path vs "
+                  f"plain path: max abs diff {d:.3e} (pin 1e-4)")
+        for arch, seq, pre, over in (
+                ("qwen3-14b", 12, 8, None), ("rwkv6-1.6b", 12, 8, None),
+                ("qwen3-14b", 24, 6, {"model.attention": "sliding",
+                                      "model.sliding_window": 5})):
+            m, params, toks = setup(arch, seq, over)
+            full, _ = lm_apply(params, {"tokens": toks}, m)
+            lg, state, idx = lm_prefill(params, {"tokens": toks[:, :pre]}, m,
+                                        cache_len=seq,
+                                        cache_dtype=torch.float32)
+            errs = [float((lg - full[:, pre - 1]).abs().max())]
+            for t in range(pre, seq):
+                lg, state = lm_decode_step(params, toks[:, t], state, t, m)
+                errs.append(float((lg - full[:, t]).abs().max()))
+            check(max(errs) < 5e-4, f"{arch} {over}: decode drift {errs}")
+            print(f"small input, {arch}{' ring' if over else ''}: prefill "
+                  f"{pre} + decode to {seq} vs forward, max abs diff "
+                  f"{max(errs):.3e} (pin 5e-4)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs the port "
@@ -965,15 +1330,20 @@ def main() -> int:
 
     t0 = time.perf_counter()
     rows = [phase_kernel_vs_plain(dev), phase_dp_clip(dev),
-            phase_boundary_fuse(dev), *phase_agg_fuse(dev)]
+            phase_boundary_fuse(dev), *phase_agg_fuse(dev),
+            phase_flash_attention(dev), phase_wkv6(dev)]
     print(f"kernel vs plain: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     launches = phase_main_paths(dev)
     print(f"main paths: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches.update(phase_lm_paths(dev))
+    print(f"LM paths: {time.perf_counter() - t0:.1f} s")
     for row in rows:
         row["launches"] = launches[row["name"]]
     t0 = time.perf_counter()
     phase_small_reference(dev)
+    phase_lm_small_reference(dev)
     print(f"small references: {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": rows}))

@@ -1,29 +1,79 @@
-"""Architecture registry (port of ``repro/configs/registry.py``).
+"""Architecture registry (port of ``repro/configs/registry.py``):
+``--arch <id>`` resolution, optionally bound to an input shape.
 
-Only the paper's own model is ported; every other architecture of the JAX
-registry waits for the LM substrate (ROADMAP Queue A item 10).
+Ported: the paper's own model and the LM substrate's dense and recurrent
+models.  Every other architecture of the JAX registry raises a ``KeyError``
+naming the ROADMAP item it waits for.  ``long_500k`` applicability as in
+the reference: native for state-based archs, a sliding-window variant for
+full-attention decoders, skipped for whisper.
 """
 from __future__ import annotations
 
 import importlib
-from typing import Dict, List
+from typing import Dict, List, Optional
 
-from repro_torch.config import RunConfig
+from repro_torch.config import ATTN_SLIDING, INPUT_SHAPES, RunConfig
 
 # arch id -> module name
 _ARCHS: Dict[str, str] = {
+    "qwen3-14b": "repro_torch.configs.qwen3_14b",
+    "rwkv6-1.6b": "repro_torch.configs.rwkv6_1b6",
+    # the paper's own model
     "dcgan-mnist": "repro_torch.configs.dcgan_mnist",
 }
+
+# archs of the JAX registry that are not ported yet -> what they wait for
+_WAITING: Dict[str, str] = {
+    "recurrentgemma-9b": "the rglru block",
+    "deepseek-v2-lite-16b": "the mla and moe blocks",
+    "chameleon-34b": "the vlm frontend",
+    "olmoe-1b-7b": "the moe block",
+    "whisper-base": "the whisper encoder/decoder",
+    "granite-20b": "its config",
+    "qwen2-72b": "its config",
+    "llama3-405b": "its config",
+}
+
+SHAPES: List[str] = list(INPUT_SHAPES)
+
+# long_500k handling per arch
+LONG_NATIVE = {"rwkv6-1.6b", "recurrentgemma-9b"}
+LONG_SKIP = {"whisper-base"}          # decoder max positions = 448
+
+
+class SkippedShape(Exception):
+    """Raised when an (arch, shape) pair is skipped by design."""
 
 
 def list_archs() -> List[str]:
     return list(_ARCHS)
 
 
-def get_config(arch: str) -> RunConfig:
-    """Resolve ``--arch <id>`` among the ported architectures."""
+def get_config(arch: str, shape: Optional[str] = None) -> RunConfig:
+    """Resolve ``--arch <id>`` among the ported architectures, optionally
+    bound to one of ``INPUT_SHAPES``."""
     if arch not in _ARCHS:
+        why = (f" ({_WAITING[arch]}, ROADMAP Queue A item 16)"
+               if arch in _WAITING else "")
         raise KeyError(
-            f"arch {arch!r} is not ported to repro_torch yet (ROADMAP Queue "
-            f"A item 10); ported: {sorted(_ARCHS)}")
-    return importlib.import_module(_ARCHS[arch]).config()
+            f"arch {arch!r} is not ported to repro_torch{why}; ported: "
+            f"{sorted(_ARCHS)}")
+    cfg: RunConfig = importlib.import_module(_ARCHS[arch]).config()
+    if shape is not None:
+        if shape not in INPUT_SHAPES:
+            raise KeyError(f"unknown shape {shape!r}; known: {SHAPES}")
+        cfg = cfg.override({
+            "shape.name": INPUT_SHAPES[shape].name,
+            "shape.seq_len": INPUT_SHAPES[shape].seq_len,
+            "shape.global_batch": INPUT_SHAPES[shape].global_batch,
+            "shape.mode": INPUT_SHAPES[shape].mode,
+        })
+        if shape == "long_500k" and arch not in LONG_NATIVE:
+            if arch in LONG_SKIP:
+                raise SkippedShape(
+                    f"{arch}: long_500k skipped (decoder max positions 448)")
+            # dense/moe/vlm: beyond-paper sliding-window variant
+            cfg = cfg.override({"model.attention": ATTN_SLIDING,
+                                "model.sliding_window": 4096})
+        cfg = cfg.validate()
+    return cfg

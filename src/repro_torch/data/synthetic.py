@@ -56,3 +56,26 @@ def synthetic_mnist(n: int, seed: int = 0, size: int = 28
         batch = np.clip(batch * amp + noise, 0, 1)
         imgs[sel, :, :, 0] = batch * 2.0 - 1.0
     return imgs, labels
+
+
+def synthetic_tokens(n_seqs: int, seq_len: int, vocab: int, seed: int = 0
+                     ) -> np.ndarray:
+    """Markov-ish token streams so an LM has learnable structure."""
+    rng = np.random.default_rng(seed)
+    # block-structured transition: token t+1 ~ near t with high prob
+    toks = np.empty((n_seqs, seq_len), np.int32)
+    cur = rng.integers(0, vocab, n_seqs)
+    for t in range(seq_len):
+        toks[:, t] = cur
+        jump = rng.random(n_seqs) < 0.1
+        step = rng.integers(1, 17, n_seqs)
+        cur = np.where(jump, rng.integers(0, vocab, n_seqs),
+                       (cur + step) % vocab)
+    return toks
+
+
+def synthetic_lm_batch(batch: int, seq_len: int, vocab: int, seed: int = 0
+                       ) -> Dict[str, np.ndarray]:
+    toks = synthetic_tokens(batch, seq_len + 1, vocab, seed)
+    return {"tokens": toks[:, :-1].astype(np.int32),
+            "labels": toks[:, 1:].astype(np.int32)}

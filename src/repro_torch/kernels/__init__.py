@@ -13,4 +13,7 @@ version).  Sources live in ``repro_torch/csrc`` and build with
   agg_fuse        the compressed-domain server reduce: dequantise-and-reduce
                   over wire stacks, a streamed dequantise-accumulate, and a
                   sparse top-k scatter-accumulate
+  flash_attention blockwise online-softmax attention (GQA, causal and
+                  sliding-window masks) for the LM substrate's forward
+  wkv6            the RWKV-6 recurrence for the LM substrate's forward
 """

@@ -1,0 +1,249 @@
+"""Language-model assembly: embeddings -> period-stacked block stack -> head
+(port of ``repro/models/transformer.py``).
+
+Ported for the decoder-only families whose blocks are ported (``attn``:
+dense; ``rwkv``: ssm).  The encoder-decoder (whisper) and hybrid branches
+raise ``NotImplementedError`` (ROADMAP Queue A item 16).  Layers are
+stacked per *period* as in the reference; the stack runs as a Python loop
+over periods, so ``scan_layers`` and ``remat`` are accepted and change
+nothing (both reference paths compute the same values, and a forward pass
+keeps no residuals for a backward).
+
+Public API
+----------
+  lm_init(seed, m, dtype, device)          random params from a seed
+  lm_apply(params, batch, m, ...)          -> (logits, aux_loss)
+  lm_loss(params, batch, m, ...)           -> (loss, metrics)
+  init_decode_state(m, batch, cache_len)   stacked decode state
+  lm_prefill(params, batch, m, ...)        -> (logits_last, state, index)
+  lm_decode_step(params, token, state, index, m, ...) -> (logits, state)
+
+Tensors in ``batch`` live on the parameters' device.  Decode updates the
+state it is given in place and returns it.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.config import AUDIO, HYBRID, ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.blocks import (block_apply, block_decode, block_init,
+                                       block_state_init, period_of,
+                                       split_periods)
+from repro_torch.tree import tree_map
+
+
+def _check_ported(m: ModelConfig) -> None:
+    if m.encdec.enabled or m.family == AUDIO:
+        raise NotImplementedError(
+            f"{m.name}: the encoder-decoder LM (whisper) is not ported to "
+            f"repro_torch yet (ROADMAP Queue A item 16)")
+    if m.family == HYBRID:
+        raise NotImplementedError(
+            f"{m.name}: the hybrid LM (RG-LRU) is not ported to repro_torch "
+            f"yet (ROADMAP Queue A item 16)")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _stack_init(gen, m: ModelConfig, dtype):
+    """Period parameters stacked on a leading axis, drawn one period at a
+    time straight into the stacked buffers (a full-width fp32 stack of one
+    MLP leaf would not fit beside the bf16 model)."""
+    period = period_of(m)
+    n_full, rem = split_periods(m)
+    stack: Dict[str, Any] = {}
+    for i in range(n_full):
+        one = {f"b{j}": block_init(gen, kind, m, dtype)
+               for j, kind in enumerate(period)}
+        if i == 0:
+            stack = tree_map(lambda a: a.new_empty((n_full, *a.shape)), one)
+        tree_map(lambda dst, src: dst[i].copy_(src), stack, one)
+    tail = {f"t{i}": block_init(gen, kind, m, dtype)
+            for i, kind in enumerate(rem)}
+    return stack, tail
+
+
+def lm_init(seed: int, m: ModelConfig, dtype=torch.float32, device=None
+            ) -> Dict[str, Any]:
+    """Random parameters from ``seed``, drawn on ``device`` (the GPU unless
+    the caller names another)."""
+    _check_ported(m)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    p: Dict[str, Any] = {}
+    p["embed"] = L.embedding_init(gen, m.vocab_size, m.d_model, dtype)
+    p["stack"], p["tail"] = _stack_init(gen, m, dtype)
+    p["final_norm"] = L.rmsnorm_init(m.d_model, dtype, dev)
+    if not m.tie_embeddings:
+        p["head"] = {"w": L._normal(gen, (m.d_model, m.vocab_size),
+                                    m.d_model ** -0.5, dtype)}
+    return p
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def _run_stack(stack, tail, x, m: ModelConfig, positions, cd,
+               use_kernel: bool, cache_len: int = 0,
+               cache_dtype=torch.bfloat16):
+    """Run the period-stacked blocks, then the tail. If cache_len > 0, also
+    collect the decode cache produced by prefill (returned in
+    init_decode_state layout)."""
+    period = period_of(m)
+    n_full, rem = split_periods(m)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    per_caches = []
+    for i in range(n_full):
+        pparams = tree_map(lambda a: a[i], stack)
+        caches = {}
+        for j, kind in enumerate(period):
+            x, a, c = block_apply(kind, pparams[f"b{j}"], x, m, positions,
+                                  cd, None, use_kernel, cache_len,
+                                  cache_dtype)
+            aux_total = aux_total + a
+            caches[f"b{j}"] = c
+        per_caches.append(caches)
+    tail_cache = {}
+    for i, kind in enumerate(rem):
+        x, a, c = block_apply(kind, tail[f"t{i}"], x, m, positions, cd, None,
+                              use_kernel, cache_len, cache_dtype)
+        aux_total = aux_total + a
+        tail_cache[f"t{i}"] = c
+    if cache_len:
+        stack_cache = (tree_map(lambda *xs: torch.stack(xs), *per_caches)
+                       if per_caches else {})
+        return x, aux_total, {"stack": stack_cache, "tail": tail_cache}
+    return x, aux_total, None
+
+
+def _head(params, x, m: ModelConfig):
+    """Final norm and the vocabulary projection, fp32 logits."""
+    x = L.rmsnorm_apply(params["final_norm"], x, m.norm_eps)
+    if m.tie_embeddings:
+        return L.unembed_apply(params["embed"], x)
+    # bf16 operands, fp32 accumulation and result, as the reference
+    return L._f32_matmul(x, params["head"]["w"])
+
+
+def lm_apply(params, batch: Dict[str, torch.Tensor], m: ModelConfig,
+             cd=None, remat: str = "full", use_kernel: bool = False,
+             positions=None, scan_layers: bool = True
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """batch: {"tokens": (B,S) int}.  ``remat`` and ``scan_layers`` are
+    accepted for the reference's signature and change nothing here."""
+    _check_ported(m)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = L.embedding_apply(params["embed"], tokens, cd)
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+    x, aux, _ = _run_stack(params["stack"], params["tail"], x, m, positions,
+                           cd, use_kernel)
+    return _head(params, x, m), aux
+
+
+def lm_loss(params, batch: Dict[str, torch.Tensor], m: ModelConfig,
+            cd=None, remat: str = "full", use_kernel: bool = False,
+            scan_layers: bool = True
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token xent. batch["labels"]: (B,S) with -1 = ignore."""
+    logits, aux = lm_apply(params, batch, m, cd, remat, use_kernel,
+                           scan_layers=scan_layers)
+    labels = batch["labels"]
+    valid = labels >= 0
+    lab = torch.clamp(labels, min=0).to(torch.int64)
+    lse = torch.logsumexp(logits, dim=-1)
+    # the reference picks the label's logit by a one-hot contraction (a
+    # sharding choice); a gather reads the same value
+    picked = torch.gather(logits, -1, lab[..., None])[..., 0]
+    nll = lse - picked
+    denom = torch.clamp(torch.sum(valid), min=1)
+    loss = torch.sum(nll * valid) / denom
+    total = loss + aux
+    return total, {"loss": loss, "aux_loss": aux,
+                   "tokens": torch.sum(valid).to(torch.float32)}
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+def init_decode_state(m: ModelConfig, batch: int, cache_len: int,
+                      dtype=torch.bfloat16, device=None):
+    """Zero decode state, per-period leaves stacked on a leading axis, on
+    ``device`` (the GPU unless the caller names another)."""
+    _check_ported(m)
+    dev = resolve_device(device)
+    period = period_of(m)
+    n_full, rem = split_periods(m)
+
+    def one(kind):
+        return block_state_init(kind, m, batch, cache_len, dtype, dev)
+
+    stack = {}
+    if n_full:
+        one_p = {f"b{i}": one(kind) for i, kind in enumerate(period)}
+        stack = tree_map(lambda x: x[None].repeat(n_full, *([1] * x.dim())),
+                         one_p)
+    tail = {f"t{i}": one(kind) for i, kind in enumerate(rem)}
+    return {"stack": stack, "tail": tail}
+
+
+def _write_back(dst, src):
+    """Copy a block's new state into its (stacked) state views, leaving
+    the leaves a block updated in place alone."""
+    def put(d, s):
+        if d is not s:
+            d.copy_(s)
+        return d
+    tree_map(put, dst, src)
+
+
+def lm_decode_step(params, token: torch.Tensor, state, index: int,
+                   m: ModelConfig, cd=None, scan_layers: bool = True
+                   ) -> Tuple[torch.Tensor, Any]:
+    """token: (B,) int; index: the current position (a Python int).
+    ``state`` is updated in place and returned."""
+    _check_ported(m)
+    period = period_of(m)
+    n_full, rem = split_periods(m)
+    index = int(index)
+    x = L.embedding_apply(params["embed"], token[:, None], cd)
+    for i in range(n_full):
+        pparams = tree_map(lambda a: a[i], params["stack"])
+        pstate = tree_map(lambda a: a[i], state["stack"])
+        for j, kind in enumerate(period):
+            x, s = block_decode(kind, pparams[f"b{j}"], x, pstate[f"b{j}"],
+                                index, m, cd)
+            _write_back(pstate[f"b{j}"], s)
+    for i, kind in enumerate(rem):
+        x, s = block_decode(kind, params["tail"][f"t{i}"], x,
+                            state["tail"][f"t{i}"], index, m, cd)
+        _write_back(state["tail"][f"t{i}"], s)
+    return _head(params, x, m)[:, 0], state
+
+
+def lm_prefill(params, batch: Dict[str, torch.Tensor], m: ModelConfig,
+               cache_len: int, cd=None, cache_dtype=torch.bfloat16,
+               remat: str = "none", scan_layers: bool = True
+               ) -> Tuple[torch.Tensor, Any, int]:
+    """Process the full prompt, returning (last-token logits, decode state,
+    next index). The cache is populated inside the forward pass (each
+    block contributes its K/V / recurrent state), so prefill is one pass.
+    Attention takes the plain path, as in the reference."""
+    _check_ported(m)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = L.embedding_apply(params["embed"], tokens, cd)
+    positions = torch.arange(s, device=x.device)
+    x, _, state = _run_stack(params["stack"], params["tail"], x, m,
+                             positions, cd, False, cache_len=cache_len,
+                             cache_dtype=cache_dtype)
+    return _head(params, x[:, -1:], m)[:, 0], state, s

@@ -1,0 +1,238 @@
+"""The port's flash_attention and wkv6 ops held against the JAX package,
+and their CUDA kernels held against the plain versions.
+
+On the CPU the port's ops take their plain versions (``ref.py``); they must
+match the JAX ops with the Pallas kernels run in interpret mode, on the
+cases of ``tests/test_kernels.py``: flash attention to 2e-5 and the WKV-6
+recurrence to 1e-4, the tolerances the reference's own kernel tests use
+(fp32 sums in another order; the recurrence compounds them over time).
+The CUDA kernels run only on a GPU: those tests carry the ``gpu`` marker
+and skip here.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.ops import flash_attention as jflash
+from repro.kernels.wkv6.ops import wkv6 as jwkv6
+from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.wkv6.kernel import wkv6_kernel
+from repro_torch.kernels.wkv6.ops import wkv6
+from repro_torch.kernels.wkv6.ref import wkv6_ref
+
+torch.backends.cuda.matmul.allow_tf32 = False
+
+# the cases of tests/test_kernels.py
+FLASH_CASES = [
+    # (b, sq, sk, h, hkv, d, causal, window)
+    (2, 128, 128, 4, 4, 64, True, 0),
+    (1, 256, 256, 4, 2, 64, True, 0),      # GQA 2:1
+    (2, 200, 200, 4, 1, 128, True, 0),     # MQA + unaligned seq
+    (1, 256, 256, 2, 2, 64, True, 64),     # sliding window
+    (1, 384, 384, 8, 8, 32, True, 0),      # small head_dim
+    (1, 1, 384, 4, 2, 64, False, 0),       # single-query decode pattern
+    (3, 64, 64, 2, 2, 64, True, 0),        # seq < block
+]
+WKV_CASES = [
+    # (b, t, h, n, block_t of the TPU op)
+    (2, 64, 2, 32, 16),
+    (1, 100, 4, 64, 64),    # unaligned t
+    (2, 17, 1, 16, 8),
+    (1, 128, 2, 8, 32),
+]
+
+
+def _np(shape, seed, scale=1.0):
+    return (scale * np.random.default_rng(seed).standard_normal(shape)
+            ).astype(np.float32)
+
+
+def _flash_inputs(b, sq, sk, h, hkv, d, seed):
+    return (_np((b, sq, h, d), seed), _np((b, sk, hkv, d), seed + 1),
+            _np((b, sk, hkv, d), seed + 2))
+
+
+def _wkv_inputs(b, t, h, n, seed):
+    r, k, v = (_np((b, t, h, n), seed + i) for i in range(3))
+    w = np.exp(-np.exp(_np((b, t, h, n), seed + 3, 0.5)))
+    u = _np((h, n), seed + 4, 0.1)
+    s0 = _np((b, h, n, n), seed + 5, 0.1)
+    return r, k, v, w, u, s0
+
+
+# ---------------------------------------------------------------------------
+# flash attention: the op vs JAX, the plain version's masks
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_matches_jax(case):
+    b, sq, sk, h, hkv, d, causal, win = case
+    q, k, v = _flash_inputs(b, sq, sk, h, hkv, d, seed=sum(case))
+    want = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                  causal=causal, window=win, interpret=True)
+    before = flash_attention_kernel.launches
+    got = flash_attention(torch.tensor(q), torch.tensor(k), torch.tensor(v),
+                          causal=causal, window=win)
+    assert flash_attention_kernel.launches == before   # CPU: plain version
+    assert got.shape == (b, sq, h, d) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=2e-5)
+
+
+def test_flash_attention_bf16_matches_jax():
+    q, k, v = _flash_inputs(1, 128, 128, 2, 2, 64, seed=40)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    want = jflash(jq, jk, jv, interpret=True)
+    got = flash_attention(*(torch.tensor(np.asarray(a.astype(jnp.float32))
+                                         ).to(torch.bfloat16)
+                            for a in (jq, jk, jv)))
+    assert got.dtype == torch.bfloat16
+    # both compute in fp32 from the same bf16 inputs and round the output
+    # once: at most one bf16 ulp apart (|out| < 4)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=0, atol=2 ** -6)
+
+
+def test_flash_plain_version_masks():
+    """q_offset shifts the causal diagonal; keys past seq_k_valid are
+    masked; a row with no unmasked key averages v over all keys."""
+    b, h, hkv, sq, sk, d = 1, 4, 2, 8, 24, 16
+    q = torch.tensor(_np((b, h, sq, d), 41))
+    k = torch.tensor(_np((b, hkv, sk, d), 42))
+    v = torch.tensor(_np((b, hkv, sk, d), 43))
+    # Sq < Sk with q_offset: the last rows of a longer sequence
+    full_q = torch.cat([torch.zeros((b, h, sk - sq, d)), q], dim=2)
+    want = attention_ref(full_q, k, v)[:, :, sk - sq:]
+    torch.testing.assert_close(attention_ref(q, k, v, q_offset=sk - sq),
+                               want)
+    # keys past 10 masked, window 4, q_offset 14: rows 14..21 see nothing
+    out = attention_ref(q, k, v, window=4, q_offset=14, seq_k_valid=10)
+    mean_v = torch.repeat_interleave(v, 2, dim=1).mean(dim=2, keepdim=True)
+    torch.testing.assert_close(out, mean_v.expand_as(out))
+
+
+def test_flash_ops_are_forward_only():
+    q, k, v = (torch.tensor(a) for a in _flash_inputs(1, 8, 8, 2, 2, 16, 44))
+    with pytest.raises(RuntimeError, match="forward-only"):
+        flash_attention(q.requires_grad_(True), k, v)
+
+
+# ---------------------------------------------------------------------------
+# wkv6: the op vs JAX, state chaining
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", WKV_CASES)
+def test_wkv6_matches_jax(case):
+    b, t, h, n, bt = case
+    r, k, v, w, u, s0 = _wkv_inputs(b, t, h, n, seed=sum(case))
+    want_o, want_s = jwkv6(*(jnp.asarray(a) for a in (r, k, v, w, u, s0)),
+                           block_t=bt, interpret=True)
+    before = wkv6_kernel.launches
+    got_o, got_s = wkv6(*(torch.tensor(a) for a in (r, k, v, w, u, s0)))
+    assert wkv6_kernel.launches == before
+    np.testing.assert_allclose(got_o.numpy(), np.asarray(want_o), rtol=0,
+                               atol=1e-4)
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), rtol=0,
+                               atol=1e-4)
+
+
+def test_wkv6_state_chaining_equals_single_pass():
+    r, k, v, w, u, _ = (torch.tensor(a) for a in _wkv_inputs(1, 64, 2, 16,
+                                                               50))
+    full, sT = wkv6(r, k, v, w, u)
+    h1, s1 = wkv6(r[:, :32], k[:, :32], v[:, :32], w[:, :32], u)
+    h2, s2 = wkv6(r[:, 32:], k[:, 32:], v[:, 32:], w[:, 32:], u, state0=s1)
+    torch.testing.assert_close(torch.cat([h1, h2], 1), full, rtol=0,
+                               atol=1e-4)
+    torch.testing.assert_close(s2, sT, rtol=0, atol=1e-4)
+    jo, js = jwkv6(*(jnp.asarray(a.numpy()) for a in (r, k, v, w, u)),
+                   block_t=16, interpret=True)
+    np.testing.assert_allclose(full.numpy(), np.asarray(jo), rtol=0,
+                               atol=1e-4)
+
+
+def test_wkv6_ops_are_forward_only():
+    r, k, v, w, u, _ = (torch.tensor(a) for a in _wkv_inputs(1, 4, 1, 8,
+                                                               51))
+    with pytest.raises(RuntimeError, match="forward-only"):
+        wkv6(r, k.requires_grad_(True), v, w, u)
+
+
+def test_kernels_refuse_cpu_tensors():
+    q, k, v = (torch.tensor(a).transpose(1, 2)
+               for a in _flash_inputs(1, 8, 8, 2, 2, 16, 52))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_kernel(q, k, v)
+    r, kk, vv, w, u, s0 = (torch.tensor(a) for a in _wkv_inputs(1, 4, 1, 8,
+                                                                 53))
+    with pytest.raises(ValueError, match="CUDA"):
+        wkv6_kernel(r, kk, vv, w, u, s0)
+
+
+def test_new_sources_are_built():
+    assert build.SOURCES["flash_attention"] == "flash_attention.cu"
+    assert build.SOURCES["wkv6"] == "wkv6.cu"
+    for name in ("flash_attention", "wkv6"):
+        assert (build.CSRC / build.SOURCES[name]).is_file()
+        assert build.library_path(name).suffix == ".so"
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels (GPU only)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the flash_attention and wkv6 kernels "
+                    "have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain_version_on_gpu(cuda, case, dtype):
+    b, sq, sk, h, hkv, d, causal, win = case
+    q, k, v = (torch.tensor(a, device=cuda).to(dtype).transpose(1, 2)
+               for a in _flash_inputs(b, sq, sk, h, hkv, d, seed=sum(case)))
+    before = flash_attention_kernel.launches
+    got = flash_attention_kernel(q, k, v, causal=causal, window=win)
+    torch.cuda.synchronize()
+    assert flash_attention_kernel.launches == before + 1
+    # bf16: both round their fp32 result once, at most one ulp apart
+    tol = (dict(rtol=0, atol=2e-5) if dtype == torch.float32
+           else dict(rtol=2 ** -7, atol=1e-5))
+    torch.testing.assert_close(got.float(), attention_ref(
+        q, k, v, causal=causal, window=win).float(), **tol)
+
+
+@pytest.mark.gpu
+def test_flash_kernel_fully_masked_rows_on_gpu(cuda):
+    q, k, v = (torch.tensor(a, device=cuda).transpose(1, 2)
+               for a in _flash_inputs(2, 70, 150, 4, 2, 64, seed=60))
+    kw = dict(window=16, q_offset=100, seq_k_valid=100)
+    got = flash_attention_kernel(q, k, v, **kw)
+    torch.testing.assert_close(got, attention_ref(q, k, v, **kw), rtol=0,
+                               atol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", WKV_CASES)
+def test_wkv6_kernel_matches_plain_version_on_gpu(cuda, case):
+    b, t, h, n, _ = case
+    args = [torch.tensor(a, device=cuda)
+            for a in _wkv_inputs(b, t, h, n, seed=sum(case))]
+    before = wkv6_kernel.launches
+    got_o, got_s = wkv6_kernel(*args)
+    torch.cuda.synchronize()
+    assert wkv6_kernel.launches == before + 1
+    want_o, want_s = wkv6_ref(*args)
+    torch.testing.assert_close(got_o, want_o, rtol=0, atol=1e-4)
+    torch.testing.assert_close(got_s, want_s, rtol=0, atol=1e-4)

@@ -267,4 +267,4 @@ def test_config_is_the_reference_config():
 
 def test_registry_rejects_unported_arch():
     with pytest.raises(KeyError, match="not ported"):
-        get_config("qwen3-14b")
+        get_config("olmoe-1b-7b")
