@@ -993,17 +993,37 @@ def phase_flash_attention(dev):
     forward's (2, 2048) x 40 heads / 8 kv heads x 128 in bf16 and fp32,
     causal and with a 512 window; the seven cases of the reference's
     kernel tests in both types; Sq < Sk with q_offset; a padded kv whose
-    valid length leaves rows fully masked.  Then times at the main path's
+    valid length leaves rows fully masked; Sq and Sk that are no multiple
+    of the tiles; a contiguous (B, H, S, D) layout.  A bf16 view whose
+    strides TMA cannot take must raise.  Then times at the main path's
     shape beside SDPA, which the port never calls."""
     import torch.nn.functional as F
+    from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention.kernel import \
-        flash_attention_kernel
+        flash_attention_kernel, smem_bytes
     from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    # registers and spills from ptxas, shared memory (dynamic) by query
+    kinds = {"flash_fwd_tcILi": torch.bfloat16,
+             "flash_fwd_f32ILi": torch.float32}
+    for line in build.build_log("flash_attention").splitlines():
+        if "Compiling entry function" in line:
+            dt = next(v for k, v in kinds.items() if k in line)
+            d = int(line.split("ILi")[1].split("E")[0])
+        elif "registers" in line or "spill" in line:
+            print(f"flash_attention {dt} D {d}: {line.strip()}"
+                  + (f"; {smem_bytes(dt, d)} B dynamic shared memory"
+                     if "registers" in line else ""))
 
     gen = torch.Generator(device=dev).manual_seed(5)
 
-    def qkv(b, sq, sk, h, hkv, d, dtype):
-        # model layout (B, S, H, D), read through (B, H, S, D) views
+    def qkv(b, sq, sk, h, hkv, d, dtype, bshd=True):
+        # model layout (B, S, H, D), read through (B, H, S, D) views; or
+        # a contiguous (B, H, S, D) tensor
+        if not bshd:
+            return tuple(torch.randn(shape, generator=gen, device=dev)
+                         .to(dtype) for shape in
+                         ((b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)))
         return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
                      .transpose(1, 2) for shape in
                      ((b, sq, h, d), (b, sk, hkv, d), (b, sk, hkv, d)))
@@ -1020,10 +1040,17 @@ def phase_flash_attention(dev):
                    dict(causal=True, q_offset=200), dt),
                   ("fully masked rows", (2, 70, 150, 4, 2, 64),
                    dict(causal=True, window=16, q_offset=100,
-                        seq_k_valid=100), dt)]
+                        seq_k_valid=100), dt),
+                  ("ragged tiles", (2, 130, 190, 4, 2, 128),
+                   dict(causal=True), dt),
+                  ("ragged tiles, not causal", (2, 130, 190, 4, 2, 64),
+                   dict(causal=False), dt),
+                  ("(B, H, S, D) layout", (2, 200, 200, 8, 2, 128),
+                   dict(causal=True, bshd=False), dt)]
     err = {torch.bfloat16: 0.0, torch.float32: 0.0}
     for label, shape, kw, dt in cases:
-        q, k, v = qkv(*shape, dt)
+        kw = dict(kw)
+        q, k, v = qkv(*shape, dt, bshd=kw.pop("bshd", True))
         got = flash_attention_kernel(q, k, v, **kw)
         want = attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -1038,6 +1065,21 @@ def phase_flash_attention(dev):
           f"bf16 {err[torch.bfloat16]:.3e} (tolerance "
           f"{FLASH_TOL[torch.bfloat16]}), fp32 {err[torch.float32]:.3e} "
           f"(tolerance {FLASH_TOL[torch.float32]})")
+    q, k, v = qkv(1, 16, 16, 2, 2, 64, torch.bfloat16)
+    before = flash_attention_kernel.launches
+    for label, bad in (("a 136-byte head stride", torch.randn(
+            1, 16, 2, 68, device=dev).to(torch.bfloat16)[..., :64]),
+                       ("an address off by 2 bytes", torch.randn(
+            2049, device=dev).to(torch.bfloat16)[1:].view(1, 16, 2, 64))):
+        try:
+            flash_attention_kernel(bad.transpose(1, 2), k, v)
+        except ValueError:
+            continue
+        raise RuntimeError(f"flash_attention: bf16 q with {label} ran")
+    check(flash_attention_kernel.launches == before,
+          "flash_attention launched on a view TMA cannot take")
+    print("flash_attention: bf16 views TMA cannot take (a 136-byte head "
+          "stride, an address off by 2 bytes) raise ValueError")
 
     rows = {}
     for label, dt, window in (("bf16 causal", torch.bfloat16, 0),
@@ -1062,10 +1104,14 @@ def phase_flash_attention(dev):
         bound, by = 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o
                                           else "operations")
         rows[label] = (t["device"], bound, by)
+        # bf16: P.V runs twice (P's bf16 high part and residual), so the
+        # kernel's own tensor-core work is 1.5x the function's
+        split = (f"; the kernel's 1.5x with P split: {1.5e3 * t_o:.4f} ms"
+                 if dt == torch.bfloat16 else "")
         print(f"flash_attention {label} {main_shape}: bound {bound:.4f} ms, "
               f"set by {by} ({flops:.4g} flops at {peak / 1e12:.0f} "
-              f"TFLOP/s = {1e3 * t_o:.4f} ms; {nbytes} B at 3.35 TB/s = "
-              f"{1e3 * t_b:.4f} ms)")
+              f"TFLOP/s = {1e3 * t_o:.4f} ms{split}; {nbytes} B at 3.35 "
+              f"TB/s = {1e3 * t_b:.4f} ms)")
         for mode, tm in t.items():
             lib = (f", SDPA {tm['library']:.4f} ms" if "library" in tm
                    else "")

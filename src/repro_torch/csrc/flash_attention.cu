@@ -5,12 +5,12 @@
 // q: (B, H, Sq, D), k/v: (B, Hkv, Sk, D), o like q, each addressed by its
 // own (b, h, s) element strides with d contiguous, so the caller's model
 // layout (B, S, H, D) is read and written in place, with no transpose.
-// fp32 or bf16 in, fp32 math, o in q's dtype.  GQA: q head h reads kv head
-// h / (H / Hkv); K and V are never repeated in memory.  Masks: causal
-// (q_offset + i >= j), a sliding window (q_offset + i - j < window) and a
-// valid length (j < seq_k_valid); a masked logit is the finite -1e30 of
-// the reference, so a row with no unmasked key averages v uniformly over
-// all Sk keys, as the plain version does.
+// o in q's dtype.  GQA: q head h reads kv head h / (H / Hkv); K and V are
+// never repeated in memory.  Masks: causal (q_offset + i >= j), a sliding
+// window (q_offset + i - j < window) and a valid length (j < seq_k_valid);
+// a masked logit is the finite -1e30 of the reference, so a row with no
+// unmasked key averages v uniformly over all Sk keys, as the plain version
+// does.  A key at or past Sk does not exist (probability 0).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py:91
 // (flash_attention_kernel, a pl.pallas_call over a (B, H, q block, kv
@@ -23,29 +23,65 @@
 // H100's ~295 bf16 tensor-core flops per byte of HBM, so the bound is the
 // tensor cores' 989 TFLOP/s (87 us), not the 3.35 TB/s (30 us).
 //
-// What this first design does about that: it keeps every score and
-// probability out of device memory (one read of q, k, v, one write of o)
-// and skips fully masked kv blocks, but computes on the CUDA cores in
-// fp32, not the tensor cores, so it sits far above the bound; wgmma and
-// TMA are for a later change.
+// Two kernels, chosen by dtype:
+//
+// bf16: flash_fwd_tc, on the tensor cores (FA3's shape).
+//  * one CTA per (q tile of 128 rows, head, batch), 384 threads: one
+//    producer warpgroup, of which one thread issues every copy, and two
+//    consumer warpgroups of 64 q rows each; setmaxnreg moves registers
+//    from the producer (24) to the consumers (240);
+//  * Q arrives once, K and V tiles of 128 keys through a 2-stage ring, all
+//    by TMA (4-d tensor maps over (D, H, S, B) with the caller's byte
+//    strides, encoded on the host and passed as __grid_constant__), into
+//    128-byte-swizzled shared memory (64-byte for D = 32), with mbarrier
+//    full (expect-tx) and empty (consumer release) barriers; K and V have
+//    barriers of their own, so S = Q.K^T starts while V is in flight;
+//  * S = Q.K^T by wgmma m64n128k16 from shared memory (K-major Q and K),
+//    fp32 accumulator in registers; the online softmax runs on the
+//    accumulator fragments (a row's max and sum across its 4 threads by
+//    shuffles), exp2 on logits prescaled by scale * log2(e);
+//  * P stays in registers: the S accumulator's layout is the A-operand
+//    layout of the next wgmma.  P is split into hi = bf16(p) and lo =
+//    bf16(p - hi), and O += hi.V, O += lo.V are two register-A wgmmas
+//    (m64nDk16) with V read transposed through its descriptor
+//    (MN-major).  One bf16 rounding of P would miss the bf16 pin (one ulp
+//    of the fp32 result) on about a tenth of the outputs; the split keeps
+//    p to ~16 bits, for 1.5x the tensor-core work;
+//  * the softmax is hidden behind products twice over: block j's S is
+//    issued with block j-1's P.V and its softmax runs while that P.V is
+//    in flight, and the two warpgroups take turns (named barriers) to
+//    issue, so one's softmax overlaps the other's wgmmas;
+//  * masks only on the blocks that need them (the diagonal, the window's
+//    edge, the valid length and Sk); blocks wholly inside take the
+//    unmasked path.  TMA zero-fills rows past Sq and Sk: a zero key is
+//    not a masked key, so keys past Sk get probability 0 by position;
+//  * causal q tiles run heaviest first: the q tile is the grid's slowest
+//    axis, walked from the last tile down.
+//  Tile sizes: a consumer thread holds S (64 fp32), P hi and lo (64
+//  registers) and O (D / 2 = 64 at D = 128) in its 240 registers; at
+//  D = 128 Q (32 KB) and two stages of K and V (128 KB) leave one CTA an
+//  SM.  On an H100, 128-key blocks ran faster than 64-key ones and a
+//  third stage gained nothing.
+//
+// fp32: flash_fwd_f32, on the CUDA cores (TF32 would break the fp32 pin).
 //  * one CTA per (q block of 64 rows, head, batch), 256 threads: thread
 //    (r, c) owns row r and the score columns c, c+4, ..., c+60 of each kv
 //    block, and the output columns c, c+4, ... of row r;
 //  * Q (scaled later, as the reference), K and V tiles staged in shared
-//    memory as fp32: Q and K with a padded row stride (D + 1) so the
-//    threads of a warp hit distinct banks; above 48 KB (D >= 64) this is
-//    dynamic shared memory with the cudaFuncSetAttribute opt-in;
+//    memory: Q and K with a padded row stride (D + 1) so the threads of a
+//    warp hit distinct banks; above 48 KB (D >= 64) this is dynamic
+//    shared memory with the cudaFuncSetAttribute opt-in;
 //  * the row max and the row sum go between the row's 4 threads, which
 //    sit in one warp, by shuffles; the probabilities go through a shared
-//    64 x 65 tile to the P.V product;
-//  * the kv loop runs only over the blocks some valid row can see: below
-//    the diagonal (first_k <= last_q), inside the window (last_k >=
-//    first_q - window + 1) and under the valid length.  Where a row of the
-//    block can have no key at all, every block runs, so that row gets the
-//    reference's uniform average;
-//  * ragged edges are masked by the real lengths: rows past Sq are not
-//    written, keys past Sk do not exist (probability 0); no padded copy.
+//    64 x 65 tile to the P.V product.
+//
+// Both run only the kv blocks some valid row of the CTA can see: below
+// the diagonal (first_k <= last_q), inside the window (last_k >= first_q
+// - window + 1) and under the valid length.  Where a row of the CTA can
+// have no key at all, every block runs, so that row gets the reference's
+// uniform average.  Rows past Sq are not written; nothing is padded.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -53,25 +89,7 @@
 
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kThreads = 256;             // kBlockQ rows x 4 threads a row
-constexpr int kCols = kBlockK / 4;        // score columns a thread owns
-constexpr int kPStride = kBlockK + 1;
 constexpr float kNegInf = -1e30f;         // the reference's NEG_INF
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 struct Strides {            // element strides of (b, h, s); d is 1
   int64_t b, h, s;
@@ -82,17 +100,48 @@ struct Params {
   float scale;
 };
 
+// kv blocks [lo, hi) of size block_k that some valid row of the q rows
+// [q0, q0 + nq) can see; every block where a row may see none
+__device__ __forceinline__ void kv_range(const Params& p, int q0, int nq,
+                                         int block_k, int* lo, int* hi) {
+  const int first_q = p.q_offset + q0;
+  const int last_q = first_q + nq - 1;
+  const int nkb = (p.Sk + block_k - 1) / block_k;
+  *lo = 0;
+  *hi = nkb;
+  const bool row_may_be_empty =
+      p.Skv <= 0 ||
+      (p.causal && p.window > 0 && last_q - p.window + 1 > p.Skv - 1);
+  if (row_may_be_empty) return;
+  int k_end = p.Skv;                       // keys [0, k_end) can be unmasked
+  if (p.causal) {
+    k_end = min(k_end, last_q + 1);
+    if (p.window > 0) *lo = max(0, first_q - p.window + 1) / block_k;
+  }
+  *hi = min(nkb, (k_end + block_k - 1) / block_k);
+}
+
+// ---------------------------------------------------------------------------
+// fp32: CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int kBlockQ = 64;
+constexpr int kBlockK = 64;
+constexpr int kThreads = 256;             // kBlockQ rows x 4 threads a row
+constexpr int kCols = kBlockK / 4;        // score columns a thread owns
+constexpr int kPStride = kBlockK + 1;
+
 template <int D>
-constexpr size_t smem_bytes() {
+constexpr size_t smem_bytes_f32() {
   return sizeof(float) * (2 * kBlockQ * (D + 1) + kBlockK * D +
                           kBlockQ * kPStride);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, Strides qs, Strides ks,
-          Strides vs, Strides os, Params p) {
+flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o,
+              Strides qs, Strides ks, Strides vs, Strides os, Params p) {
   constexpr int QS = D + 1;               // padded row stride of Q and K
   constexpr int kAcc = D / 4;             // output columns a thread owns
   extern __shared__ float smem[];
@@ -110,32 +159,19 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   const int cg = tid & 3;
   const int nq = min(kBlockQ, p.Sq - q0);  // valid rows of this block
 
-  const T* qp = q + b * qs.b + h * qs.h;
-  const T* kp = k + b * ks.b + hk * ks.h;
-  const T* vp = v + b * vs.b + hk * vs.h;
-  T* op = o + b * os.b + h * os.h;
+  const float* qp = q + b * qs.b + h * qs.h;
+  const float* kp = k + b * ks.b + hk * ks.h;
+  const float* vp = v + b * vs.b + hk * vs.h;
+  float* op = o + b * os.b + h * os.h;
 
   for (int i = tid; i < kBlockQ * D; i += kThreads) {
     const int r = i / D, d = i - r * D;
-    Qs[r * QS + d] = r < nq ? to_f32(qp[(int64_t)(q0 + r) * qs.s + d]) : 0.f;
+    Qs[r * QS + d] = r < nq ? qp[(int64_t)(q0 + r) * qs.s + d] : 0.f;
   }
 
-  // the kv blocks some valid row of this q block can see
+  int kb_lo, kb_hi;
+  kv_range(p, q0, nq, kBlockK, &kb_lo, &kb_hi);
   const int first_q = p.q_offset + q0;
-  const int last_q = first_q + nq - 1;
-  const int nkb = (p.Sk + kBlockK - 1) / kBlockK;
-  int kb_lo = 0, kb_hi = nkb;
-  const bool row_may_be_empty =
-      p.Skv <= 0 ||
-      (p.causal && p.window > 0 && last_q - p.window + 1 > p.Skv - 1);
-  if (!row_may_be_empty) {
-    int k_end = p.Skv;                     // keys [0, k_end) can be unmasked
-    if (p.causal) {
-      k_end = min(k_end, last_q + 1);
-      if (p.window > 0) kb_lo = max(0, first_q - p.window + 1) / kBlockK;
-    }
-    kb_hi = min(nkb, (k_end + kBlockK - 1) / kBlockK);
-  }
 
   float m_i = kNegInf, l_i = 0.f;
   float acc[kAcc];
@@ -153,8 +189,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
       const int kk = k0 + r;
       float kx = 0.f, vx = 0.f;
       if (kk < p.Sk) {
-        kx = to_f32(kp[(int64_t)kk * ks.s + d]);
-        vx = to_f32(vp[(int64_t)kk * vs.s + d]);
+        kx = kp[(int64_t)kk * ks.s + d];
+        vx = vp[(int64_t)kk * vs.s + d];
       }
       Ks[r * QS + d] = kx;
       Vs[r * D + d] = vx;
@@ -221,49 +257,587 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 
   if (row < nq) {
     const float denom = fmaxf(l_i, 1e-30f);
-    T* orow = op + (int64_t)(q0 + row) * os.s;
+    float* orow = op + (int64_t)(q0 + row) * os.s;
 #pragma unroll
-    for (int i = 0; i < kAcc; ++i) orow[cg + 4 * i] = from_f32<T>(acc[i] / denom);
+    for (int i = 0; i < kAcc; ++i) orow[cg + 4 * i] = acc[i] / denom;
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, Strides qs,
-           Strides ks, Strides vs, Strides os, int B, Params p,
-           cudaStream_t stream) {
-  constexpr size_t bytes = smem_bytes<D>();
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               Strides qs, Strides ks, Strides vs, Strides os, int B,
+               Params p, cudaStream_t stream) {
+  constexpr size_t bytes = smem_bytes_f32<D>();
   static bool opted_in = false;            // once per instantiation
   if (!opted_in) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)bytes);
     if (e != cudaSuccess) return (int)e;
     opted_in = true;
   }
   dim3 grid((p.Sq + kBlockQ - 1) / kBlockQ, p.H, B);
-  flash_fwd<T, D><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), qs, ks, vs, os, p);
+  flash_fwd_f32<D><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), qs, ks, vs, os,
+      p);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
-               Strides qs, Strides ks, Strides vs, Strides os, int B,
-               Params p, cudaStream_t s) {
-  switch (D) {
-    case 32: return launch<T, 32>(q, k, v, o, qs, ks, vs, os, B, p, s);
-    case 64: return launch<T, 64>(q, k, v, o, qs, ks, vs, os, B, p, s);
-    case 128: return launch<T, 128>(q, k, v, o, qs, ks, vs, os, B, p, s);
-    default: return (int)cudaErrorInvalidValue;
+// ---------------------------------------------------------------------------
+// bf16: tensor cores (wgmma), TMA, warp specialisation
+// ---------------------------------------------------------------------------
+
+constexpr int kTcBlockQ = 128;            // q rows a CTA: 2 warpgroups x 64
+constexpr int kTcBlockK = 128;            // keys a kv block (S: n128)
+constexpr int kStages = 2;                // K/V ring depth
+constexpr int kTcThreads = 384;           // producer + 2 consumer warpgroups
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+
+template <int D>
+struct Tile {
+  static constexpr int kPanel = D < 64 ? D : 64;      // columns a swizzle row
+  static constexpr int kPanels = D / kPanel;
+  static constexpr int kRowBytes = 2 * kPanel;        // 64 or 128
+  static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : 2;  // B128 / B64
+  static constexpr int kQPanelBytes = kTcBlockQ * kRowBytes;
+  static constexpr int kKvPanelBytes = kTcBlockK * kRowBytes;
+  static constexpr int kQBytes = kPanels * kQPanelBytes;
+  static constexpr int kKvBytes = kPanels * kKvPanelBytes;
+  // Q, then K stages, then V stages (each a multiple of 1024 B, so every
+  // tile keeps the swizzle atom's alignment), then the barriers
+  static constexpr int kKOff = kQBytes;
+  static constexpr int kVOff = kKOff + kStages * kKvBytes;
+  static constexpr int kBarOff = kVOff + kStages * kKvBytes;
+  static constexpr int kSmemBytes = kBarOff + 8 * (1 + 4 * kStages) + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// wait until the phase of parity `parity` of the barrier has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// one TMA tile load (d, h, s, b coordinates) completing on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int d, int h, int s,
+                                         int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d),
+        "r"(h), "r"(s), "r"(b) : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (16-byte units), swizzle layout (1 = 128 B, 2 = 64 B)
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// named barriers 1 and 2 order the two consumer warpgroups' wgmma issues
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// keep the compiler from moving reads or writes of registers that an
+// in-flight wgmma owns across the fence / wait
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// wgmma.mma_async m64nNk16, bf16 in, fp32 accumulator d (N / 2 registers a
+// thread).  _ss: A and B from shared memory, both K-major.  _rs: A from
+// registers (the m16n8k16 A fragment of each warp's 16 rows), B from
+// shared memory MN-major (imm-trans-b 1).  scale_d 0 overwrites d.
+
+__device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t a,
+                                          uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void mma_rs_n32(float (&d)[16],
+                                          const uint32_t (&a)[4],
+                                          uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void mma_rs_n64(float (&d)[32],
+                                          const uint32_t (&a)[4],
+                                          uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void mma_rs_n128(float (&d)[64],
+                                          const uint32_t (&a)[4],
+                                          uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void mma_rs(float (&d)[N / 2],
+                                       const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (N == 32) mma_rs_n32(d, a, b, 1);
+  else if constexpr (N == 64) mma_rs_n64(d, a, b, 1);
+  else mma_rs_n128(d, a, b, 1);
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
+             const __grid_constant__ CUtensorMap tk,
+             const __grid_constant__ CUtensorMap tv,
+             __nv_bfloat16* __restrict__ o, Strides os, Params p) {
+  using T = Tile<D>;
+  constexpr int kS = kTcBlockK / 2;        // S accumulator registers
+  constexpr int kO = D / 2;                // O accumulator registers
+  constexpr int kPSteps = kTcBlockK / 16;  // k16 steps of P.V
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_s = base, k_s = base + T::kKOff, v_s = base + T::kVOff;
+  const uint32_t bar = base + T::kBarOff;
+  const uint32_t q_full = bar;
+  auto k_full = [&](int s) { return bar + 8 * (1 + s); };
+  auto v_full = [&](int s) { return bar + 8 * (1 + kStages + s); };
+  auto k_empty = [&](int s) { return bar + 8 * (1 + 2 * kStages + s); };
+  auto v_empty = [&](int s) { return bar + 8 * (1 + 3 * kStages + s); };
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int tile =                          // causal: heaviest tiles first
+      p.causal ? (int)(gridDim.z - 1 - blockIdx.z) : (int)blockIdx.z;
+  const int q0 = tile * kTcBlockQ;
+  const int hk = h / (p.H / p.Hkv);
+  int kb_lo, kb_hi;
+  kv_range(p, q0, min(kTcBlockQ, p.Sq - q0), kTcBlockK, &kb_lo, &kb_hi);
+  const int nblocks = kb_hi - kb_lo;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), 2 * 128);      // every consumer thread
+      mbar_init(v_empty(s), 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer warpgroup: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, T::kQBytes);
+      for (int c = 0; c < T::kPanels; ++c)
+        tma_load(q_s + c * T::kQPanelBytes, &tq, q_full, c * T::kPanel, h,
+                 q0, b);
+      for (int it = 0; it < nblocks; ++it) {
+        const int s = it % kStages;
+        const uint32_t ph = ((it / kStages) & 1) ^ 1;
+        const int k0 = (kb_lo + it) * kTcBlockK;
+        mbar_wait(k_empty(s), ph);
+        mbar_expect_tx(k_full(s), T::kKvBytes);
+        for (int c = 0; c < T::kPanels; ++c)
+          tma_load(k_s + s * T::kKvBytes + c * T::kKvPanelBytes, &tk,
+                   k_full(s), c * T::kPanel, hk, k0, b);
+        mbar_wait(v_empty(s), ph);
+        mbar_expect_tx(v_full(s), T::kKvBytes);
+        for (int c = 0; c < T::kPanels; ++c)
+          tma_load(v_s + s * T::kKvBytes + c * T::kKvPanelBytes, &tv,
+                   v_full(s), c * T::kPanel, hk, k0, b);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int wg = threadIdx.x / 128 - 1;    // consumer warpgroup: 64 rows
+  const int t = threadIdx.x % 128;
+  const int g = (t % 32) / 4, c4 = t % 4;
+  const int row0 = 64 * wg + 16 * (t / 32) + g;  // this thread's rows in the
+  const int row1 = row0 + 8;                      // tile: row0 and row0 + 8
+  const int wq_first = p.q_offset + q0 + 64 * wg; // the warpgroup's rows
+  const int wq_last = wq_first + 63;
+  const int qpos0 = p.q_offset + q0 + row0, qpos1 = qpos0 + 8;
+  const int k_lim = min(p.Sk, p.Skv);
+  const float sl2 = p.scale * 1.4426950408889634f;  // scale * log2(e)
+
+  float acc[kO];
+#pragma unroll
+  for (int i = 0; i < kO; ++i) acc[i] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  float sc[kS];                            // S, then P, of the newest block
+  uint32_t p_hi[kPSteps][4], p_lo[kPSteps][4];  // P of the block before
+  const uint32_t q_wg = q_s + 64 * wg * T::kRowBytes;
+
+  // S = Q.K^T from stage s: D / 16 k-steps through the panels of Q and K
+  auto issue_s = [&](int s) {
+    const uint32_t k_tile = k_s + s * T::kKvBytes;
+    reg_fence(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int c = kk * 16 / T::kPanel;
+      const uint32_t off = (kk * 16 % T::kPanel) * 2;
+      mma_ss_n128(
+          sc,
+          smem_desc(q_wg + c * T::kQPanelBytes + off, 16, 8 * T::kRowBytes,
+                    T::kLayout),
+          smem_desc(k_tile + c * T::kKvPanelBytes + off, 16,
+                    8 * T::kRowBytes, T::kLayout),
+          kk > 0);
+    }
+    wgmma_commit();
+  };
+
+  // O += hi.V + lo.V from stage s; V read MN-major: 16 keys a k-step, D
+  // columns in panels of 64 (the leading byte offset steps across panels)
+  auto issue_pv = [&](int s) {
+    const uint32_t v_tile = v_s + s * T::kKvBytes;
+    reg_fence(acc);
+    reg_fence(p_hi);
+    reg_fence(p_lo);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kPSteps; ++j) {
+      const uint64_t dv = smem_desc(v_tile + j * 16 * T::kRowBytes,
+                                    T::kKvPanelBytes, 8 * T::kRowBytes,
+                                    T::kLayout);
+      mma_rs<D>(acc, p_hi[j], dv);
+      mma_rs<D>(acc, p_lo[j], dv);
+    }
+    wgmma_commit();
+  };
+
+  // online softmax of the block at k0 on the S fragment: sc[i] is row
+  // (i & 2 ? row1 : row0), column 8 * (i / 4) + 2 * c4 + (i & 1).  Leaves
+  // p in sc, updates m and l, returns the factors O must be rescaled by.
+  auto softmax = [&](int k0, float& corr0, float& corr1) {
+    // logits in log2 units; masks only where the block needs them
+    const bool masked =
+        k0 + kTcBlockK > k_lim ||
+        (p.causal && (k0 + kTcBlockK - 1 > wq_first ||
+                      (p.window > 0 && wq_last - k0 >= p.window)));
+    if (masked) {
+#pragma unroll
+      for (int i = 0; i < kS; ++i) {
+        const int kpos = k0 + 8 * (i / 4) + 2 * c4 + (i & 1);
+        const int qpos = (i & 2) ? qpos1 : qpos0;
+        bool ok = kpos < p.Skv;
+        if (p.causal) {
+          ok = ok && qpos >= kpos;
+          if (p.window > 0) ok = ok && (qpos - kpos) < p.window;
+        }
+        sc[i] = kpos >= p.Sk ? -INFINITY : (ok ? sc[i] * sl2 : kNegInf);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kS; ++i) sc[i] *= sl2;
+    }
+    float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+    for (int i = 0; i < kS; ++i) {
+      if (i & 2) mx1 = fmaxf(mx1, sc[i]);
+      else mx0 = fmaxf(mx0, sc[i]);
+    }
+#pragma unroll
+    for (int sh = 1; sh <= 2; sh *= 2) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, sh));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, sh));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < kS; ++i) {
+      sc[i] = exp2f(sc[i] - ((i & 2) ? mn1 : mn0));
+      if (i & 2) rs1 += sc[i];
+      else rs0 += sc[i];
+    }
+#pragma unroll
+    for (int sh = 1; sh <= 2; sh *= 2) {
+      rs0 += __shfl_xor_sync(0xffffffffu, rs0, sh);
+      rs1 += __shfl_xor_sync(0xffffffffu, rs1, sh);
+    }
+    corr0 = exp2f(m0 - mn0);
+    corr1 = exp2f(m1 - mn1);
+    l0 = l0 * corr0 + rs0;
+    l1 = l1 * corr1 + rs1;
+    m0 = mn0;
+    m1 = mn1;
+  };
+
+  // P as the A fragments of P.V: k-step j takes sc[8j .. 8j + 7] in
+  // pairs, each split into a bf16 high part and a bf16 residual
+  auto split_p = [&]() {
+#pragma unroll
+    for (int j = 0; j < kPSteps; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float x = sc[8 * j + 2 * r], y = sc[8 * j + 2 * r + 1];
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(x, y);
+        const float2 hf = __bfloat1622float2(hi);
+        p_hi[j][r] = bf16x2_bits(hi);
+        p_lo[j][r] = bf16x2_bits(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+      }
+  };
+
+  // the two warpgroups take turns to issue their products (named barrier
+  // 1 + wg is this one's turn), so one's softmax overlaps the other's
+  // wgmmas; the first turn is warpgroup 0's
+  auto turn_wait = [&]() { bar_sync(1 + wg, 256); };
+  auto turn_pass = [&]() { bar_arrive(2 - wg, 256); };
+  if (wg == 0) bar_arrive(1, 256);
+
+  // Block it's S = Q.K^T is issued together with block it-1's P.V, and
+  // its softmax runs while that P.V is on the tensor cores; O is rescaled
+  // once the P.V has landed.  The first block is peeled off, so that no
+  // wait on a wgmma is conditional (ptxas then serialises them).
+  mbar_wait(q_full, 0);
+  if (nblocks > 0) {
+    float corr0, corr1;
+    mbar_wait(k_full(0), 0);
+    turn_wait();
+    issue_s(0);
+    turn_pass();
+    wgmma_wait<0>();
+    reg_fence(sc);
+    mbar_arrive(k_empty(0));
+    softmax(kb_lo * kTcBlockK, corr0, corr1);  // O is still 0
+    split_p();
+    for (int it = 1; it < nblocks; ++it) {
+      const int s = it % kStages, prev = (it - 1) % kStages;
+      mbar_wait(k_full(s), (it / kStages) & 1);
+      turn_wait();
+      issue_s(s);
+      mbar_wait(v_full(prev), ((it - 1) / kStages) & 1);
+      issue_pv(prev);
+      turn_pass();
+      wgmma_wait<1>();                     // S has landed, P.V may not
+      reg_fence(sc);
+      mbar_arrive(k_empty(s));
+      softmax((kb_lo + it) * kTcBlockK, corr0, corr1);
+      wgmma_wait<0>();
+      reg_fence(acc);
+      reg_fence(p_hi);
+      reg_fence(p_lo);
+      mbar_arrive(v_empty(prev));
+#pragma unroll
+      for (int i = 0; i < kO; ++i) acc[i] *= (i & 2) ? corr1 : corr0;
+      split_p();
+    }
+    const int last = (nblocks - 1) % kStages;
+    mbar_wait(v_full(last), ((nblocks - 1) / kStages) & 1);
+    turn_wait();
+    issue_pv(last);
+    turn_pass();
+    wgmma_wait<0>();
+    reg_fence(acc);
+    mbar_arrive(v_empty(last));
+  }
+
+  // o = acc / l; acc[i] is row (i & 2 ? row1 : row0), column
+  // 8 * (i / 4) + 2 * c4 + (i & 1)
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  __nv_bfloat16* ob = o + b * os.b + h * os.h;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = q0 + (half ? row1 : row0);
+    if (r >= p.Sq) continue;
+    const float inv = half ? inv1 : inv0;
+    __nv_bfloat16* orow = ob + (int64_t)r * os.s;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int i = 4 * j + 2 * half;
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * c4) =
+          __floats2bfloat162_rn(acc[i] * inv, acc[i + 1] * inv);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime, so
+// the library needs no link against libcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                            cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// a (D, H, S, B) bf16 tensor map over a (B, H, S, D) strided tensor,
+// boxes of (panel, 1, rows, 1)
+template <int D>
+bool tensor_map(CUtensorMap* map, const void* ptr, int B, int H, int S,
+                Strides st, int rows) {
+  EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.h * 2, (cuuint64_t)st.s * 2,
+                                 (cuuint64_t)st.b * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)Tile<D>::kPanel, 1, (cuuint32_t)rows,
+                             1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            Tile<D>::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                      : CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_tc(const void* q, const void* k, const void* v, void* o,
+              Strides qs, Strides ks, Strides vs, Strides os, int B,
+              Params p, cudaStream_t stream) {
+  constexpr int bytes = Tile<D>::kSmemBytes;
+  static bool opted_in = false;            // once per instantiation
+  if (!opted_in) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return (int)e;
+    opted_in = true;
+  }
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map<D>(&tq, q, B, p.H, p.Sq, qs, kTcBlockQ) ||
+      !tensor_map<D>(&tk, k, B, p.Hkv, p.Sk, ks, kTcBlockK) ||
+      !tensor_map<D>(&tv, v, B, p.Hkv, p.Sk, vs, kTcBlockK))
+    return (int)cudaErrorInvalidValue;
+  dim3 grid(p.H, B, (p.Sq + kTcBlockQ - 1) / kTcBlockQ);
+  flash_fwd_tc<D><<<grid, kTcThreads, bytes, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), os, p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16.  D: 32, 64 or 128.  Strides are in
-// elements, (b, h, s) for each of q, k, v, o.  Launches on `stream`;
-// returns cudaGetLastError() (0 = launched).
+// dtype: 0 = fp32 (CUDA cores), 1 = bf16 (tensor cores; q, k, v 16-byte
+// aligned with strides of multiples of 8 elements, as TMA needs).  D: 32,
+// 64 or 128.  Strides are in elements, (b, h, s) for each of q, k, v, o.
+// Launches on `stream`; returns cudaGetLastError() (0 = launched).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, int D,
     int B, int H, int Hkv, int Sq, int Sk, int Skv, int64_t qsb, int64_t qsh,
@@ -277,8 +851,32 @@ extern "C" int flash_attention_fwd(
       os{osb, osh, oss};
   const Params p{H, Hkv, Sq, Sk, Skv, causal, window, q_offset, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_d<float>(D, q, k, v, o, qs, ks, vs, os, B, p, s);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, o, qs, ks, vs, os, B, p, s);
+  if (dtype == 0) {
+    switch (D) {
+      case 32: return launch_f32<32>(q, k, v, o, qs, ks, vs, os, B, p, s);
+      case 64: return launch_f32<64>(q, k, v, o, qs, ks, vs, os, B, p, s);
+      case 128: return launch_f32<128>(q, k, v, o, qs, ks, vs, os, B, p, s);
+    }
+  } else if (dtype == 1) {
+    switch (D) {
+      case 32: return launch_tc<32>(q, k, v, o, qs, ks, vs, os, B, p, s);
+      case 64: return launch_tc<64>(q, k, v, o, qs, ks, vs, os, B, p, s);
+      case 128: return launch_tc<128>(q, k, v, o, qs, ks, vs, os, B, p, s);
+    }
+  }
   return (int)cudaErrorInvalidValue;
+}
+
+// dynamic shared memory of one CTA of the kernel for (dtype, D); -1 for
+// a pair the source does not instantiate
+extern "C" int flash_attention_smem_bytes(int dtype, int D) {
+  switch (dtype * 1000 + D) {
+    case 32: return (int)smem_bytes_f32<32>();
+    case 64: return (int)smem_bytes_f32<64>();
+    case 128: return (int)smem_bytes_f32<128>();
+    case 1032: return Tile<32>::kSmemBytes;
+    case 1064: return Tile<64>::kSmemBytes;
+    case 1128: return Tile<128>::kSmemBytes;
+  }
+  return -1;
 }

@@ -2,13 +2,18 @@
 (``repro_torch/csrc/flash_attention.cu``), replacing the Pallas TPU kernel
 ``repro/kernels/flash_attention/kernel.py:flash_attention_kernel``.
 
-Blockwise online softmax over kv blocks of 64, one CTA per (q block of 64
-rows, head, batch), fp32 math, GQA without repeating K/V, causal,
+Blockwise online softmax with GQA (K/V never repeated), causal,
 sliding-window and valid-length masks, fully masked kv blocks skipped.
-The kernel reads every operand by its strides (d contiguous), so a
-``(B, S, H, D)`` tensor transposed to ``(B, H, S, D)`` is read in place.
-Forward only: the reference has no VJP for its kernel, and neither has
-this one.  Built by ``nvcc`` at first use and called through ``ctypes``.
+bf16 runs on the tensor cores: one CTA per (q tile of 128 rows, head,
+batch), ``wgmma`` products, K/V tiles of 128 keys fed by TMA through a
+2-stage ring, P kept in registers as a bf16 high part and residual.  fp32
+runs on the CUDA cores in fp32 (q blocks of 64), since TF32 would miss the
+fp32 pin.  The kernel reads every operand by its strides (d contiguous),
+so a ``(B, S, H, D)`` tensor transposed to ``(B, H, S, D)`` is read in
+place; TMA needs bf16 q, k, v on 16-byte-aligned addresses with strides of
+multiples of 16 bytes, and the wrapper raises on any other.  Forward only:
+the reference has no VJP for its kernel, and neither has this one.  Built
+by ``nvcc`` at first use and called through ``ctypes``.
 """
 from __future__ import annotations
 
@@ -36,12 +41,34 @@ def _lib():
     return fn
 
 
+def smem_bytes(dtype: torch.dtype, head_dim: int) -> int:
+    """Dynamic shared memory one CTA of the kernel takes for ``dtype`` and
+    ``head_dim`` (builds the kernel if needed)."""
+    fn = build.load("flash_attention").flash_attention_smem_bytes
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(DTYPES[dtype], head_dim)
+
+
 def _strides(t: torch.Tensor):
     sb, sh, ss, sd = t.stride()
     if sd != 1:
         raise ValueError(f"flash_attention_kernel: the last dimension must "
                          f"be contiguous, strides {t.stride()}")
     return sb, sh, ss
+
+
+def _check_tma(name: str, t: torch.Tensor, align: int) -> None:
+    """bf16 operands go through TMA (q, k, v: 16-byte-aligned base and
+    strides) or bf16x2 stores (out: 4 bytes)."""
+    nbytes = t.element_size()
+    bad = [s for s in t.stride()[:3] if (s * nbytes) % align]
+    if t.data_ptr() % align or bad:
+        raise ValueError(
+            f"flash_attention_kernel: bf16 {name} needs a {align}-byte-"
+            f"aligned address and (b, h, s) strides of multiples of "
+            f"{align} bytes; got address {t.data_ptr():#x}, strides "
+            f"{t.stride()}")
 
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
@@ -53,9 +80,9 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                            ) -> torch.Tensor:
     """q: (B, H, Sq, D); k/v: (B, Hkv, Sk, D), H % Hkv == 0, all fp32 or all
     bf16 on one CUDA device, any strides with the last dimension
-    contiguous.  Returns (B, H, Sq, D) in q's dtype, written into ``out``
-    when given (any such strided view, e.g. a transposed ``(B, S, H, D)``
-    buffer).
+    contiguous (bf16: what TMA takes, see the module's note).  Returns
+    (B, H, Sq, D) in q's dtype, written into ``out`` when given (any such
+    strided view, e.g. a transposed ``(B, S, H, D)`` buffer).
 
     ``q_offset`` is the global position of q row 0; keys at and beyond
     ``seq_k_valid`` (default Sk) are masked.  Launches on the current
@@ -102,6 +129,10 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"out {tuple(out.shape)} {out.dtype}, need "
                          f"{tuple(q.shape)} {q.dtype}")
     strides = (*_strides(q), *_strides(k), *_strides(v), *_strides(out))
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            _check_tma(name, t, 16)
+        _check_tma("out", out, 4)
     scale = d ** -0.5 if scale is None else float(scale)
     skv = sk if seq_k_valid is None else int(seq_k_valid)
     fn = _lib()

@@ -7,7 +7,8 @@ them.  A CUDA tensor goes through the hand-written kernel, which reads the
 same way, so nothing is padded or copied (the TPU op padded S to its block
 and transposed); it launches or raises.  A CPU tensor takes the plain
 version (``ref.py``).  The TPU op's block sizes and ``interpret`` switch
-have no counterpart here: the kernel's blocks are fixed at 64.
+have no counterpart here: the kernel fixes its own tiles (bf16: 128 q rows
+by 128 keys on the tensor cores; fp32: 64 by 64).
 
 Forward only, as the reference: a tensor that requires grad raises on
 either device.

@@ -7,8 +7,17 @@ cases of ``tests/test_kernels.py``: flash attention to 2e-5 and the WKV-6
 recurrence to 1e-4, the tolerances the reference's own kernel tests use
 (fp32 sums in another order; the recurrence compounds them over time).
 The CUDA kernels run only on a GPU: those tests carry the ``gpu`` marker
-and skip here.
+and skip here.  The bf16 flash kernel's arithmetic (tensor-core products,
+exp2 online softmax, P split into a bf16 high part and residual) is
+emulated here with PyTorch and held to the card's bf16 pin.
+
+    python tests/test_torch_lm_kernels.py
+
+prints how many outputs the emulation puts outside that pin with the
+split and with one bf16 rounding of P instead.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -114,6 +123,79 @@ def test_flash_plain_version_masks():
     out = attention_ref(q, k, v, window=4, q_offset=14, seq_k_valid=10)
     mean_v = torch.repeat_interleave(v, 2, dim=1).mean(dim=2, keepdim=True)
     torch.testing.assert_close(out, mean_v.expand_as(out))
+
+
+# the bf16 kernel's pin against the plain version: both round an fp32
+# result once, so they may differ by one bf16 ulp
+BF16_PIN = dict(rtol=2 ** -7, atol=1e-5)
+# the reference's seven cases, Sq < Sk with q_offset, and rows that a
+# window and a valid length leave with no key:
+# (b, sq, sk, h, hkv, d, causal, window, q_offset, seq_k_valid)
+TC_CASES = ([c + (0, None) for c in FLASH_CASES]
+            + [(1, 100, 300, 8, 2, 128, True, 0, 200, None),
+               (2, 70, 150, 4, 2, 64, True, 16, 100, 100)])
+
+
+def _tc_emulation(q, k, v, *, causal, window, q_offset=0, seq_k_valid=None,
+                  split=True, block_k=128):
+    """The bf16 tensor-core kernel's numerics in PyTorch, on (B, H, S, D)
+    bf16 tensors: bf16 products summed in fp32 (wgmma), logits prescaled
+    by scale * log2(e), masked to the finite -1e30, an online softmax over
+    kv blocks of ``block_k`` with exp2, P rounded to bf16 (``split``: plus
+    its bf16 residual, a second product into the same fp32 accumulator),
+    and the output o = acc * (1 / max(l, 1e-30)) rounded to bf16."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    groups = h // k.shape[1]
+    kf = torch.repeat_interleave(k, groups, dim=1).float()
+    vf = torch.repeat_interleave(v, groups, dim=1).float()
+    x = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * (
+        d ** -0.5 * math.log2(math.e))
+    qp = q_offset + torch.arange(sq)[:, None]
+    kp = torch.arange(sk)[None, :]
+    ok = kp < (sk if seq_k_valid is None else seq_k_valid)
+    if causal:
+        ok = ok & (qp >= kp)
+        if window > 0:
+            ok = ok & (qp - kp < window)
+    x = torch.where(ok, x, torch.tensor(-1e30))
+    m = torch.full((b, h, sq, 1), -1e30)
+    l = torch.zeros((b, h, sq, 1))
+    acc = torch.zeros((b, h, sq, d))
+    for k0 in range(0, sk, block_k):
+        xb = x[..., k0:k0 + block_k]
+        mn = torch.maximum(m, xb.amax(-1, keepdim=True))
+        p = torch.exp2(xb - mn)
+        corr = torch.exp2(m - mn)
+        l = l * corr + p.sum(-1, keepdim=True)
+        hi = p.to(torch.bfloat16).float()
+        vb = vf[..., k0:k0 + block_k, :]
+        acc = acc * corr + hi @ vb
+        if split:
+            acc = acc + (p - hi).to(torch.bfloat16).float() @ vb
+        m = mn
+    return (acc * (1.0 / torch.clamp(l, min=1e-30))).to(torch.bfloat16)
+
+
+def _tc_case_inputs(case):
+    b, sq, sk, h, hkv, d = case[:6]
+    return tuple(torch.tensor(a).to(torch.bfloat16).transpose(1, 2)
+                 for a in _flash_inputs(b, sq, sk, h, hkv, d,
+                                        seed=sum(case[:6])))
+
+
+@pytest.mark.parametrize("case", TC_CASES)
+def test_flash_tensor_core_numerics_hold_the_bf16_pin(case):
+    """The split of P keeps the redesigned kernel within one bf16 ulp of
+    the plain version, at the unchanged pin."""
+    causal, window, q_offset, skv = case[6:]
+    q, k, v = _tc_case_inputs(case)
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              seq_k_valid=skv)
+    got = _tc_emulation(q, k, v, **kw)
+    want = attention_ref(q, k, v, **kw)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), **BF16_PIN)
 
 
 def test_flash_ops_are_forward_only():
@@ -224,6 +306,62 @@ def test_flash_kernel_fully_masked_rows_on_gpu(cuda):
 
 
 @pytest.mark.gpu
+def test_flash_kernel_fully_masked_rows_bf16_on_gpu(cuda):
+    q, k, v = (torch.tensor(a, device=cuda).to(torch.bfloat16).transpose(1, 2)
+               for a in _flash_inputs(2, 70, 150, 4, 2, 64, seed=60))
+    kw = dict(window=16, q_offset=100, seq_k_valid=100)
+    got = flash_attention_kernel(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), attention_ref(q, k, v, **kw)
+                               .float(), **BF16_PIN)
+
+
+def _gpu_tol(dtype):
+    return dict(rtol=0, atol=2e-5) if dtype == torch.float32 else BF16_PIN
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_q_offset_on_gpu(cuda, dtype):
+    """Sq < Sk: the last 100 rows of a 300-token sequence."""
+    q, k, v = (torch.tensor(a, device=cuda).to(dtype).transpose(1, 2)
+               for a in _flash_inputs(1, 100, 300, 8, 2, 128, seed=61))
+    got = flash_attention_kernel(q, k, v, q_offset=200)
+    torch.testing.assert_close(got.float(), attention_ref(
+        q, k, v, q_offset=200).float(), **_gpu_tol(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_ragged_tiles_on_gpu(cuda, dtype, causal):
+    """Sq = 130 and Sk = 190: neither a multiple of the 128-row q tile nor
+    of the 128-key kv block."""
+    q, k, v = (torch.tensor(a, device=cuda).to(dtype).transpose(1, 2)
+               for a in _flash_inputs(2, 130, 190, 4, 2, 128, seed=62))
+    got = flash_attention_kernel(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), attention_ref(
+        q, k, v, causal=causal).float(), **_gpu_tol(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("view", ["head stride of 136 bytes",
+                                  "address off by 2 bytes"])
+def test_flash_kernel_refuses_what_tma_cannot_take_on_gpu(cuda, view):
+    k, v = (torch.randn(1, 16, 2, 64, device=cuda, dtype=torch.bfloat16)
+            .transpose(1, 2) for _ in range(2))
+    if view == "head stride of 136 bytes":
+        q = torch.randn(1, 16, 2, 68, device=cuda,
+                        dtype=torch.bfloat16)[..., :64]
+    else:
+        q = torch.randn(1 * 16 * 2 * 64 + 1, device=cuda,
+                        dtype=torch.bfloat16)[1:].view(1, 16, 2, 64)
+    before = flash_attention_kernel.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_kernel(q.transpose(1, 2), k, v)
+    assert flash_attention_kernel.launches == before
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("case", WKV_CASES)
 def test_wkv6_kernel_matches_plain_version_on_gpu(cuda, case):
     b, t, h, n, _ = case
@@ -236,3 +374,20 @@ def test_wkv6_kernel_matches_plain_version_on_gpu(cuda, case):
     want_o, want_s = wkv6_ref(*args)
     torch.testing.assert_close(got_o, want_o, rtol=0, atol=1e-4)
     torch.testing.assert_close(got_s, want_s, rtol=0, atol=1e-4)
+
+
+if __name__ == "__main__":
+    # outputs outside the bf16 pin: P split into hi + lo vs rounded once
+    for case in TC_CASES + [(1, 2048, 2048, 4, 4, 128, True, 0, 0, None)]:
+        q, k, v = _tc_case_inputs(case)
+        kw = dict(causal=case[6], window=case[7], q_offset=case[8],
+                  seq_k_valid=case[9])
+        want = attention_ref(q, k, v, **kw).float()
+        line = []
+        for split in (True, False):
+            got = _tc_emulation(q, k, v, split=split, **kw).float()
+            bad = int((~torch.isclose(got, want, **BF16_PIN)).sum())
+            line.append(f"{'split' if split else 'single'} {bad}/"
+                        f"{got.numel()} ({100 * bad / got.numel():.2f}%), "
+                        f"max abs {float((got - want).abs().max()):.3e}")
+        print(case, "; ".join(line))
