@@ -1,20 +1,33 @@
 #!/usr/bin/env python3
-"""Where the time goes on the port's LM paths, on one NVIDIA GPU.
+"""Where the time goes on the port's LM paths and inside its dp_clip and
+wkv6 kernels, on one NVIDIA GPU.
 
-    python3 profile_lm.py [--arch qwen3-14b rwkv6-1.6b]
+    python3 profile_lm.py [--arch qwen3-14b rwkv6-1.6b] [--kernels]
 
 For each architecture at full width (random weights from seed 0): serving
 as ``chip_smoke.py`` drives it (4 requests of 128-1024 prompt tokens, 16
 greedy tokens, bf16 cache) twice, with the prefill time and every decode
 step's time (host clock, each step ending in a host read of the tokens);
 then the ``lm_loss`` forward (qwen3-14b B 2 x S 2048, rwkv6-1.6b B 4 x
-T 2048) warm, through the kernels and through the plain path.  Two decode
-steps, the qwen3-14b prefill and the forward through the kernels are
-traced with ``torch.profiler``: for each, the trace window, the time some
-kernel was running (the union of the kernels' intervals) and its share of
-the window, the number of kernel launches, and the kernels that take the
-most time.  The profiler's own cost is inside the window, so the busy
-share is a lower bound.
+T 2048) warm, through the kernels and through the plain path, with the
+loss of each.  Two decode steps, the qwen3-14b prefill and the forward
+through the kernels are traced with ``torch.profiler``: for each, the
+trace window, the time some kernel was running (the union of the
+kernels' intervals) and its share of the window, the number of kernel
+launches, and the kernels that take the most time.  The profiler's own
+cost is inside the window, so the busy share is a lower bound.
+
+``--kernels`` first measures the two kernels at the main paths' shapes:
+dp_clip on a (256, 1,030,913) fp32 stack (the dcgan-mnist discriminator
+at batch 256) beside ``vector_norm`` + ``addmv``, and wkv6 at
+(4, 2048, 32, 64) fp32 with a state, traced, with the mean device time a
+call of each CUDA kernel they launch (and wkv6's time a serial step);
+then one warm DP-SGD round of dcgan-mnist at full width (5 clients, batch
+256), with the device time of each ``torch.cat`` that flattens the
+per-example gradient tree into the stack and of each dp_clip call on it
+(CUDA events around each).  The script measures the checkout it sits in:
+a copy of it in another checkout measures that one.
+``--arch`` with no name skips the architectures.
 """
 import argparse
 import json
@@ -32,17 +45,24 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 FORWARD = {"qwen3-14b": (2, 2048), "rwkv6-1.6b": (4, 2048)}
 REQUESTS, GEN_TOKENS = 4, 16
+DP_BATCH, DP_CLIENTS = 256, 5
+WKV_SHAPE = (4, 2048, 32, 64)
 
 
-def busy(prof, label, top=8):
-    """Kernel busy time and share of the traced window, from the trace."""
+def trace(prof):
+    """The timed events of a finished profile, and its kernels among them."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
     timed = [e for e in events if "ts" in e and "dur" in e]
-    kernels = [e for e in timed if e.get("cat") == "kernel"]
+    return timed, [e for e in timed if e.get("cat") == "kernel"]
+
+
+def busy(prof, label, top=8):
+    """Kernel busy time and share of the traced window, from the trace."""
+    timed, kernels = trace(prof)
     t0 = min(e["ts"] for e in timed)
     t1 = max(e["ts"] + e["dur"] for e in timed)
     total, start, end = 0.0, None, None
@@ -63,6 +83,126 @@ def busy(prof, label, top=8):
           f"{len(kernels)} kernel launches")
     for name, dur in sorted(by_name.items(), key=lambda x: -x[1])[:top]:
         print(f"    {dur / 1e3:9.3f} ms  {name}")
+
+
+def per_kernel(label, fn, calls):
+    """Traces ``calls`` calls of ``fn`` after a warm-up call and prints the
+    mean device time a call of each CUDA kernel they launch; returns the
+    sum in microseconds."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for k in trace(prof)[1]:
+        by_name[k["name"]] = by_name.get(k["name"], 0.0) + k["dur"] / calls
+    total = sum(by_name.values())
+    print(f"{label}: {total / 1e3:.4f} ms device a call")
+    for name, us in sorted(by_name.items(), key=lambda x: -x[1]):
+        print(f"    {us / 1e3:9.4f} ms  {name[:90]}")
+    return total
+
+
+def profile_dp_clip(dev):
+    """The dp_clip kernel's passes at the DP-SGD path's stack, beside
+    ``vector_norm`` + ``addmv``."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.dp_clip.kernel import dp_clip_noise_kernel
+    from repro_torch.models.dcgan import disc_init
+    from repro_torch.tree import leaves
+
+    n = sum(l.numel() for l in leaves(disc_init(
+        torch.Generator().manual_seed(0),
+        get_config("dcgan-mnist").model.dcgan, "meta")))
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rows = torch.logspace(-4.0, -2.0, DP_BATCH, device=dev)
+    x = torch.randn((DP_BATCH, n), generator=gen, device=dev) * rows[:, None]
+    z = torch.randn((n,), generator=gen, device=dev)
+    floor = 1e3 * (2 * 4 * DP_BATCH * n + 8 * n) / 3.35e12
+    print(f"dp_clip ({DP_BATCH}, {n}): two reads of the stack + z + out at "
+          f"3.35 TB/s: {floor:.4f} ms")
+    per_kernel("dp_clip kernel",
+               lambda: dp_clip_noise_kernel(x, 1.0, 1.0, z), 10)
+
+    def library():
+        s = torch.clamp(1.0 / torch.clamp(torch.linalg.vector_norm(
+            x, dim=1), min=1e-12), max=1.0)
+        return torch.addmv(z, x.T, s)
+
+    per_kernel("vector_norm + addmv", library, 10)
+
+
+def profile_dp_round(dev):
+    """One warm DP-SGD round at full width: the device time of each flatten
+    and of each dp_clip call (CUDA events around each)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.gan import FSLGANTrainer
+    from repro_torch.data import partition_dirichlet, synthetic_mnist
+    from repro_torch.kernels.dp_clip import ops
+
+    events = {"flatten_per_example": [], "dp_clip_noise_kernel": []}
+
+    def timed(name):
+        fn = getattr(ops, name)
+
+        def call(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            events[name].append((start, end))
+            return out
+        return fn, call
+
+    cfg = get_config("dcgan-mnist").override({
+        "fed.kernel_aggregation": True, "privacy.enabled": True,
+        "privacy.mode": "dp_sgd", "privacy.clip_norm": 1.0,
+        "privacy.noise_multiplier": 1.0, "privacy.use_kernel": True})
+    imgs, labels = synthetic_mnist(4 * DP_BATCH * DP_CLIENTS, seed=0)
+    parts = partition_dirichlet(imgs, labels, DP_CLIENTS, alpha=0.5, seed=0)
+    tr = FSLGANTrainer(cfg, parts, seed=0)
+    tr.train_epoch(batches_per_client=1)            # warm-up
+    torch.cuda.synchronize()
+    saved = {name: timed(name) for name in events}
+    for name, (_, call) in saved.items():
+        setattr(ops, name, call)
+    try:
+        t0 = time.perf_counter()
+        tr.train_epoch(batches_per_client=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for name, (fn, _) in saved.items():
+            setattr(ops, name, fn)
+    ms = {name: ", ".join(f"{s.elapsed_time(e):.4f}" for s, e in ev)
+          for name, ev in events.items()}
+    print(f"DP-SGD round (dcgan-mnist, {DP_CLIENTS} clients x 1 batch of "
+          f"{DP_BATCH}): wall {wall:.3f} s; the torch.cat of the "
+          f"per-example gradients into the stack: {ms['flatten_per_example']}"
+          f" ms; the dp_clip kernel on it: {ms['dp_clip_noise_kernel']} ms "
+          f"(CUDA events around each call)")
+
+
+def profile_wkv6(dev):
+    """The wkv6 kernel at the rwkv6-1.6b forward's shape, with a state."""
+    from repro_torch.kernels.wkv6.kernel import wkv6_kernel
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    b, t, h, n = WKV_SHAPE
+    r, k, v = (torch.randn(WKV_SHAPE, generator=gen, device=dev)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(0.5 * torch.randn(WKV_SHAPE, generator=gen,
+                                               device=dev)))
+    u = 0.1 * torch.randn((h, n), generator=gen, device=dev)
+    s0 = 0.1 * torch.randn((b, h, n, n), generator=gen, device=dev)
+    total = per_kernel(f"wkv6 {WKV_SHAPE}",
+                       lambda: wkv6_kernel(r, k, v, w, u, s0), 5)
+    print(f"wkv6: {total / t:.4f} us a serial step")
 
 
 def profile_arch(arch, dev):
@@ -123,14 +263,19 @@ def profile_arch(arch, dev):
         b, s = FORWARD[arch]
         fwd = {k: torch.as_tensor(v, device=dev) for k, v in
                synthetic_lm_batch(b, s, m.vocab_size, seed=0).items()}
+        losses = {}
         for use_kernel in (True, False):
             lm_loss(params, fwd, m, cd, use_kernel=use_kernel)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            lm_loss(params, fwd, m, cd, use_kernel=use_kernel)
+            loss, _ = lm_loss(params, fwd, m, cd, use_kernel=use_kernel)
             torch.cuda.synchronize()
+            losses[use_kernel] = float(loss)
             print(f"{arch} lm_loss forward B {b} x S {s}, use_kernel="
-                  f"{use_kernel}: warm wall {time.perf_counter() - t0:.3f} s")
+                  f"{use_kernel}: loss {float(loss):.6f}, warm wall "
+                  f"{time.perf_counter() - t0:.3f} s")
+        print(f"{arch} forward: |loss through the kernels - plain loss| = "
+              f"{abs(losses[True] - losses[False]):.3e}")
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             lm_loss(params, fwd, m, cd, use_kernel=True)
@@ -140,8 +285,10 @@ def profile_arch(arch, dev):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", nargs="+", default=list(FORWARD),
+    ap.add_argument("--arch", nargs="*", default=list(FORWARD),
                     choices=list(FORWARD))
+    ap.add_argument("--kernels", action="store_true",
+                    help="trace the dp_clip and wkv6 kernels first")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_lm: CUDA is not available; this script measures the "
@@ -153,6 +300,14 @@ def main() -> int:
         timeout=60, check=True).stdout.strip())
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    if args.kernels:
+        torch.backends.cudnn.allow_tf32 = False
+        from repro_torch.kernels import build
+        print(f"build: {build.build(['dp_clip', 'wkv6'])}")
+        profile_dp_clip(dev)
+        profile_wkv6(dev)
+        profile_dp_round(dev)
+        torch.cuda.empty_cache()
     for arch in args.arch:
         profile_arch(arch, dev)
         torch.cuda.empty_cache()

@@ -23,9 +23,9 @@
 // H100's ~295 bf16 tensor-core flops per byte of HBM, so the bound is the
 // tensor cores' 989 TFLOP/s (87 us), not the 3.35 TB/s (30 us).
 //
-// Two kernels, chosen by dtype:
+// Two kernels, chosen by dtype and head_dim:
 //
-// bf16: flash_fwd_tc, on the tensor cores (FA3's shape).
+// bf16 at D = 32, 64, 128: flash_fwd_tc, on the tensor cores (FA3's shape).
 //  * one CTA per (q tile of 128 rows, head, batch), 384 threads: one
 //    producer warpgroup, of which one thread issues every copy, and two
 //    consumer warpgroups of 64 q rows each; setmaxnreg moves registers
@@ -63,7 +63,8 @@
 //  SM.  On an H100, 128-key blocks ran faster than 64-key ones and a
 //  third stage gained nothing.
 //
-// fp32: flash_fwd_f32, on the CUDA cores (TF32 would break the fp32 pin).
+// fp32 (and bf16 at D = 256): flash_fwd_f32, on the CUDA cores (TF32
+// would break the fp32 pin).
 //  * one CTA per (q block of 64 rows, head, batch), 256 threads: thread
 //    (r, c) owns row r and the score columns c, c+4, ..., c+60 of each kv
 //    block, and the output columns c, c+4, ... of row r;
@@ -74,6 +75,11 @@
 //  * the row max and the row sum go between the row's 4 threads, which
 //    sit in one warp, by shuffles; the probabilities go through a shared
 //    64 x 65 tile to the P.V product.
+//  * D = 256 (at 213,760 B of shared memory, one CTA an SM) serves fp32
+//    and bf16 alike: bf16 at D = 256 cannot take the tensor-core tile (Q
+//    alone would be 64 KB and two K/V stages 256 KB), so it takes this
+//    kernel with bf16 loads, fp32 arithmetic and one rounding to bf16 at
+//    the store.  That is a route chosen by shape, not a fallback.
 //
 // Both run only the kv blocks some valid row of the CTA can see: below
 // the diagonal (first_k <= last_q), inside the window (last_k >= first_q
@@ -86,6 +92,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper_sync.cuh"
 
 namespace {
 
@@ -137,10 +145,25 @@ constexpr size_t smem_bytes_f32() {
                           kBlockQ * kPStride);
 }
 
-template <int D>
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);              // round to nearest even
+}
+
+// T: the element type of q, k, v and o (float, or bf16 at D = 256); the
+// arithmetic is fp32 either way
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o,
+flash_fwd_f32(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, T* __restrict__ o,
               Strides qs, Strides ks, Strides vs, Strides os, Params p) {
   constexpr int QS = D + 1;               // padded row stride of Q and K
   constexpr int kAcc = D / 4;             // output columns a thread owns
@@ -159,14 +182,14 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int cg = tid & 3;
   const int nq = min(kBlockQ, p.Sq - q0);  // valid rows of this block
 
-  const float* qp = q + b * qs.b + h * qs.h;
-  const float* kp = k + b * ks.b + hk * ks.h;
-  const float* vp = v + b * vs.b + hk * vs.h;
-  float* op = o + b * os.b + h * os.h;
+  const T* qp = q + b * qs.b + h * qs.h;
+  const T* kp = k + b * ks.b + hk * ks.h;
+  const T* vp = v + b * vs.b + hk * vs.h;
+  T* op = o + b * os.b + h * os.h;
 
   for (int i = tid; i < kBlockQ * D; i += kThreads) {
     const int r = i / D, d = i - r * D;
-    Qs[r * QS + d] = r < nq ? qp[(int64_t)(q0 + r) * qs.s + d] : 0.f;
+    Qs[r * QS + d] = r < nq ? to_f32(qp[(int64_t)(q0 + r) * qs.s + d]) : 0.f;
   }
 
   int kb_lo, kb_hi;
@@ -189,8 +212,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       const int kk = k0 + r;
       float kx = 0.f, vx = 0.f;
       if (kk < p.Sk) {
-        kx = kp[(int64_t)kk * ks.s + d];
-        vx = vp[(int64_t)kk * vs.s + d];
+        kx = to_f32(kp[(int64_t)kk * ks.s + d]);
+        vx = to_f32(vp[(int64_t)kk * vs.s + d]);
       }
       Ks[r * QS + d] = kx;
       Vs[r * D + d] = vx;
@@ -257,13 +280,14 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   if (row < nq) {
     const float denom = fmaxf(l_i, 1e-30f);
-    float* orow = op + (int64_t)(q0 + row) * os.s;
+    T* orow = op + (int64_t)(q0 + row) * os.s;
 #pragma unroll
-    for (int i = 0; i < kAcc; ++i) orow[cg + 4 * i] = acc[i] / denom;
+    for (int i = 0; i < kAcc; ++i)
+      orow[cg + 4 * i] = from_f32<T>(acc[i] / denom);
   }
 }
 
-template <int D>
+template <typename T, int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                Strides qs, Strides ks, Strides vs, Strides os, int B,
                Params p, cudaStream_t stream) {
@@ -271,16 +295,15 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
   static bool opted_in = false;            // once per instantiation
   if (!opted_in) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_f32<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)bytes);
     if (e != cudaSuccess) return (int)e;
     opted_in = true;
   }
   dim3 grid((p.Sq + kBlockQ - 1) / kBlockQ, p.H, B);
-  flash_fwd_f32<D><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), qs, ks, vs, os,
-      p);
+  flash_fwd_f32<T, D><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), qs, ks, vs, os, p);
   return (int)cudaGetLastError();
 }
 
@@ -312,37 +335,6 @@ struct Tile {
   static constexpr int kBarOff = kVOff + kStages * kKvBytes;
   static constexpr int kSmemBytes = kBarOff + 8 * (1 + 4 * kStages) + 1024;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// wait until the phase of parity `parity` of the barrier has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
 
 // one TMA tile load (d, h, s, b coordinates) completing on `bar`
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
@@ -834,9 +826,9 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// dtype: 0 = fp32 (CUDA cores), 1 = bf16 (tensor cores; q, k, v 16-byte
-// aligned with strides of multiples of 8 elements, as TMA needs).  D: 32,
-// 64 or 128.  Strides are in elements, (b, h, s) for each of q, k, v, o.
+// dtype: 0 = fp32 (CUDA cores), 1 = bf16 (D <= 128: tensor cores, q, k, v
+// 16-byte aligned with strides of multiples of 8 elements, as TMA needs;
+// D = 256: the CUDA cores, any strides).  D: 32, 64, 128 or 256.  Strides are in elements, (b, h, s) for each of q, k, v, o.
 // Launches on `stream`; returns cudaGetLastError() (0 = launched).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, int D,
@@ -853,15 +845,23 @@ extern "C" int flash_attention_fwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     switch (D) {
-      case 32: return launch_f32<32>(q, k, v, o, qs, ks, vs, os, B, p, s);
-      case 64: return launch_f32<64>(q, k, v, o, qs, ks, vs, os, B, p, s);
-      case 128: return launch_f32<128>(q, k, v, o, qs, ks, vs, os, B, p, s);
+      case 32:
+        return launch_f32<float, 32>(q, k, v, o, qs, ks, vs, os, B, p, s);
+      case 64:
+        return launch_f32<float, 64>(q, k, v, o, qs, ks, vs, os, B, p, s);
+      case 128:
+        return launch_f32<float, 128>(q, k, v, o, qs, ks, vs, os, B, p, s);
+      case 256:
+        return launch_f32<float, 256>(q, k, v, o, qs, ks, vs, os, B, p, s);
     }
   } else if (dtype == 1) {
     switch (D) {
       case 32: return launch_tc<32>(q, k, v, o, qs, ks, vs, os, B, p, s);
       case 64: return launch_tc<64>(q, k, v, o, qs, ks, vs, os, B, p, s);
       case 128: return launch_tc<128>(q, k, v, o, qs, ks, vs, os, B, p, s);
+      case 256:
+        return launch_f32<__nv_bfloat16, 256>(q, k, v, o, qs, ks, vs, os, B,
+                                              p, s);
     }
   }
   return (int)cudaErrorInvalidValue;
@@ -874,9 +874,11 @@ extern "C" int flash_attention_smem_bytes(int dtype, int D) {
     case 32: return (int)smem_bytes_f32<32>();
     case 64: return (int)smem_bytes_f32<64>();
     case 128: return (int)smem_bytes_f32<128>();
+    case 256: return (int)smem_bytes_f32<256>();
     case 1032: return Tile<32>::kSmemBytes;
     case 1064: return Tile<64>::kSmemBytes;
     case 1128: return Tile<128>::kSmemBytes;
+    case 1256: return (int)smem_bytes_f32<256>();
   }
   return -1;
 }

@@ -4,11 +4,15 @@
 
 ``out[n] = sum_b min(1, C / max(||g_b||, 1e-12)) * g[b, n] + s * z[n]``
 over a (B, N) stack of per-example gradients.  Memory-bound: the kernel
-reads the stack twice (the norms must be complete before the first scaled
-element), z once, and writes N.  Two launches on one stream: per-row
-scales, one CTA a row (a fixed-order reduction, the same bits on every
-run), then the column sum.  Built by ``nvcc`` at first use and called
-through ``ctypes``.
+reads the stack twice (the norms must be complete before the sum
+starts), less what the second read finds in L2, z once, and writes N.
+Three launches on one stream: a persistent row pass that streams the
+stack through a shared-memory ring by TMA bulk copies and writes one
+partial sum of squares a (row, span); the per-row scales, each a
+fixed-order sum of its partials; a persistent column pass over tiles of
+columns that sums the rows in order.  No float atomics: the same bits on
+every run.  Any N and any contiguous stack take the same path.  Built by ``nvcc`` at first use and called through
+``ctypes``.
 """
 from __future__ import annotations
 
@@ -22,12 +26,15 @@ from repro_torch.kernels import build
 
 @functools.lru_cache(maxsize=None)
 def _lib():
-    fn = build.load("dp_clip").dp_clip_noise_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                   ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+    lib = build.load("dp_clip")
+    fn = lib.dp_clip_noise_f32
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    fn.argtypes = [p] * 4 + [i64, i64, ctypes.c_float, ctypes.c_float, p]
     fn.restype = ctypes.c_int
-    return fn
+    work = lib.dp_clip_work_floats
+    work.argtypes = [i64, i64]
+    work.restype = i64
+    return fn, work
 
 
 def dp_clip_noise_kernel(stacked: torch.Tensor, clip: float,
@@ -57,12 +64,13 @@ def dp_clip_noise_kernel(stacked: torch.Tensor, clip: float,
     b, n = stacked.shape
     if b == 0 or n == 0:
         raise ValueError(f"empty stack {tuple(stacked.shape)}")
-    fn = _lib()
+    fn, work_floats = _lib()
     out = torch.empty((n,), dtype=torch.float32, device=stacked.device)
-    scale = torch.empty((b,), dtype=torch.float32, device=stacked.device)
+    work = torch.empty((work_floats(b, n),), dtype=torch.float32,
+                       device=stacked.device)
     with torch.cuda.device(stacked.device):
         stream = torch.cuda.current_stream(stacked.device).cuda_stream
-        err = fn(stacked.data_ptr(), noise.data_ptr(), scale.data_ptr(),
+        err = fn(stacked.data_ptr(), noise.data_ptr(), work.data_ptr(),
                  out.data_ptr(), b, n, float(clip), float(noise_scale),
                  stream)
     if err != 0:

@@ -4,14 +4,19 @@
 
 Blockwise online softmax with GQA (K/V never repeated), causal,
 sliding-window and valid-length masks, fully masked kv blocks skipped.
-bf16 runs on the tensor cores: one CTA per (q tile of 128 rows, head,
-batch), ``wgmma`` products, K/V tiles of 128 keys fed by TMA through a
-2-stage ring, P kept in registers as a bf16 high part and residual.  fp32
-runs on the CUDA cores in fp32 (q blocks of 64), since TF32 would miss the
-fp32 pin.  The kernel reads every operand by its strides (d contiguous),
-so a ``(B, S, H, D)`` tensor transposed to ``(B, H, S, D)`` is read in
-place; TMA needs bf16 q, k, v on 16-byte-aligned addresses with strides of
-multiples of 16 bytes, and the wrapper raises on any other.  Forward only:
+Instantiated for head_dim 32, 64, 128 and 256; the op pads any other
+head_dim up to one of them.  The route is chosen by dtype and head_dim:
+bf16 at D <= 128 runs on the tensor cores: one CTA per (q tile of 128
+rows, head, batch), ``wgmma`` products, K/V tiles of 128 keys fed by TMA
+through a 2-stage ring, P kept in registers as a bf16 high part and
+residual.  fp32 runs on the CUDA cores in fp32 (q blocks of 64), since
+TF32 would miss the fp32 pin; so does bf16 at D = 256, whose Q tile and
+K/V stages would not fit an SM's shared memory on the tensor-core path
+(bf16 loads, fp32 arithmetic, one rounding at the store).  The kernel
+reads every operand by its strides (d contiguous), so a ``(B, S, H, D)``
+tensor transposed to ``(B, H, S, D)`` is read in place; TMA needs bf16 q,
+k, v on 16-byte-aligned addresses with strides of multiples of 16 bytes
+(:func:`tma_ok`), and the wrapper raises on any other.  Forward only:
 the reference has no VJP for its kernel, and neither has this one.  Built
 by ``nvcc`` at first use and called through ``ctypes``.
 """
@@ -26,7 +31,8 @@ import torch
 from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # dtype codes of the source
-HEAD_DIMS = (32, 64, 128)                        # instantiated D
+HEAD_DIMS = (32, 64, 128, 256)                   # instantiated D
+TC_MAX_HEAD_DIM = 128         # bf16 up to here: tensor cores and TMA
 _MAX_GRID_YZ = 65535
 
 
@@ -58,12 +64,19 @@ def _strides(t: torch.Tensor):
     return sb, sh, ss
 
 
-def _check_tma(name: str, t: torch.Tensor, align: int) -> None:
-    """bf16 operands go through TMA (q, k, v: 16-byte-aligned base and
-    strides) or bf16x2 stores (out: 4 bytes)."""
+def tma_ok(t: torch.Tensor, align: int = 16) -> bool:
+    """Whether a (B, H, S, D) operand's address and (b, h, s) strides are
+    multiples of ``align`` bytes: what the tensor-core path's TMA loads
+    (16) and bf16x2 stores (4) need."""
     nbytes = t.element_size()
-    bad = [s for s in t.stride()[:3] if (s * nbytes) % align]
-    if t.data_ptr() % align or bad:
+    return (t.data_ptr() % align == 0
+            and all((s * nbytes) % align == 0 for s in t.stride()[:3]))
+
+
+def _check_tma(name: str, t: torch.Tensor, align: int) -> None:
+    """bf16 operands of the tensor-core path go through TMA (q, k, v:
+    16-byte-aligned base and strides) or bf16x2 stores (out: 4 bytes)."""
+    if not tma_ok(t, align):
         raise ValueError(
             f"flash_attention_kernel: bf16 {name} needs a {align}-byte-"
             f"aligned address and (b, h, s) strides of multiples of "
@@ -78,9 +91,10 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                            q_offset: int = 0,
                            out: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
-    """q: (B, H, Sq, D); k/v: (B, Hkv, Sk, D), H % Hkv == 0, all fp32 or all
-    bf16 on one CUDA device, any strides with the last dimension
-    contiguous (bf16: what TMA takes, see the module's note).  Returns
+    """q: (B, H, Sq, D); k/v: (B, Hkv, Sk, D), H % Hkv == 0, D in
+    ``HEAD_DIMS``, all fp32 or all bf16 on one CUDA device, any strides
+    with the last dimension contiguous (bf16 at D <= 128: what TMA takes,
+    see the module's note).  Returns
     (B, H, Sq, D) in q's dtype, written into ``out`` when given (any such
     strided view, e.g. a transposed ``(B, S, H, D)`` buffer).
 
@@ -129,7 +143,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"out {tuple(out.shape)} {out.dtype}, need "
                          f"{tuple(q.shape)} {q.dtype}")
     strides = (*_strides(q), *_strides(k), *_strides(v), *_strides(out))
-    if q.dtype == torch.bfloat16:
+    if q.dtype == torch.bfloat16 and d <= TC_MAX_HEAD_DIM:
         for name, t in (("q", q), ("k", k), ("v", v)):
             _check_tma(name, t, 16)
         _check_tma("out", out, 4)

@@ -2,10 +2,15 @@
 (``repro_torch/csrc/wkv6.cu``), replacing the Pallas TPU kernel
 ``repro/kernels/wkv6/kernel.py:wkv6_kernel``.
 
-One CTA per (batch, head) with N threads; thread j keeps column j of the
-N x N state in registers for the whole sequence; r, k, v, w stream through
-shared memory a chunk of steps at a time.  Runs to T exactly (the TPU op
-padded T with no-op steps).  Forward only: the reference has no VJP for
+One CTA per (batch, head) with (N / C) x G threads (256 at N = 64: G = 16
+row slices by C = 4 columns): each thread keeps an (N / G) x C block of
+the N x N state in registers for the whole sequence; the G slices' partial
+outputs are summed in a fixed order once a chunk of steps is done; r, k,
+v, w stream through a 3-stage shared-memory ring a chunk of steps at a
+time.
+Runs to T exactly (the TPU op padded T with no-op steps), and the order of
+every sum is independent of where T starts, so chaining two halves through
+the state equals one pass bit for bit.  Forward only: the reference has no VJP for
 its kernel, and neither has this one.  Built by ``nvcc`` at first use and
 called through ``ctypes``.
 """

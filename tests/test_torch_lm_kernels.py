@@ -26,8 +26,13 @@ import torch
 from repro.kernels.flash_attention.ops import flash_attention as jflash
 from repro.kernels.wkv6.ops import wkv6 as jwkv6
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.kernel import (HEAD_DIMS,
+                                                        flash_attention_kernel,
+                                                        tma_ok)
+from repro_torch.kernels.flash_attention.ops import (_tma_ready,
+                                                     flash_attention,
+                                                     pad_head_dim,
+                                                     padded_head_dim)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.wkv6.kernel import wkv6_kernel
 from repro_torch.kernels.wkv6.ops import wkv6
@@ -198,6 +203,66 @@ def test_flash_tensor_core_numerics_hold_the_bf16_pin(case):
     torch.testing.assert_close(got.float(), want.float(), **BF16_PIN)
 
 
+# head_dims the kernel is not built for, each padded to the next of
+# HEAD_DIMS by the op: (b, s, h, hkv, d, window); window 0 is causal only
+PAD_CASES = [(1, 128, 4, 2, d, win) for d in (16, 48, 80, 96)
+             for win in (0, 48)] + [(1, 256, 2, 1, 256, 0),
+                                    (1, 256, 2, 1, 256, 96)]
+
+
+@pytest.mark.parametrize("case", PAD_CASES)
+def test_flash_padded_head_dims_match_jax(case):
+    """The GPU op's padding, on the CPU: q, k, v zero-padded along D with
+    the original D's scale, through the plain version, sliced back to D,
+    equal the JAX op (which takes any D) at the fp32 cases' tolerance."""
+    b, s, h, hkv, d, win = case
+    q, k, v = _flash_inputs(b, s, s, h, hkv, d, seed=sum(case))
+    want = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                  causal=True, window=win, interpret=True)
+    qp, kp, vp, scale, d0 = pad_head_dim(*(torch.tensor(a) for a in (q, k,
+                                                                        v)))
+    assert d0 == d and qp.shape[-1] == padded_head_dim(d) in HEAD_DIMS
+    assert scale == d ** -0.5
+    got = attention_ref(*(t.transpose(1, 2) for t in (qp, kp, vp)),
+                        causal=True, window=win, scale=scale
+                        ).transpose(1, 2)[..., :d]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=2e-5)
+
+
+def test_every_head_dim_up_to_256_pads_to_an_instantiated_size():
+    for d in range(1, 257):
+        size = padded_head_dim(d)
+        assert size in HEAD_DIMS and size >= d
+        assert all(x < d for x in HEAD_DIMS if x < size)   # the next one
+    q = torch.ones(1, 2, 1, 8)
+    qp = pad_head_dim(q, q, q)[0]
+    assert qp.shape == (1, 2, 1, 32) and float(qp[..., 8:].abs().sum()) == 0
+    q = torch.ones(1, 2, 1, 32)
+    assert pad_head_dim(q, q, q)[0] is q                   # no copy
+    with pytest.raises(ValueError, match="at most 256"):
+        padded_head_dim(257)
+
+
+def test_tma_ok_flags_the_views_the_gpu_refusal_test_uses():
+    """The two bf16 views the kernel refuses on the card (see
+    test_flash_kernel_refuses_what_tma_cannot_take_on_gpu) fail the
+    predicate, and the op's copy of each passes it with equal values."""
+    fresh = torch.zeros(1, 16, 2, 64, dtype=torch.bfloat16)
+    assert tma_ok(fresh.transpose(1, 2))
+    views = {
+        "head stride of 136 bytes": torch.randn(
+            1, 16, 2, 68).to(torch.bfloat16)[..., :64],
+        "address off by 2 bytes": torch.randn(
+            1 * 16 * 2 * 64 + 1).to(torch.bfloat16)[1:].view(1, 16, 2, 64)}
+    for name, q in views.items():
+        assert not tma_ok(q.transpose(1, 2)), name
+        ready = _tma_ready(q)
+        assert tma_ok(ready), name
+        assert torch.equal(ready, q.transpose(1, 2)), name
+    assert _tma_ready(fresh).data_ptr() == fresh.data_ptr()    # no copy
+
+
 def test_flash_ops_are_forward_only():
     q, k, v = (torch.tensor(a) for a in _flash_inputs(1, 8, 8, 2, 2, 16, 44))
     with pytest.raises(RuntimeError, match="forward-only"):
@@ -235,6 +300,64 @@ def test_wkv6_state_chaining_equals_single_pass():
     jo, js = jwkv6(*(jnp.asarray(a.numpy()) for a in (r, k, v, w, u)),
                    block_t=16, interpret=True)
     np.testing.assert_allclose(full.numpy(), np.asarray(jo), rtol=0,
+                               atol=1e-4)
+
+
+def wkv6_split(n):
+    """(G, C) of the CUDA kernel for head size n (``csrc/wkv6.cu``'s
+    ``dispatch``): G row slices of the state, C columns a thread."""
+    return {64: (16, 4), 32: (8, 2)}.get(n, (8, 1))
+
+
+def _wkv6_emulation(r, k, v, w, u, state0=None):
+    """The CUDA kernel's arithmetic in PyTorch, on (B, T, H, N) fp32
+    tensors: each column of S is split over G threads, thread g holding the
+    rows 4 (g + G m) + e (float4 groups, when N / G is a multiple of 4;
+    else rows g + G m), m = 0, 1, ... in order; a thread sums r t over its
+    rows in that order, and the G partial sums of a column are added
+    pairwise in slice order, ((p0 + p1) + (p2 + p3)) + ..., as the kernel
+    adds them at the end of a chunk.  How many columns a thread holds
+    changes no sum."""
+    b, t, h, n = r.shape
+    g, _ = wkv6_split(n)
+    rows = n // g
+    quad = rows % 4 == 0
+    # ids[g, m]: the row of S that slice g holds in its m-th register row
+    ids = torch.tensor([[4 * (gg + g * (m // 4)) + m % 4 if quad
+                         else gg + g * m for m in range(rows)]
+                        for gg in range(g)])
+    S = (torch.zeros((b, h, n, n)) if state0 is None
+         else state0.clone())
+    u4 = u[None, :, :, None]
+    outs = []
+    for i in range(t):
+        kv = k[:, i, :, :, None] * v[:, i, :, None, :]      # (B, H, n, n)
+        term = r[:, i, :, :, None] * (S + u4 * kv)
+        o = torch.zeros((b, h, g, n))                        # slice partials
+        for m in range(rows):
+            o = o + term[:, :, ids[:, m]]
+        x = 1
+        while x < g:
+            o = o + o[:, :, torch.arange(g) ^ x]
+            x <<= 1
+        outs.append(o[:, :, 0])
+        S = w[:, i, :, :, None] * S + kv
+    return torch.stack(outs, dim=1), S
+
+
+@pytest.mark.parametrize("case", WKV_CASES)
+def test_wkv6_thread_split_numerics_match_jax(case):
+    """The redesigned kernel's order of sums, emulated, stays within the
+    reference's pin (rtol 1e-5 + atol 1e-4) of the JAX op."""
+    b, t, h, n, bt = case
+    r, k, v, w, u, s0 = _wkv_inputs(b, t, h, n, seed=sum(case) + 7)
+    want_o, want_s = jwkv6(*(jnp.asarray(a) for a in (r, k, v, w, u, s0)),
+                           block_t=bt, interpret=True)
+    got_o, got_s = _wkv6_emulation(*(torch.tensor(a)
+                                     for a in (r, k, v, w, u, s0)))
+    np.testing.assert_allclose(got_o.numpy(), np.asarray(want_o), rtol=1e-5,
+                               atol=1e-4)
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), rtol=1e-5,
                                atol=1e-4)
 
 
@@ -359,6 +482,83 @@ def test_flash_kernel_refuses_what_tma_cannot_take_on_gpu(cuda, view):
     with pytest.raises(ValueError, match="16-byte"):
         flash_attention_kernel(q.transpose(1, 2), k, v)
     assert flash_attention_kernel.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 80, 96, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_op_takes_every_head_dim_on_gpu(cuda, d, dtype):
+    """Padded to 32 / 128 / 128 by the op, 256 as it is (bf16 there on the
+    CUDA cores), within the unchanged pins."""
+    q, k, v = (torch.tensor(a, device=cuda).to(dtype) for a in
+               _flash_inputs(2, 150, 150, 4, 2, d, seed=63 + d))
+    before = flash_attention_kernel.launches
+    got = flash_attention(q, k, v, causal=True, window=64)
+    torch.cuda.synchronize()
+    assert flash_attention_kernel.launches == before + 1
+    assert got.shape == q.shape and got.dtype == dtype
+    want = attention_ref(*(t.transpose(1, 2) for t in (q, k, v)),
+                         window=64).transpose(1, 2)
+    torch.testing.assert_close(got.float(), want.float(), **_gpu_tol(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("view", ["head stride of 136 bytes",
+                                  "address off by 2 bytes"])
+def test_flash_op_copies_what_tma_cannot_take_on_gpu(cuda, view):
+    k, v = (torch.randn(1, 16, 2, 64, device=cuda, dtype=torch.bfloat16)
+            for _ in range(2))
+    if view == "head stride of 136 bytes":
+        q = torch.randn(1, 16, 2, 68, device=cuda,
+                        dtype=torch.bfloat16)[..., :64]
+    else:
+        q = torch.randn(1 * 16 * 2 * 64 + 1, device=cuda,
+                        dtype=torch.bfloat16)[1:].view(1, 16, 2, 64)
+    got = flash_attention(q, k, v)
+    want = attention_ref(*(t.transpose(1, 2) for t in (q, k, v))
+                         ).transpose(1, 2)
+    torch.testing.assert_close(got.float(), want.float(), **BF16_PIN)
+
+
+def _offset(a, cuda, off):
+    """``a`` on the card ``off`` elements past a fresh allocation: a
+    contiguous tensor whose address is not 16-byte aligned for off % 4."""
+    flat = torch.empty(a.size + off, dtype=torch.float32, device=cuda)
+    t = flat[off:].view(a.shape)
+    t.copy_(torch.tensor(a))
+    return t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [31, 33, 257])
+@pytest.mark.parametrize("n", [8, 16, 32, 64])
+@pytest.mark.parametrize("off", [0, 1])
+def test_wkv6_kernel_chunk_and_alignment_edges_on_gpu(cuda, t, n, off):
+    """T not a multiple of the chunk (2048 / N steps), every N the kernel
+    is built for, and inputs 4 bytes off a 16-byte boundary (the 4-byte
+    copy path)."""
+    args = [_offset(a, cuda, off)
+            for a in _wkv_inputs(2, t, 3, n, seed=t + n + off)]
+    got_o, got_s = wkv6_kernel(*args)
+    torch.cuda.synchronize()
+    want_o, want_s = wkv6_ref(*args)
+    torch.testing.assert_close(got_o, want_o, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(got_s, want_s, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [16, 64])
+def test_wkv6_kernel_chained_halves_equal_one_pass_on_gpu(cuda, n):
+    r, k, v, w, u, s0 = (torch.tensor(a, device=cuda)
+                         for a in _wkv_inputs(2, 300, 4, n, seed=64 + n))
+    full, sT = wkv6_kernel(r, k, v, w, u, s0)
+    h1, s1 = wkv6_kernel(*(a[:, :137].contiguous() for a in (r, k, v, w)),
+                         u, s0)
+    h2, s2 = wkv6_kernel(*(a[:, 137:].contiguous() for a in (r, k, v, w)),
+                         u, s1)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([h1, h2], 1), full)
+    assert torch.equal(s2, sT)
 
 
 @pytest.mark.gpu

@@ -23,6 +23,7 @@ from repro.core.gan import d_loss_fn as jd_loss_fn
 from repro.kernels.dp_clip.ops import dp_clip_noise_flat as jdp_clip_noise_flat
 from repro.kernels.dp_clip.ops import flatten_per_example as jflatten
 from repro.kernels.dp_clip.ops import unflatten_summed as junflatten
+from repro.kernels.dp_clip.ref import dp_clip_noise_ref as jdp_clip_noise_ref
 from repro.models.dcgan import disc_init as jdisc_init
 from repro.optim import make_optimizer as jmake_optimizer
 from repro.privacy import defenses as jdef
@@ -143,6 +144,75 @@ def test_cpu_tensors_take_the_plain_version_not_the_kernel():
     assert dp_clip_noise_kernel.launches == before
     with pytest.raises(ValueError, match="CUDA"):
         dp_clip_noise_kernel(torch.tensor(x), 1.0, 0.5, torch.tensor(z))
+
+
+DP_SPAN = 6144        # the CUDA kernel's row-pass span (csrc/dp_clip.cu kSpan)
+
+
+def _butterfly(a):
+    """Sum the last axis (32 lanes) as the kernel's xor shuffles do:
+    offsets 16, 8, 4, 2, 1, lane 0's result."""
+    for off in (16, 8, 4, 2, 1):
+        a = a + a[..., torch.arange(32) ^ off]
+    return a[..., 0]
+
+
+def _dp_clip_emulation(x, clip, noise_scale, z):
+    """The CUDA kernel's order of sums in PyTorch, for a (B, N) fp32 stack
+    at a 16-byte-aligned address: each row's spans of DP_SPAN elements, a
+    span read as the float4 words of the 16-byte-aligned range around it
+    (element n of row b at word position (b N + n) mod 4), lane l of a warp
+    summing words l, l + 32, ... in order into one partial sum a word
+    component, the lane's (a0 + a1) + (a2 + a3), a butterfly over lanes;
+    each row's span partials summed the same way (lane l: spans l,
+    l + 32, ...) into its scale; then out[n] = fma(scale[b], x[b, n], acc)
+    over b = 0, 1, ... in order, plus noise_scale * z[n]."""
+    b, n = x.shape
+    spans = -(-n // DP_SPAN)
+    width = DP_SPAN + 8
+    words = -(-width // 128) * 128           # whole rounds of 32 lanes x 4
+    pad = torch.zeros((b, spans, words))
+    for bb in range(b):
+        for c in range(spans):
+            seg = x[bb, c * DP_SPAN:(c + 1) * DP_SPAN]
+            off = (bb * n + c * DP_SPAN) % 4
+            pad[bb, c, off:off + seg.numel()] = seg * seg
+    rounds = pad.view(b, spans, words // 128, 32, 4)
+    acc = torch.zeros((b, spans, 32, 4))
+    for r in range(rounds.shape[2]):
+        acc = acc + rounds[:, :, r]
+    lanes = (acc[..., 0] + acc[..., 1]) + (acc[..., 2] + acc[..., 3])
+    part = _butterfly(lanes)                  # (B, spans)
+    per_lane = torch.zeros((b, -(-spans // 32) * 32))
+    per_lane[:, :spans] = part
+    ss = torch.zeros((b, 32))
+    for r in range(per_lane.shape[1] // 32):
+        ss = ss + per_lane[:, 32 * r:32 * (r + 1)]
+    scale = torch.clamp(clip / torch.clamp(torch.sqrt(_butterfly(ss)),
+                                           min=1e-12), max=1.0)
+    col = torch.zeros(n, dtype=torch.float64)
+    for bb in range(b):                       # fmaf: exact product, one rounding
+        col = (scale[bb].double() * x[bb].double() + col).float().double()
+    return (noise_scale * z.double() + col).float()
+
+
+@pytest.mark.parametrize("b,n", [(5, 16385), (3, 300001), (6, 8193),
+                                 (2, 3)])
+@pytest.mark.parametrize("clip,noise_scale", [(0.5, 0.0), (0.5, 0.7),
+                                              (1e6, 1.3)])
+def test_dp_clip_kernel_numerics_match_jax(b, n, clip, noise_scale):
+    """The redesigned kernel's order of sums, emulated, at odd N (rows that
+    start off a 16-byte boundary), across span edges and with more spans
+    than lanes, and with an all-zero row, within the dp_clip op's
+    tolerance of the JAX reference."""
+    x, z = _stack(b, n, seed=b * 31 + n)
+    x[b // 2] = 0.0
+    want = jdp_clip_noise_ref(jnp.asarray(x), clip, noise_scale,
+                              jnp.asarray(z))
+    got = _dp_clip_emulation(torch.tensor(x), clip, noise_scale,
+                             torch.tensor(z))
+    assert np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 # ---------------------------------------------------------------------------
@@ -405,6 +475,27 @@ def test_kernel_matches_plain_version_on_gpu(cuda, b, n, noise_scale):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     again = dp_clip_noise_kernel(xs, 0.5, noise_scale, zs)
     assert torch.equal(got, again)      # a fixed summation order
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n", [(1, 8193), (33, 16385), (300, 4097),
+                                 (3, 300001), (2, 3)])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_kernel_span_tile_and_alignment_edges_on_gpu(cuda, b, n, offset):
+    """N past a span edge and not a multiple of 4, more rows than a
+    column tile's stages, a stack whose address is 4 or 12 bytes off a
+    16-byte boundary (every row starts unaligned), an all-zero row."""
+    x, z = _stack(b, n, seed=n + b + offset)
+    x[b // 2] = 0.0
+    buf = torch.zeros(b * n + offset, device=cuda)
+    xs = buf[offset:].view(b, n)
+    xs.copy_(torch.tensor(x))
+    zs = torch.tensor(z, device=cuda)
+    got = dp_clip_noise_kernel(xs, 0.5, 0.9, zs)
+    torch.cuda.synchronize()
+    want = dp_clip_noise_ref(xs, 0.5, 0.9, zs)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, dp_clip_noise_kernel(xs, 0.5, 0.9, zs))
 
 
 @pytest.mark.gpu
