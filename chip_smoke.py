@@ -338,10 +338,13 @@ BOUNDARY_OPS = {"none": 5, "fp16": 7, "int8": 12}
 
 def phase_boundary_fuse(dev):
     """The boundary_fuse kernel against its plain version for the codecs
-    none, fp16 and int8: the main path's (256, 6272) and (256, 4096)
-    crossings, ragged N, an all-zero tensor (int8 scale 1.0), noise 0 and
-    > 0 with injected noise, and the qdq before the clip bit for bit; then
-    times at the main path's shapes."""
+    none, fp16 and int8, with the tensor-wide and the per-row int8 amax:
+    the split path's (256, 12544), (256, 6272) and (256, 4096) crossings,
+    ragged N, more rows than the card holds CTAs at once, rows too long to
+    hold on chip, x 4 bytes off a 16-byte boundary, an all-zero tensor
+    (int8 scale 1.0), noise 0 and > 0 with injected noise, one launch a
+    call, and the qdq before the clip bit for bit; a NaN in both amax
+    modes; then times at the main path's shapes."""
     from repro_torch.core.split import (CodecBoundaryStage,
                                         GaussianBoundaryStage)
     from repro_torch.fed.transport import make_codec
@@ -351,52 +354,81 @@ def phase_boundary_fuse(dev):
 
     gen = torch.Generator(device=dev).manual_seed(3)
     main_shapes = ((BATCH, 6272), (BATCH, 4096))
-    max_abs, n_cases = 0.0, 0
+    # (B, N, offset): offset floats into a larger buffer puts x that many
+    # 4-byte steps off a 16-byte boundary
+    shapes = [(b, n, 0) for b, n in main_shapes + (
+        (BATCH, 12544), (BATCH, 1), (3, 4097), (BATCH, 4097),
+        (4096, 64),                 # more rows than CTAs resident at once
+        (4, 300_000))]              # rows longer than the on-chip limit
+    shapes += [(BATCH, 6272, 1), (5, 999, 3)]
+    max_abs, n_cases, calls = 0.0, 0, 0
+
+    def launch(*args, **kw):
+        nonlocal calls
+        before = boundary_fuse_kernel.launches
+        out = boundary_fuse_kernel(*args, **kw)
+        check(boundary_fuse_kernel.launches == before + 1,
+              "boundary_fuse did not launch exactly once")
+        calls += 1
+        return out
+
     for codec in ("none", "fp16", "int8"):
-        for b, n in main_shapes + ((BATCH, 1), (3, 4097), (BATCH, 4097)):
-            x = torch.randn((b, n), generator=gen, device=dev) * 0.05
-            z = torch.randn((b, n), generator=gen, device=dev)
-            for ns in (0.0, 0.5):
-                got = boundary_fuse_kernel(x, 1.0, ns, z, codec=codec)
-                want = fused_boundary_ref(x, 1.0, ns, z, codec=codec)
-                torch.cuda.synchronize()
-                torch.testing.assert_close(got, want, **KERNEL_TOL)
-                max_abs = max(max_abs, float((got - want).abs().max()))
-                n_cases += 1
-            q = boundary_fuse_kernel(x, 1e30, 0.0, z, codec=codec)
-            check(torch.equal(q, codec_qdq(x, codec)),
-                  f"boundary_fuse {codec} qdq differs from the codec's at "
-                  f"{(b, n)}")
-        zero = torch.zeros(main_shapes[0], device=dev)
-        check(torch.equal(boundary_fuse_kernel(zero, 1.0, 0.0, zero,
-                                               codec=codec), zero),
-              f"boundary_fuse {codec}: an all-zero tensor did not stay 0")
-    # a NaN propagates as in the reference: int8 scale 1.0, the NaN's whole
+        for amax in ("tensor", "row"):
+            for b, n, off in shapes:
+                buf = torch.empty(b * n + off, device=dev)
+                x = buf[off:].view(b, n)
+                x.copy_(torch.randn((b, n), generator=gen, device=dev)
+                        * torch.logspace(-3, -1, b, device=dev)[:, None])
+                z = torch.randn((b, n), generator=gen, device=dev)
+                for ns in (0.0, 0.5):
+                    got = launch(x, 1.0, ns, z, codec=codec, amax=amax)
+                    want = fused_boundary_ref(x, 1.0, ns, z, codec=codec,
+                                              amax=amax)
+                    torch.cuda.synchronize()
+                    torch.testing.assert_close(got, want, **KERNEL_TOL)
+                    max_abs = max(max_abs, float((got - want).abs().max()))
+                    n_cases += 1
+                q = launch(x, 1e30, 0.0, z, codec=codec, amax=amax)
+                check(torch.equal(q, codec_qdq(x, codec, amax)),
+                      f"boundary_fuse {codec} amax={amax} qdq differs from "
+                      f"the codec's at {(b, n)}, offset {off}")
+            zero = torch.zeros(main_shapes[0], device=dev)
+            check(torch.equal(launch(zero, 1.0, 0.0, zero, codec=codec,
+                                     amax=amax), zero),
+                  f"boundary_fuse {codec}: an all-zero tensor did not stay 0")
+    # a NaN propagates as in the reference: the int8 scale 1.0 (for the
+    # whole tensor, or in the row mode for its row alone), the NaN's whole
     # row NaN (its norm is NaN), every other element as the plain version
     x = torch.randn(main_shapes[0], generator=gen, device=dev) * 0.05
     z = torch.randn(main_shapes[0], generator=gen, device=dev)
     nan_row = main_shapes[0][0] // 3
     x[nan_row, 1234] = float("nan")
-    for clip, ns in ((1e30, 0.0), (1.0, 0.5)):
-        got = boundary_fuse_kernel(x, clip, ns, z, codec="int8")
-        want = fused_boundary_ref(x, clip, ns, z, codec="int8")
-        torch.cuda.synchronize()
-        check(torch.equal(torch.isnan(got), torch.isnan(want))
-              and bool(torch.isnan(want[nan_row]).all())
-              and int(torch.isnan(want).sum()) == want.shape[1],
-              f"boundary_fuse int8 with a NaN: NaN at other places than the "
-              f"plain version (clip {clip})")
-        keep = ~torch.isnan(want)
-        if clip == 1e30:
-            check(torch.equal(got[keep], want[keep]),
-                  "boundary_fuse int8 with a NaN: the qdq differs")
-        else:
-            torch.testing.assert_close(got[keep], want[keep], **KERNEL_TOL)
+    for amax in ("tensor", "row"):
+        for clip, ns in ((1e30, 0.0), (1.0, 0.5)):
+            got = launch(x, clip, ns, z, codec="int8", amax=amax)
+            want = fused_boundary_ref(x, clip, ns, z, codec="int8",
+                                      amax=amax)
+            torch.cuda.synchronize()
+            check(torch.equal(torch.isnan(got), torch.isnan(want))
+                  and bool(torch.isnan(want[nan_row]).all())
+                  and int(torch.isnan(want).sum()) == want.shape[1],
+                  f"boundary_fuse int8 amax={amax} with a NaN: NaN at other "
+                  f"places than the plain version (clip {clip})")
+            keep = ~torch.isnan(want)
+            if clip == 1e30:
+                check(torch.equal(got[keep], want[keep]),
+                      f"boundary_fuse int8 amax={amax} with a NaN: the qdq "
+                      f"differs")
+            else:
+                torch.testing.assert_close(got[keep], want[keep],
+                                           **KERNEL_TOL)
     print(f"boundary_fuse vs plain: {n_cases} cases (codecs none/fp16/int8, "
-          f"N up to 6272), max abs err {max_abs:.3e} (tolerance "
+          f"amax tensor/row, {[s[:2] for s in shapes]}, x 1 and 3 floats "
+          f"off a 16-byte boundary), max abs err {max_abs:.3e} (tolerance "
           f"{KERNEL_TOL}); qdq before the clip equal bit for bit; all-zero "
-          f"tensors stay 0; int8 with one NaN in {main_shapes[0]}: NaN in the "
-          f"same places (its row), the qdq equal bit for bit elsewhere")
+          f"tensors stay 0; int8 with one NaN in {main_shapes[0]}, both "
+          f"amax modes: NaN in the same places (its row), the qdq equal bit "
+          f"for bit elsewhere; {calls} calls, 1 launch each")
 
     rows = {}
     for b, n in main_shapes:
@@ -414,6 +446,8 @@ def phase_boundary_fuse(dev):
         t = time_variants({
             "kernel": lambda: boundary_fuse_kernel(x, 1.0, ns, z,
                                                    codec=codec),
+            "row": lambda: boundary_fuse_kernel(x, 1.0, ns, z, codec=codec,
+                                                amax="row"),
             "plain": lambda: fused_boundary_ref(x, 1.0, ns, z, codec=codec),
             "library": unfused})
         nbytes = 4 * 3 * b * n
@@ -422,9 +456,9 @@ def phase_boundary_fuse(dev):
         print(f"boundary_fuse int8 ({b}, {n}): bound {bound:.4f} ms ({by}: "
               f"{nbytes} B at 3.35 TB/s)")
         for mode, tm in t.items():
-            print(f"  {mode:6s} kernel {tm['kernel']:.4f} ms, plain "
-                  f"{tm['plain']:.4f} ms, composed stages "
-                  f"{tm['library']:.4f} ms")
+            print(f"  {mode:6s} kernel {tm['kernel']:.4f} ms (amax=row "
+                  f"{tm['row']:.4f}), plain {tm['plain']:.4f} ms, composed "
+                  f"stages {tm['library']:.4f} ms")
     d, bound, by = rows[main_shapes[0]]
     return {"name": "boundary_fuse", "route": "cuda",
             "source": "src/repro_torch/csrc/boundary_fuse.cu",
@@ -463,9 +497,10 @@ def phase_agg_fuse(dev):
     call."""
     from repro_torch.configs.registry import get_config
     from repro_torch.fed.transport import make_codec
-    from repro_torch.kernels.agg_fuse.kernel import (dequant_acc_kernel,
-                                                     dequant_reduce_kernel,
-                                                     scatter_acc_kernel)
+    from repro_torch.kernels.agg_fuse.kernel import (
+        MAX_LEAVES, dequant_acc_kernel, dequant_reduce_kernel,
+        scatter_acc_kernel, scatter_acc_leaves_kernel)
+    from repro_torch.kernels.agg_fuse.ops import scatter_acc_leaves
     from repro_torch.kernels.agg_fuse.ref import (dequant_acc_ref,
                                                   dequant_reduce_ref,
                                                   scatter_acc_ref)
@@ -548,6 +583,29 @@ def phase_agg_fuse(dev):
         want = scatter_acc_ref(acc, vals, idx, 0.7)
         held("scatter_acc", scatter_acc_kernel(acc.clone(), vals, idx, 0.7),
              want, False)
+    # a whole fold's leaves in one launch, as StreamingAggregator.fold
+    # makes it, and a table of 72 leaves (the 15 above, repeated; two
+    # launches); distinct indices in every leaf: bit for bit
+    tables = []
+    for ci, client in enumerate(rounds["topk"]):
+        accs = [torch.randn((n,), generator=gen, device=dev)
+                for n in sizes + [1, 4097, 5000]]
+        tables.append((accs, [v for (v, _), _ in client],
+                       [i for (_, i), _ in client], w_host[ci]))
+    accs, vals, idxs, _ = tables[0]
+    tables.append(([a.clone() for a in (accs * 5)[:72]], (vals * 5)[:72],
+                   (idxs * 5)[:72], 0.3))
+    for accs, vals, idxs, wc in tables:
+        want = [scatter_acc_ref(a, v, i, wc)
+                for a, v, i in zip(accs, vals, idxs)]
+        before = scatter_acc_leaves_kernel.launches
+        got = scatter_acc_leaves_kernel(accs, vals, idxs, wc)
+        check(scatter_acc_leaves_kernel.launches - before
+              == -(-len(accs) // MAX_LEAVES),
+              f"scatter_acc over {len(accs)} leaves: "
+              f"{scatter_acc_leaves_kernel.launches - before} launches")
+        for g, wl in zip(got, want):
+            held("scatter_acc", g, wl, True)
     print(f"agg_fuse vs plain: dequant_reduce {n_cases['dequant_reduce']} "
           f"cases (every D leaf, the whole D, N = 1, 4097, 5000; int8, fp16, "
           f"fp32), max abs err {err['dequant_reduce']:.3e} (tolerance "
@@ -555,8 +613,10 @@ def phase_agg_fuse(dev):
           f"{n_cases['dequant_acc']} folds (largest leaf, a round's 60, "
           f"ragged; int8, fp16, fp32), equal bit for bit, max abs err "
           f"{err['dequant_acc']:.3e}; scatter_acc {n_cases['scatter_acc']} "
-          f"folds (K = 1% of each leaf, distinct: equal to index_add bit for "
-          f"bit; colliding and out-of-range at tolerance), max abs err "
+          f"leaf folds (K = 1% of each leaf, distinct: equal to index_add bit "
+          f"for bit, one leaf a launch and a fold's 15 leaves a launch, 72 "
+          f"leaves in two; colliding and out-of-range at tolerance), max abs "
+          f"err "
           f"{err['scatter_acc']:.3e}; an all-zero int8 leaf (scale 1.0) "
           f"adds 0")
 
@@ -611,27 +671,35 @@ def phase_agg_fuse(dev):
             print(f"  {mode:6s} kernel {tm['kernel']:.5f} ms, plain "
                   f"{tm['plain']:.5f} ms, cast + addcmul_ "
                   f"{tm['library']:.5f} ms")
-    # row 6: a round's 60 top-k folds, in place
+    # row 6: a round's top-k folds, in place: one launch a client's fold
+    # over its 12 leaves (the main path), beside one launch a leaf
     accs = [torch.zeros((n,), device=dev) for n in sizes]
-    folds = [(accs[k], client[k][0][0], client[k][0][1], w_host[ci])
-             for ci, client in enumerate(rounds["topk"])
-             for k in range(len(sizes))]
+    folds = [(accs, [client[k][0][0] for k in range(len(sizes))],
+              [client[k][0][1] for k in range(len(sizes))], w_host[ci])
+             for ci, client in enumerate(rounds["topk"])]
+    leaf_folds = [(a, v, i, wc) for _, vs, ix, wc in folds
+                  for a, v, i in zip(accs, vs, ix)]
     t = time_variants({
-        "kernel": lambda: [scatter_acc_kernel(a, v, i, wc)
+        "kernel": lambda: [scatter_acc_leaves_kernel(a, v, i, wc)
                            for a, v, i, wc in folds],
-        "plain": lambda: [scatter_acc_ref(a, v, i, wc)
+        "per_leaf": lambda: [scatter_acc_kernel(a, v, i, wc)
+                             for a, v, i, wc in leaf_folds],
+        "plain": lambda: [scatter_acc_leaves(a, v, i, wc)
                           for a, v, i, wc in folds],
         "library": lambda: [a.index_add_(0, i, v, alpha=wc)
-                            for a, v, i, wc in folds]})
-    kept = sum(v.numel() for _, v, _, _ in folds)
+                            for a, v, i, wc in leaf_folds]})
+    kept = sum(v.numel() for _, v, _, _ in leaf_folds)
     nbytes = 16 * kept
     bound, by = bound_ms(nbytes, 2 * kept)
     rows[("scatter_acc", "topk")] = (t["device"], bound, by)
-    print(f"scatter_acc, a round's {len(folds)} top-k folds ({kept} kept "
-          f"entries): bound {bound:.6f} ms ({by}: {nbytes} B at 3.35 TB/s)")
+    print(f"scatter_acc, a round's {len(folds)} top-k folds of "
+          f"{len(sizes)} leaves ({kept} kept entries): bound {bound:.6f} ms "
+          f"({by}: {nbytes} B at 3.35 TB/s)")
     for mode, tm in t.items():
-        print(f"  {mode:6s} kernel {tm['kernel']:.5f} ms, plain "
-              f"{tm['plain']:.5f} ms, index_add_ {tm['library']:.5f} ms")
+        print(f"  {mode:6s} kernel {tm['kernel']:.5f} ms ({len(folds)} "
+              f"launches; one a leaf: {tm['per_leaf']:.5f} ms, "
+              f"{len(leaf_folds)} launches), plain {tm['plain']:.5f} ms, "
+              f"index_add_ {tm['library']:.5f} ms")
 
     def row(name, key, line):
         d, bound, by = rows[key]
@@ -651,9 +719,8 @@ AGG_KERNELS = {"dequant_reduce", "dequant_acc", "scatter_acc"}
 
 
 def kernel_wrappers():
-    from repro_torch.kernels.agg_fuse.kernel import (dequant_acc_kernel,
-                                                     dequant_reduce_kernel,
-                                                     scatter_acc_kernel)
+    from repro_torch.kernels.agg_fuse.kernel import (
+        dequant_acc_kernel, dequant_reduce_kernel, scatter_acc_leaves_kernel)
     from repro_torch.kernels.boundary_fuse.kernel import boundary_fuse_kernel
     from repro_torch.kernels.dp_clip.kernel import dp_clip_noise_kernel
     from repro_torch.kernels.fedavg.kernel import fedavg_kernel
@@ -664,7 +731,7 @@ def kernel_wrappers():
             "boundary_fuse": boundary_fuse_kernel,
             "dequant_reduce": dequant_reduce_kernel,
             "dequant_acc": dequant_acc_kernel,
-            "scatter_acc": scatter_acc_kernel,
+            "scatter_acc": scatter_acc_leaves_kernel,
             "flash_attention": flash_attention_kernel,
             "wkv6": wkv6_kernel}
 
@@ -793,7 +860,7 @@ def phase_main_paths(dev):
              {"dequant_reduce": reduce_round}),
             ("stream top-k path", {"fed.codec": "topk",
                                    "fed.server_reduce": "stream"},
-             {"scatter_acc": folds})):
+             {"scatter_acc": CLIENTS * ROUNDS})):       # one a fold
         tr, hist, _ = drive_path(dev, label, over, parts, expect)
         check(tr.engine.last_report.peak_live_trees == 1,
               f"{label}: peak_live_trees "

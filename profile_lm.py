@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where the time goes on the port's LM paths and inside its dp_clip and
-wkv6 kernels, on one NVIDIA GPU.
+"""Where the time goes on the port's LM paths and inside its dp_clip,
+wkv6, boundary_fuse and scatter_acc kernels, on one NVIDIA GPU.
 
     python3 profile_lm.py [--arch qwen3-14b rwkv6-1.6b] [--kernels]
 
@@ -25,11 +25,20 @@ call of each CUDA kernel they launch (and wkv6's time a serial step);
 then one warm DP-SGD round of dcgan-mnist at full width (5 clients, batch
 256), with the device time of each ``torch.cat`` that flattens the
 per-example gradient tree into the stack and of each dp_clip call on it
-(CUDA events around each).  The script measures the checkout it sits in:
-a copy of it in another checkout measures that one.
+(CUDA events around each).  ``--kernels`` also traces boundary_fuse on
+the split path's int8 crossings, (256, 6272) and (256, 4096), with the
+tensor-wide and the per-row amax, and scatter_acc over a round's top-k
+folds (5 clients x the 12 D leaves, K = 1% of each), each with its eager
+time (CUDA events around back-to-back calls, host dispatch included).
+The script measures the checkout it sits in: a copy of it in another
+checkout measures that one (where that checkout's boundary_fuse has no
+amax mode it is timed with the tensor-wide amax alone, and where its
+agg_fuse has no leaf table the folds are timed one launch a leaf).
 ``--arch`` with no name skips the architectures.
 """
 import argparse
+import functools
+import inspect
 import json
 import os
 import subprocess
@@ -47,6 +56,7 @@ FORWARD = {"qwen3-14b": (2, 2048), "rwkv6-1.6b": (4, 2048)}
 REQUESTS, GEN_TOKENS = 4, 16
 DP_BATCH, DP_CLIENTS = 256, 5
 WKV_SHAPE = (4, 2048, 32, 64)
+BOUNDARY_SHAPES = ((256, 6272), (256, 4096))
 
 
 def trace(prof):
@@ -98,13 +108,88 @@ def per_kernel(label, fn, calls):
             fn()
         torch.cuda.synchronize()
     by_name = {}
-    for k in trace(prof)[1]:
+    kernels = trace(prof)[1]
+    for k in kernels:
         by_name[k["name"]] = by_name.get(k["name"], 0.0) + k["dur"] / calls
     total = sum(by_name.values())
-    print(f"{label}: {total / 1e3:.4f} ms device a call")
+    print(f"{label}: {total / 1e3:.4f} ms device a call, "
+          f"{len(kernels) / calls:g} kernel launches a call")
     for name, us in sorted(by_name.items(), key=lambda x: -x[1]):
         print(f"    {us / 1e3:9.4f} ms  {name[:90]}")
     return total
+
+
+def eager_ms(fn, iters=200):
+    """Mean milliseconds of ``fn`` called back to back (host dispatch
+    included), from CUDA events, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def boundary_fuse_cases(dev):
+    """(label, call) of the boundary_fuse kernel at the split path's int8
+    crossings, in each amax mode the checkout has."""
+    from repro_torch.kernels.boundary_fuse.kernel import boundary_fuse_kernel
+
+    modes = (("tensor", "row") if "amax" in inspect.signature(
+        boundary_fuse_kernel).parameters else ("tensor",))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cases = []
+    for b, n in BOUNDARY_SHAPES:
+        x = torch.randn((b, n), generator=gen, device=dev) * 0.05
+        z = torch.randn((b, n), generator=gen, device=dev)
+        for mode in modes:
+            kw = {} if mode == "tensor" else {"amax": mode}
+            cases.append((f"boundary_fuse int8 ({b}, {n}) amax={mode}",
+                          functools.partial(boundary_fuse_kernel, x, 1.0,
+                                            0.5, z, codec="int8", **kw)))
+    return cases
+
+
+def scatter_acc_case(dev):
+    """(label, call) of scatter_acc over a round's top-k folds: 5 clients
+    x the 12 D leaves, one launch a fold where the checkout has the leaf
+    table, else one a leaf."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.fed.transport import make_codec
+    from repro_torch.kernels.agg_fuse import kernel
+    from repro_torch.models.dcgan import disc_init
+    from repro_torch.tree import leaves
+
+    sizes = [l.numel() for l in leaves(disc_init(
+        torch.Generator().manual_seed(0),
+        get_config("dcgan-mnist").model.dcgan, "meta"))]
+    gen = torch.Generator(device=dev).manual_seed(4)
+    codec = make_codec("topk")
+    accs = [torch.zeros((n,), device=dev) for n in sizes]
+    folds = []
+    for c in range(DP_CLIENTS):
+        wires = [codec.encode(torch.randn((n,), generator=gen, device=dev)
+                              * 4e-4)[0] for n in sizes]
+        folds.append(([v for v, _ in wires], [i for _, i in wires],
+                      0.5 + 0.1 * c))
+    if hasattr(kernel, "scatter_acc_leaves_kernel"):
+        def call():
+            for vals, idx, w in folds:
+                kernel.scatter_acc_leaves_kernel(accs, vals, idx, w)
+        how = "one launch a fold"
+    else:
+        def call():
+            for vals, idx, w in folds:
+                for a, v, i in zip(accs, vals, idx):
+                    kernel.scatter_acc_kernel(a, v, i, w)
+        how = "one launch a leaf"
+    kept = sum(v.numel() for vals, _, _ in folds for v in vals)
+    return (f"scatter_acc, a round's {len(folds)} top-k folds of "
+            f"{len(sizes)} leaves ({kept} kept entries), {how}", call)
 
 
 def profile_dp_clip(dev):
@@ -288,7 +373,8 @@ def main() -> int:
     ap.add_argument("--arch", nargs="*", default=list(FORWARD),
                     choices=list(FORWARD))
     ap.add_argument("--kernels", action="store_true",
-                    help="trace the dp_clip and wkv6 kernels first")
+                    help="trace the dp_clip, wkv6, boundary_fuse and "
+                         "scatter_acc kernels first")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_lm: CUDA is not available; this script measures the "
@@ -303,10 +389,17 @@ def main() -> int:
     if args.kernels:
         torch.backends.cudnn.allow_tf32 = False
         from repro_torch.kernels import build
-        print(f"build: {build.build(['dp_clip', 'wkv6'])}")
+        print(f"build: {build.build(['dp_clip', 'wkv6', 'boundary_fuse',
+                                     'agg_fuse'])}")
+        cases = boundary_fuse_cases(dev) + [scatter_acc_case(dev)]
+        # host dispatch included, before any profiler runs in the process
+        eager = {label: eager_ms(call) for label, call in cases}
         profile_dp_clip(dev)
         profile_wkv6(dev)
         profile_dp_round(dev)
+        for label, call in cases:
+            per_kernel(label, call, 20)
+            print(f"    eager {eager[label]:.4f} ms a call")
         torch.cuda.empty_cache()
     for arch in args.arch:
         profile_arch(arch, dev)

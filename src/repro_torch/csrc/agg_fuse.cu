@@ -4,8 +4,9 @@
 //   dequant_reduce  out[n]   = sum_c (w[c] * s[c]) * x[c, n]
 //                   x: (C, N) row-major wires, coefs: (C, 2) fp32 [w, s]
 //   dequant_acc     acc[n]  += (w * s) * x[n]          (in place)
-//   scatter_acc     acc[i_k] += w * v[k]               (in place; colliding
-//                   indices sum; indices outside [0, N) are dropped)
+//   scatter_acc     acc_l[i_k] += w * v_l[k] for every leaf l of a table
+//                   (in place; colliding indices sum; indices outside
+//                   [0, N_l) are dropped)
 //
 // Wires are int8 (symmetric quantisation, s = the leaf's scale), fp16 or
 // fp32 (s = 1), read at their own width and widened in registers; nothing
@@ -39,7 +40,15 @@
 //    819,200): it suits a TPU's vector unit, not a card with atomics.  A
 //    top-k wire's indices are distinct, so each element takes one add and
 //    the result is deterministic; colliding indices add in an order that
-//    varies from run to run.
+//    varies from run to run.  A fold's work is small (about 10,000 kept
+//    entries over 12 leaves on the main path) and was one launch a leaf,
+//    so launches set its time: one launch now covers a table of up to
+//    kMaxLeaves leaves, passed by value in the kernel's parameters.  Leaf
+//    l owns blocks [first[l], first[l + 1]) (a prefix sum of its
+//    ceil(K_l / kThreads) blocks, computed on the host from the sizes the
+//    caller knows: no device read), and a block finds its leaf by a
+//    search over that prefix, which every thread of it reads alike from
+//    the constant bank.
 // Rounding: dequant_acc and scatter_acc round the product and the sum
 // separately (__fmul_rn, __fadd_rn), as the plain version does, so they
 // match it bit for bit; dequant_reduce accumulates with fmaf (one rounding
@@ -56,6 +65,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int64_t kMaxBlocks = 1 << 20;  // grid-stride beyond this
 constexpr int64_t kMaxClients = 12288;   // C floats in 48 KB of shared memory
+constexpr int kMaxLeaves = 64;           // leaves a scatter launch: 3 KB of
+                                         // kernel parameters
 
 enum Dtype { kF32 = 0, kF16 = 1, kI8 = 2 };
 
@@ -150,14 +161,28 @@ dequant_acc(float* __restrict__ acc, const T* __restrict__ x,
   }
 }
 
+// the leaves of one scatter launch, by value in the kernel's parameters
+struct LeafTable {
+  float* acc[kMaxLeaves];
+  const float* vals[kMaxLeaves];
+  const int32_t* idx[kMaxLeaves];
+  int64_t K[kMaxLeaves];
+  int64_t N[kMaxLeaves];
+  int64_t first[kMaxLeaves + 1];  // leaf l's first block; first[n] = grid
+  int n;
+  float w;
+};
+
 __global__ void __launch_bounds__(kThreads)
-scatter_acc(float* __restrict__ acc, const float* __restrict__ vals,
-            const int32_t* __restrict__ idx, float w, int64_t K, int64_t N) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; k < K;
-       k += stride) {
-    const int64_t i = __ldg(idx + k);
-    if (i >= 0 && i < N) atomicAdd(acc + i, __fmul_rn(w, __ldg(vals + k)));
+scatter_acc(const __grid_constant__ LeafTable t) {
+  int l = 0;  // the last leaf whose first block is at or before this one
+  while (l + 1 < t.n && t.first[l + 1] <= (int64_t)blockIdx.x) ++l;
+  const int64_t k =
+      ((int64_t)blockIdx.x - t.first[l]) * kThreads + threadIdx.x;
+  if (k >= t.K[l]) return;
+  const int64_t i = __ldg(t.idx[l] + k);
+  if (i >= 0 && i < t.N[l]) {
+    atomicAdd(t.acc[l] + i, __fmul_rn(t.w, __ldg(t.vals[l] + k)));
   }
 }
 
@@ -228,12 +253,30 @@ extern "C" int agg_dequant_acc(float* acc, const void* wire, int dtype,
   }
 }
 
-// acc[idx[k]] += w * vals[k] for k < K, idx in [0, N).
-extern "C" int agg_scatter_acc(float* acc, const float* vals,
-                               const int32_t* idx, float w, int64_t K,
-                               int64_t N, void* stream) {
-  if (K <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
+// For each of n <= kMaxLeaves leaves l, with desc[5l .. 5l + 5) = (acc,
+// vals, idx, K, N): acc[idx[k]] += w * vals[k] for k < K, idx in [0, N).
+// One launch on `stream`; returns cudaGetLastError() (0 = launched).
+extern "C" int agg_scatter_acc_leaves(const int64_t* desc, int n, float w,
+                                      void* stream) {
+  if (n <= 0 || n > kMaxLeaves) return (int)cudaErrorInvalidValue;
+  LeafTable t = {};
+  t.n = n;
+  t.w = w;
+  int64_t blocks = 0;
+  for (int l = 0; l < n; ++l) {
+    const int64_t* d = desc + 5 * l;
+    if (d[3] <= 0 || d[4] <= 0) return (int)cudaErrorInvalidValue;
+    t.acc[l] = reinterpret_cast<float*>(d[0]);
+    t.vals[l] = reinterpret_cast<const float*>(d[1]);
+    t.idx[l] = reinterpret_cast<const int32_t*>(d[2]);
+    t.K[l] = d[3];
+    t.N[l] = d[4];
+    t.first[l] = blocks;
+    blocks += (d[3] + kThreads - 1) / kThreads;
+  }
+  t.first[n] = blocks;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  scatter_acc<<<grid_for(K), kThreads, 0, st>>>(acc, vals, idx, w, K, N);
+  scatter_acc<<<(unsigned)blocks, kThreads, 0, st>>>(t);
   return (int)cudaGetLastError();
 }

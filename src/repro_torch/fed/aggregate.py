@@ -35,7 +35,7 @@ import torch
 from repro_torch.fed.transport import apply_delta
 from repro_torch.kernels.agg_fuse.ops import (dequant_acc_flat,
                                               dequant_reduce_flat,
-                                              scatter_acc_flat)
+                                              scatter_acc_leaves)
 from repro_torch.tree import leaves, unflatten_like
 
 __all__ = ["StreamingAggregator", "batched_reduce", "codec_rel_error",
@@ -116,7 +116,8 @@ class StreamingAggregator:
 
     ``init(template)`` allocates one zero fp32 accumulator per leaf;
     ``fold(enc, weight)`` adds ``weight * dequant(enc)`` through the
-    agg_fuse ops (top-k wires scatter straight into the dense accumulator);
+    agg_fuse ops (top-k wires scatter straight into the dense accumulators,
+    every leaf in one ``scatter_acc_leaves`` call);
     ``finalize()`` divides by the folded weight sum and restores leaf
     shapes and dtypes.  The accumulator is the only decoded tree alive,
     however many uplinks fold.  ``use_kernel`` sends CUDA accumulators
@@ -151,18 +152,19 @@ class StreamingAggregator:
         name = self.codec_name
         want_err = delta is not None and name != "none"
         dleaves = leaves(delta) if want_err else [None] * len(enc)
-        num = den = 0.0
-        for i, ((wire, meta), d) in enumerate(zip(enc, dleaves)):
-            if name == "topk":
-                vals, idx = wire
-                self._acc[i] = scatter_acc_flat(
-                    self._acc[i], vals, idx, w, use_kernel=self.use_kernel)
-            else:
+        if name == "topk":                 # every leaf in one call
+            self._acc = scatter_acc_leaves(
+                self._acc, [wire[0] for wire, _ in enc],
+                [wire[1] for wire, _ in enc], w, use_kernel=self.use_kernel)
+        else:
+            for i, (wire, meta) in enumerate(enc):
                 scale = meta if name == "int8" else 1.0
                 self._acc[i] = dequant_acc_flat(
                     self._acc[i], wire.reshape(-1), scale, w,
                     use_kernel=self.use_kernel)
-            if want_err:
+        num = den = 0.0
+        if want_err:
+            for (wire, meta), d in zip(enc, dleaves):
                 n, f = _leaf_error(name, wire, meta, d)
                 num, den = num + n, den + f
         self.wsum += w

@@ -203,8 +203,17 @@ def int8_scale(x: torch.Tensor) -> torch.Tensor:
     """Symmetric int8 scale of fp32 ``x``: amax / 127, or 1.0 for an
     all-zero tensor (any positive scale maps q = 0 back to zeros; 1.0
     avoids a subnormal division)."""
-    amax = torch.max(torch.abs(x))
-    return torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    return int8_scale_of(torch.max(torch.abs(x)))
+
+
+def int8_scale_of(amax: torch.Tensor) -> torch.Tensor:
+    """``amax / 127`` where ``amax > 0``, else 1.0 (a NaN amax gives 1.0),
+    elementwise.  The divisor is a tensor on ``amax``'s device: PyTorch's
+    CUDA division by a Python number multiplies by its rounded reciprocal,
+    one ulp off the IEEE quotient for about 5% of values, and the codec's
+    scale is the reference's true quotient on every device."""
+    return torch.where(amax > 0, amax / torch.full_like(amax, 127.0),
+                       torch.ones_like(amax))
 
 
 def int8_round(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

@@ -10,11 +10,14 @@ returns a new tensor, and the caller keeps whichever comes back.
 """
 from __future__ import annotations
 
+from typing import List, Sequence
+
 import torch
 
 from repro_torch.kernels.agg_fuse.kernel import (dequant_acc_kernel,
                                                  dequant_reduce_kernel,
-                                                 scatter_acc_kernel)
+                                                 scatter_acc_kernel,
+                                                 scatter_acc_leaves_kernel)
 from repro_torch.kernels.agg_fuse.ref import (dequant_acc_ref,
                                               dequant_reduce_ref,
                                               scatter_acc_ref)
@@ -63,3 +66,22 @@ def scatter_acc_flat(acc: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
     if _use_kernel(acc, use_kernel, "scatter_acc_flat"):
         return scatter_acc_kernel(acc, vals, idx, weight)
     return scatter_acc_ref(acc, vals, idx, weight)
+
+
+def scatter_acc_leaves(accs: Sequence[torch.Tensor],
+                       vals_list: Sequence[torch.Tensor],
+                       idx_list: Sequence[torch.Tensor], weight, *,
+                       use_kernel: bool = False) -> List[torch.Tensor]:
+    """A whole sparse streaming fold: leaf ``l``'s weighted top-k
+    ``(vals_list[l], idx_list[l])`` added into ``accs[l]``.  On the kernel
+    path one launch covers every leaf; the plain version is
+    ``scatter_acc_ref`` leaf by leaf.  Returns the new accumulators."""
+    if not (len(accs) == len(vals_list) == len(idx_list)):
+        raise ValueError(f"{len(accs)} accumulators, {len(vals_list)} value "
+                         f"and {len(idx_list)} index wires")
+    if not accs:
+        return []
+    if _use_kernel(accs[0], use_kernel, "scatter_acc_leaves"):
+        return scatter_acc_leaves_kernel(accs, vals_list, idx_list, weight)
+    return [scatter_acc_ref(a, v, i, weight)
+            for a, v, i in zip(accs, vals_list, idx_list)]

@@ -3,11 +3,13 @@ hand-written CUDA kernel (``repro_torch/csrc/boundary_fuse.cu``), replacing
 the Pallas TPU kernel
 ``repro/kernels/boundary_fuse/kernel.py:boundary_fuse_kernel``.
 
-One CTA per example row: qdq, the row's squared norm, then
-``q * min(1, C / ||q_b||) + s * z`` — one read of x and z from device
-memory and one write.  For int8 a first small launch takes the whole
-tensor's amax.  Built by ``nvcc`` at first use and called through
-``ctypes``.
+One launch for every codec and amax mode: one CTA per example row holds
+its rows of x and z on chip (TMA bulk copies), takes the qdq, the row's
+squared norm, then ``q * min(1, C / ||q_b||) + s * z`` — one read of x
+and z and one write.  int8 with the tensor-wide amax folds the CTAs'
+maxima into one word and waits at a grid-wide barrier inside the same
+launch; with ``amax="row"`` each row takes its own amax.  Built by
+``nvcc`` at first use and called through ``ctypes``.
 """
 from __future__ import annotations
 
@@ -17,16 +19,14 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.boundary_fuse.ref import CODECS
-
-_AMAX_BLOCKS = 256      # kAmaxBlocks in boundary_fuse.cu
+from repro_torch.kernels.boundary_fuse.ref import AMAX_MODES, CODECS
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
     fn = build.load("boundary_fuse").boundary_fuse_f32
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                   ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
                    ctypes.c_int, ctypes.c_float, ctypes.c_float,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -34,17 +34,22 @@ def _lib():
 
 
 def boundary_fuse_kernel(x: torch.Tensor, clip: float, noise_scale: float,
-                         noise: torch.Tensor, *, codec: str = "none"
-                         ) -> torch.Tensor:
+                         noise: torch.Tensor, *, codec: str = "none",
+                         amax: str = "tensor") -> torch.Tensor:
     """x: (B, N) fp32 flattened boundary tensor on a CUDA device; noise:
-    (B, N) fp32 on the same device -> (B, N) fp32.
+    (B, N) fp32 on the same device -> (B, N) fp32.  ``amax``: the int8
+    scale from the whole tensor ("tensor") or from each row ("row").
 
-    Launches on the current stream of ``x``'s device and does not
+    One launch on the current stream of ``x``'s device; does not
     synchronise.  Raises on any input the kernel does not take (another
     device or dtype, mismatched shapes, a non-contiguous tensor, an empty
-    dimension, an unknown codec) and when a launch is refused."""
+    dimension, an unknown codec or amax mode) and when a launch is
+    refused."""
     if codec not in CODECS:
         raise ValueError(f"unknown fusable codec {codec!r}")
+    if amax not in AMAX_MODES:
+        raise ValueError(f"unknown amax mode {amax!r} (expected one of "
+                         f"{AMAX_MODES})")
     if x.device.type != "cuda":
         raise ValueError(f"boundary_fuse_kernel needs a CUDA tensor, got "
                          f"{x.device}")
@@ -63,12 +68,10 @@ def boundary_fuse_kernel(x: torch.Tensor, clip: float, noise_scale: float,
         raise ValueError(f"empty tensor {tuple(x.shape)}")
     fn = _lib()
     out = torch.empty_like(x)
-    partial = torch.empty((_AMAX_BLOCKS,), dtype=torch.float32,
-                          device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), noise.data_ptr(), partial.data_ptr(),
-                 out.data_ptr(), b, n, CODECS.index(codec), float(clip),
+        err = fn(x.data_ptr(), noise.data_ptr(), out.data_ptr(), b, n,
+                 CODECS.index(codec), AMAX_MODES.index(amax), float(clip),
                  float(noise_scale), stream)
     if err != 0:
         raise RuntimeError(

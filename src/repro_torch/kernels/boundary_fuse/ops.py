@@ -17,13 +17,17 @@ from repro_torch.kernels.boundary_fuse.ref import fused_boundary_ref
 
 def fused_boundary_flat(x: torch.Tensor, clip, noise_scale,
                         noise: torch.Tensor, *, codec: str = "none",
+                        amax: str = "tensor",
                         use_kernel: bool = False) -> torch.Tensor:
     """x: (B, N) flattened boundary tensor -> (B, N) f32 staged release
     (codec qdq, per-example clip to ``clip``, plus
-    ``noise_scale * noise``)."""
+    ``noise_scale * noise``).  ``amax="row"`` gives each example its own
+    int8 scale, what the reference computes per example under
+    ``jax.vmap``; the default takes one over the whole tensor."""
     if x.device.type == "cuda" and use_kernel:
         return boundary_fuse_kernel(x, float(clip), float(noise_scale),
-                                    noise, codec=codec)
+                                    noise, codec=codec, amax=amax)
     if x.device.type in ("cpu", "cuda"):
-        return fused_boundary_ref(x, clip, noise_scale, noise, codec=codec)
+        return fused_boundary_ref(x, clip, noise_scale, noise, codec=codec,
+                                  amax=amax)
     raise ValueError(f"fused_boundary_flat: no path for device {x.device}")

@@ -40,12 +40,16 @@ from repro_torch.fed.policies import ClientUpdate, FedAsync, FedBuff
 from repro_torch.fed.programs import (ClientHyper, RoundExecutor,
                                       fedavg_stacked, stack_trees)
 from repro_torch.fed.transport import make_codec, tree_rel_error
-from repro_torch.kernels.agg_fuse.kernel import (dequant_acc_kernel,
+from repro_torch.fed import aggregate as agg_module
+from repro_torch.kernels.agg_fuse.kernel import (MAX_LEAVES,
+                                                 dequant_acc_kernel,
                                                  dequant_reduce_kernel,
-                                                 scatter_acc_kernel)
+                                                 scatter_acc_kernel,
+                                                 scatter_acc_leaves_kernel)
 from repro_torch.kernels.agg_fuse.ops import (dequant_acc_flat,
                                               dequant_reduce_flat,
-                                              scatter_acc_flat)
+                                              scatter_acc_flat,
+                                              scatter_acc_leaves)
 from repro_torch.kernels.agg_fuse.ref import (dequant_acc_ref,
                                               dequant_reduce_ref,
                                               scatter_acc_ref)
@@ -141,6 +145,85 @@ def test_scatter_acc_drops_out_of_range_indices_like_the_pallas_kernel():
     _close(got, want)
     assert float(got[0]) == 1.5 and float(got[7]) == 0.5 * (4.0 + 7.0)
     assert float(got.abs().sum()) == pytest.approx(1.5 + 5.5)
+
+
+def _leaf_table(seed, sizes, distinct=False):
+    """Accumulators, values and int32 indices of one top-k fold over leaves
+    of ``sizes``: K ragged (1 .. N / 8 + 1); unless ``distinct``, some
+    indices collide and some fall outside [0, N)."""
+    rng = np.random.default_rng(seed)
+    accs, vals, idxs = [], [], []
+    for n in sizes:
+        k = int(rng.integers(1, n // 8 + 2))
+        if distinct:
+            idx = rng.permutation(n)[:k]
+        else:
+            idx = rng.integers(-2, n + 2, k)
+            idx[: k // 3] = n // 2                # collisions
+        accs.append(rng.standard_normal(n).astype(np.float32))
+        vals.append(rng.standard_normal(k).astype(np.float32))
+        idxs.append(idx.astype(np.int32))
+    return accs, vals, idxs
+
+
+@pytest.mark.parametrize("sizes", [(5000,), (1, 7, 4097, 33, 5000),
+                                   tuple(range(1, 80, 9))])
+def test_scatter_acc_leaves_matches_a_jax_loop_over_leaves(sizes):
+    """The one-call fold over a table of leaves (ragged K, colliding and
+    out-of-range indices) against JAX's scatter_acc_flat leaf by leaf
+    through the Pallas kernel in interpret mode."""
+    accs, vals, idxs = _leaf_table(len(sizes), sizes)
+    got = scatter_acc_leaves([torch.tensor(a) for a in accs],
+                             [torch.tensor(v) for v in vals],
+                             [torch.tensor(i) for i in idxs], 1.3,
+                             use_kernel=True)
+    assert len(got) == len(sizes)
+    for g, a, v, i in zip(got, accs, vals, idxs):
+        _close(g, jscatter_acc_flat(jnp.asarray(a), jnp.asarray(v),
+                                    jnp.asarray(i), 1.3, use_kernel=True,
+                                    interpret=True))
+
+
+def test_scatter_acc_leaves_plain_version_is_scatter_acc_leaf_by_leaf():
+    accs, vals, idxs = _leaf_table(3, (9, 100, 4097))
+    ta = [torch.tensor(a) for a in accs]
+    got = scatter_acc_leaves(ta, [torch.tensor(v) for v in vals],
+                             [torch.tensor(i) for i in idxs], 0.7)
+    for g, a, v, i, t in zip(got, accs, vals, idxs, ta):
+        assert torch.equal(g, scatter_acc_flat(torch.tensor(a),
+                                               torch.tensor(v),
+                                               torch.tensor(i), 0.7))
+        assert torch.equal(t, torch.tensor(a))      # a new tensor
+    assert scatter_acc_leaves([], [], [], 1.0) == []
+    with pytest.raises(ValueError, match="accumulators"):
+        scatter_acc_leaves(ta, [torch.tensor(vals[0])],
+                           [torch.tensor(idxs[0])], 1.0)
+    # CPU tensors take the plain version even with use_kernel; the kernel
+    # itself refuses them
+    before = scatter_acc_leaves_kernel.launches
+    scatter_acc_leaves(ta, [torch.tensor(v) for v in vals],
+                       [torch.tensor(i) for i in idxs], 0.7, use_kernel=True)
+    assert scatter_acc_leaves_kernel.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        scatter_acc_leaves_kernel(ta, [torch.tensor(v) for v in vals],
+                                  [torch.tensor(i) for i in idxs], 0.7)
+
+
+def test_topk_fold_makes_one_leaves_call_per_fold(monkeypatch):
+    calls = []
+    real = agg_module.scatter_acc_leaves
+
+    def counting(accs, *args, **kwargs):
+        calls.append(len(accs))
+        return real(accs, *args, **kwargs)
+
+    monkeypatch.setattr(agg_module, "scatter_acc_leaves", counting)
+    deltas = [_delta(s) for s in range(3)]
+    agg = StreamingAggregator("topk")
+    agg.init(params_from_numpy(deltas[0], "cpu"))
+    for d in deltas:
+        agg.fold(_encode("topk", d), 1.0)
+    assert calls == [2, 2, 2]          # the tree's two leaves, once a fold
 
 
 def test_ops_return_new_tensors_on_the_cpu():
@@ -484,3 +567,56 @@ def test_scatter_kernel_matches_index_add_on_gpu(cuda):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, scatter_acc_ref(acc, vals, idx, 0.25),
                                **TOL)
+
+
+def _d_leaf_sizes():
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.dcgan import disc_init
+    return [l.numel() for l in leaves(disc_init(
+        torch.Generator().manual_seed(0),
+        get_config("dcgan-mnist").model.dcgan, "meta"))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_leaves", [None, MAX_LEAVES + 6])
+def test_scatter_table_matches_index_add_on_gpu(cuda, n_leaves):
+    """One launch for the 12 D leaves of the main path (K = 1% of each,
+    distinct indices: equal to index_add_ bit for bit), and two for a
+    table one chunk longer than a launch takes."""
+    sizes = _d_leaf_sizes()
+    if n_leaves is not None:
+        sizes = (sizes * 8)[:n_leaves]
+    rng = np.random.default_rng(len(sizes))
+    accs, vals, idxs = [], [], []
+    for n in sizes:
+        k = max(1, n // 100)
+        accs.append(torch.tensor(rng.standard_normal(n), dtype=torch.float32,
+                                 device=cuda))
+        vals.append(torch.tensor(rng.standard_normal(k), dtype=torch.float32,
+                                 device=cuda))
+        idxs.append(torch.tensor(rng.permutation(n)[:k], dtype=torch.int32,
+                                 device=cuda))
+    want = [a.clone().index_add_(0, i.long(), v, alpha=0.37)
+            for a, v, i in zip(accs, vals, idxs)]
+    plain = scatter_acc_leaves(accs, vals, idxs, 0.37)
+    before = scatter_acc_leaves_kernel.launches
+    got = scatter_acc_leaves(accs, vals, idxs, 0.37, use_kernel=True)
+    torch.cuda.synchronize()
+    assert scatter_acc_leaves_kernel.launches - before == -(-len(sizes)
+                                                            // MAX_LEAVES)
+    for g, a, w, p in zip(got, accs, want, plain):
+        assert g is a and torch.equal(g, w) and torch.equal(g, p)
+
+
+@pytest.mark.gpu
+def test_scatter_table_sums_collisions_and_drops_out_of_range_on_gpu(cuda):
+    accs, vals, idxs = _leaf_table(11, (1, 7, 4097, 33, 819_200))
+    ta = [torch.tensor(a, device=cuda) for a in accs]
+    tv = [torch.tensor(v, device=cuda) for v in vals]
+    ti = [torch.tensor(i, device=cuda) for i in idxs]
+    want = scatter_acc_leaves(ta, tv, ti, 0.6)
+    got = scatter_acc_leaves([a.clone() for a in ta], tv, ti, 0.6,
+                             use_kernel=True)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **TOL)

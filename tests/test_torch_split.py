@@ -115,6 +115,92 @@ def test_cpu_tensors_take_the_plain_version_not_the_kernel():
                              codec="topk")
 
 
+def _x_rows(b, n, seed):
+    """``_x`` with rows of magnitudes spread over three decades, so that a
+    per-row amax differs from the tensor's."""
+    x, z = _x(b, n, seed)
+    return x * np.logspace(-2, 1, b, dtype=np.float32)[:, None], z
+
+
+def _jax_per_example(x, z, clip, noise_scale, codec):
+    """The reference's per-example call: ``jax.vmap`` of the Pallas kernel
+    (interpret mode) over (1, N) rows."""
+    return np.asarray(jax.vmap(lambda a, b: jboundary_fuse_kernel(
+        a[None], clip, noise_scale, b[None], codec=codec,
+        interpret=True)[0])(jnp.asarray(x), jnp.asarray(z)))
+
+
+@pytest.mark.parametrize("codec", FUSABLE)
+@pytest.mark.parametrize("b,n", [(8, 392), (3, 4097), (2, 1)])
+@pytest.mark.parametrize("clip,noise_scale", [(1.0, 0.0), (1.0, 0.5),
+                                              (1e6, 0.0)])
+def test_row_amax_matches_jax_vmap_of_the_kernel(codec, b, n, clip,
+                                                 noise_scale):
+    x, z = _x_rows(b, n, seed=b * 17 + n)
+    want = _jax_per_example(x, z, clip, noise_scale, codec)
+    got = fused_boundary_flat(torch.tensor(x), clip, noise_scale,
+                              torch.tensor(z), codec=codec, amax="row",
+                              use_kernel=True)
+    assert got.shape == (b, n) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    if codec == "int8" and n > 1:
+        # the rows' own scales, not the tensor's
+        tensor = fused_boundary_flat(torch.tensor(x), clip, noise_scale,
+                                     torch.tensor(z), codec=codec)
+        assert not np.allclose(tensor.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("codec", FUSABLE)
+@pytest.mark.parametrize("n", [1, 392, 4097])
+def test_row_amax_of_one_example_is_the_tensor_amax_bit_for_bit(codec, n):
+    x, z = _x(1, n, seed=n + 5)
+    xs, zs = torch.tensor(x), torch.tensor(z)
+    assert torch.equal(
+        fused_boundary_flat(xs, 1.0, 0.5, zs, codec=codec, amax="row"),
+        fused_boundary_flat(xs, 1.0, 0.5, zs, codec=codec))
+
+
+def _nan_case(b=6, n=300, row=2):
+    x, z = _x_rows(b, n, seed=77)
+    x[row, 123] = np.nan
+    return torch.tensor(x), torch.tensor(z), row
+
+
+def test_row_amax_nan_changes_only_its_own_rows_scale():
+    """A NaN makes its row's amax NaN, so that row alone takes the int8
+    scale 1.0 (and its norm, so the whole row, is NaN after the clip);
+    every other row is what it is without the NaN."""
+    x, z, row = _nan_case()
+    clean = x.clone()
+    clean[row, 123] = 0.0
+    q = codec_qdq(x, "int8", amax="row")
+    q_clean = codec_qdq(clean, "int8", amax="row")
+    others = torch.arange(x.shape[0]) != row
+    assert torch.equal(q[others], q_clean[others])
+    keep = ~torch.isnan(x[row])
+    assert int(torch.isnan(q[row]).sum()) == 1
+    assert torch.equal(q[row][keep],
+                       torch.clamp(torch.round(x[row][keep]), -127, 127))
+    out = fused_boundary_flat(x, 1.0, 0.5, z, codec="int8", amax="row")
+    want = fused_boundary_flat(clean, 1.0, 0.5, z, codec="int8", amax="row")
+    assert bool(torch.isnan(out[row]).all())
+    assert torch.equal(out[others], want[others])
+    # the tensor-wide amax is NaN: every row takes the scale 1.0
+    qt = codec_qdq(x, "int8")
+    assert torch.equal(qt[others],
+                       torch.clamp(torch.round(x[others]), -127, 127))
+
+
+def test_unknown_amax_mode_raises():
+    x, z = _x(2, 8, seed=0)
+    with pytest.raises(ValueError, match="amax"):
+        fused_boundary_flat(torch.tensor(x), 1.0, 0.0, torch.tensor(z),
+                            codec="int8", amax="column")
+    with pytest.raises(ValueError, match="amax"):
+        boundary_fuse_kernel(torch.tensor(x), 1.0, 0.0, torch.tensor(z),
+                             codec="int8", amax="column")
+
+
 # ---------------------------------------------------------------------------
 # boundary stages
 # ---------------------------------------------------------------------------
@@ -436,3 +522,65 @@ def test_kernel_matches_plain_version_on_gpu(cuda, codec, b, n,
     # before the clip the qdq is the codec's, bit for bit
     q = boundary_fuse_kernel(xs, 1e30, 0.0, zs, codec=codec)
     assert torch.equal(q, codec_qdq(xs, codec))
+
+
+def _gpu_case(cuda, b, n, seed, offset=0):
+    """(B, N) x and z on the card, x with rows over three decades;
+    ``offset`` floats into a larger buffer, so that x sits that many
+    4-byte steps off a 16-byte boundary."""
+    x, z = _x_rows(b, n, seed)
+    buf = torch.empty(b * n + offset, device=cuda)
+    xs = buf[offset:].view(b, n)
+    xs.copy_(torch.tensor(x))
+    return xs, torch.tensor(z, device=cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("codec", FUSABLE)
+@pytest.mark.parametrize("amax", ["tensor", "row"])
+@pytest.mark.parametrize("b,n,offset", [
+    (256, 6272, 0), (256, 4096, 0), (256, 12544, 0), (3, 4097, 0),
+    (4096, 64, 0),           # more rows than the card holds CTAs at once
+    (4, 300000, 0),          # rows too long to hold on chip
+    (5, 999, 1), (256, 6272, 1)])    # x 4 bytes off a 16-byte boundary
+def test_kernel_amax_modes_match_plain_version_on_gpu(cuda, codec, amax, b,
+                                                      n, offset):
+    xs, zs = _gpu_case(cuda, b, n, seed=b + n, offset=offset)
+    before = boundary_fuse_kernel.launches
+    got = boundary_fuse_kernel(xs, 1.0, 0.5, zs, codec=codec, amax=amax)
+    torch.cuda.synchronize()
+    assert boundary_fuse_kernel.launches == before + 1
+    torch.testing.assert_close(
+        got, fused_boundary_ref(xs, 1.0, 0.5, zs, codec=codec, amax=amax),
+        rtol=1e-5, atol=1e-6)
+    q = boundary_fuse_kernel(xs, 1e30, 0.0, zs, codec=codec, amax=amax)
+    assert torch.equal(q, codec_qdq(xs, codec, amax))
+    # the same bits from a second launch
+    assert torch.equal(q, boundary_fuse_kernel(xs, 1e30, 0.0, zs,
+                                               codec=codec, amax=amax))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("amax", ["tensor", "row"])
+def test_kernel_nan_placement_matches_plain_version_on_gpu(cuda, amax):
+    x, z, row = _nan_case(b=256, n=6272, row=100)
+    xs, zs = x.to(cuda), z.to(cuda)
+    for clip, ns in ((1e30, 0.0), (1.0, 0.5)):
+        got = boundary_fuse_kernel(xs, clip, ns, zs, codec="int8", amax=amax)
+        want = fused_boundary_ref(xs, clip, ns, zs, codec="int8", amax=amax)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        keep = ~torch.isnan(want)
+        torch.testing.assert_close(got[keep], want[keep], rtol=1e-5,
+                                   atol=1e-6)
+        if clip == 1e30:
+            assert torch.equal(got[keep], want[keep])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 6272, 300000])
+def test_kernel_row_amax_of_one_row_is_the_tensor_amax_on_gpu(cuda, n):
+    xs, zs = _gpu_case(cuda, 1, n, seed=n)
+    assert torch.equal(
+        boundary_fuse_kernel(xs, 1.0, 0.5, zs, codec="int8", amax="row"),
+        boundary_fuse_kernel(xs, 1.0, 0.5, zs, codec="int8"))
