@@ -23,9 +23,11 @@ non-zero exit, and no result line:
    (``privacy.use_kernel``); with the executed split and the fused
    ``int8+dp`` boundary stage through the boundary_fuse kernel
    (``split.use_kernel``); the int8 uplink with the stream server reduce
-   (dequant_acc) and with the batched one (dequant_reduce); the top-k
-   uplink with the stream reduce (scatter_acc); the edge hierarchy (2
-   cohorts) with int8 and the stream reduce.  Then the LM substrate at
+   (dequant_acc, one launch a client's fold: 10) and with the batched one
+   (dequant_reduce, one launch a round: 2); the top-k uplink with the
+   stream reduce (scatter_acc, one launch a fold: 10); the edge hierarchy
+   (2 cohorts) with int8 and the stream reduce (dequant_acc 10, fedavg
+   24).  Then the LM substrate at
    full width: ``lm_loss`` forward (``torch.no_grad``,
    ``parallel.use_flash_kernel``) and ``serve_batch`` (4 requests, 16
    greedy tokens, bf16 cache) on qwen3-14b (40 layers, bf16, 29.5 GB;
@@ -133,14 +135,17 @@ def graph_ms(fn, reps=20, replays=10):
     return start.elapsed_time(end) / (replays * reps)
 
 
-def time_variants(fns, iters=200, reps=20):
+def time_variants(fns, iters=200, reps=20, modes=("eager", "device")):
     """ms of each variant in ``fns`` (kernel, plain, library), each the
     median of three turns in rotating order: "eager" as the main path
-    calls them (host dispatch included), "device" from CUDA-graph replay."""
+    calls them (host dispatch included), "device" from CUDA-graph replay
+    (``modes`` picks which)."""
     names = list(fns)
     out = {}
-    for mode, timer in (("eager", lambda f: time_ms(f, iters)),
-                        ("device", lambda f: graph_ms(f, reps))):
+    timers = {"eager": lambda f: time_ms(f, iters),
+              "device": lambda f: graph_ms(f, reps)}
+    for mode in modes:
+        timer = timers[mode]
         runs = {k: [] for k in names}
         for turn in range(3):
             for name in names[turn:] + names[:turn]:
@@ -468,15 +473,15 @@ def phase_boundary_fuse(dev):
             "bound_by": by, "library_ms": d["library"]}
 
 
-def encode_round(dev, codec_name, sizes, seed):
-    """The wires a round's CLIENTS uplinks give the server reduce: each
-    client's per-leaf delta (about the size of two Adam steps) through the
-    codec, as ``Codec.encode`` makes them on the main path."""
+def encode_round(dev, codec_name, sizes, seed, clients=CLIENTS):
+    """The wires a round's uplinks give the server reduce: each client's
+    per-leaf delta (about the size of two Adam steps) through the codec,
+    as ``Codec.encode`` makes them on the main path."""
     from repro_torch.fed.transport import make_codec
     gen = torch.Generator(device=dev).manual_seed(seed)
     codec = make_codec("none" if codec_name == "fp32" else codec_name)
     return [[codec.encode(torch.randn((n,), generator=gen, device=dev)
-                          * 4e-4) for n in sizes] for _ in range(CLIENTS)]
+                          * 4e-4) for n in sizes] for _ in range(clients)]
 
 
 def agg_case_rows(rounds, k):
@@ -492,15 +497,23 @@ def phase_agg_fuse(dev):
     """The three agg_fuse kernels against their plain versions at the main
     path's shapes (every D leaf, C = 5; the whole D; int8, fp16 and fp32
     wires; top-k at 1%), at ragged sizes, with an all-zero int8 leaf and a
-    scatter with colliding and out-of-range indices; then times of a
-    round's work against the bound, the plain version and one library
-    call."""
+    scatter with colliding and out-of-range indices; as one-leaf tables
+    and as the tables the main paths launch (a fold's leaves, a round's
+    unstacked client wires), also longer than one launch takes and off
+    4-element alignment; then times of a round's work against the bound,
+    one launch a leaf, the plain version and one library call."""
     from repro_torch.configs.registry import get_config
     from repro_torch.fed.transport import make_codec
+    from repro_torch.fed.aggregate import batched_reduce
     from repro_torch.kernels.agg_fuse.kernel import (
-        MAX_LEAVES, dequant_acc_kernel, dequant_reduce_kernel,
-        scatter_acc_kernel, scatter_acc_leaves_kernel)
-    from repro_torch.kernels.agg_fuse.ops import scatter_acc_leaves
+        MAX_LEAVES, REDUCE_CLIENTS, dequant_acc_kernel,
+        dequant_acc_leaves_kernel, dequant_reduce_kernel,
+        dequant_reduce_leaves_kernel, scatter_acc_kernel,
+        scatter_acc_leaves_kernel)
+    from repro_torch.kernels.agg_fuse.ops import (dequant_acc_leaves,
+                                                  dequant_reduce_flat,
+                                                  dequant_reduce_leaves,
+                                                  scatter_acc_leaves)
     from repro_torch.kernels.agg_fuse.ref import (dequant_acc_ref,
                                                   dequant_reduce_ref,
                                                   scatter_acc_ref)
@@ -563,6 +576,132 @@ def phase_agg_fuse(dev):
                                          zero_scale), acc),
           "dequant_acc of an all-zero int8 leaf changed the accumulator")
 
+    # the tables the main paths launch: a round's 5 folds, each over its
+    # 15 leaves in one launch (equal bit for bit); a round's reduce over
+    # the unstacked client wires in one launch (at tolerance, the same bits
+    # twice and as the one-leaf table over each leaf's stack); a fold of
+    # 72 leaves (two launches); 21 and 37 clients (two and three launches
+    # of 16-client chunks: the same bits as one fmaf chain in client
+    # order, emulated on the host); wires, accumulators and outputs one
+    # element off 4-element alignment; an all-zero int8 leaf
+    n_table = {"dequant_acc": 0, "dequant_reduce": 0}
+
+    def launched(name, wrapper, before, want, what):
+        got = wrapper.launches - before
+        check(got == want, f"{name} {what}: {got} launches, expected {want}")
+        n_table[name] += 1
+
+    def fmaf_chain(coefs, rows):
+        acc = np.zeros(rows.shape[1], np.float32)
+        for k, x in zip(coefs, rows):
+            acc = (np.longdouble(k) * x.astype(np.longdouble)
+                   + acc.astype(np.longdouble)).astype(np.float32)
+        return acc
+
+    def off_by_one(t):
+        """A copy of ``t`` that starts one element into its buffer."""
+        buf = torch.empty((t.numel() + 1,), dtype=t.dtype, device=t.device)
+        buf[1:].copy_(t.reshape(-1))
+        return buf[1:]
+
+    for d in ("int8", "fp16", "fp32"):
+        rnd = rounds[d]
+        n_l = len(rnd[0])
+        scales_by_leaf = ([[client[k][1] for client in rnd]
+                           for k in range(n_l)] if d == "int8" else None)
+        wires_by_leaf = [[client[k][0] for client in rnd]
+                         for k in range(n_l)]
+        for view in (False, True):
+            accs = [torch.randn((ws[0].numel(),), generator=gen, device=dev)
+                    for ws in wires_by_leaf]
+            if view:
+                accs = [off_by_one(a) for a in accs]
+            for ci, client in enumerate(rnd):
+                wires = [off_by_one(x) if view else x for x, _ in client]
+                scales = None if d != "int8" else [sc for _, sc in client]
+                want = dequant_acc_leaves(accs, wires, scales, w_host[ci])
+                before = dequant_acc_leaves_kernel.launches
+                got = dequant_acc_leaves_kernel(accs, wires, w_host[ci],
+                                                scales)
+                launched("dequant_acc", dequant_acc_leaves_kernel, before,
+                         1, f"{d} fold")
+                for g, a, wl in zip(got, accs, want):
+                    check(g is a, "dequant_acc table did not update in place")
+                    held("dequant_acc", g, wl, True)
+            wbl = ([[off_by_one(x) for x in ws] for ws in wires_by_leaf]
+                   if view else wires_by_leaf)
+            outs = [torch.empty((ws[0].numel(),), device=dev) for ws in wbl]
+            if view:
+                outs = [off_by_one(o) for o in outs]
+            before = dequant_reduce_leaves_kernel.launches
+            got = dequant_reduce_leaves_kernel(outs, wbl, w, scales_by_leaf)
+            again = dequant_reduce_leaves_kernel(
+                [torch.empty_like(o) for o in outs], wbl, w, scales_by_leaf)
+            launched("dequant_reduce", dequant_reduce_leaves_kernel, before,
+                     2, f"{d}, twice")
+            for k, (g, a, p) in enumerate(zip(got, again,
+                                              dequant_reduce_leaves(
+                                                  wbl, scales_by_leaf, w))):
+                held("dequant_reduce", g, p, False)
+                check(torch.equal(g, a),
+                      f"dequant_reduce table {d} is not deterministic")
+                sc = (torch.ones_like(w) if scales_by_leaf is None
+                      else torch.stack(scales_by_leaf[k]))
+                check(torch.equal(g, dequant_reduce_kernel(
+                    torch.stack(wbl[k]), torch.stack([w, sc], dim=1))),
+                    f"dequant_reduce table {d}, leaf {k}: not the one-leaf "
+                    f"table over the stacked rows bit for bit")
+        # more clients than a launch takes, on the ragged leaves and two
+        # small D leaves
+        for n_clients in (REDUCE_CLIENTS + 5, 2 * REDUCE_CLIENTS + 5):
+            many = encode_round(dev, d, [1, 4097, 5000, 1600, 64], 50,
+                                n_clients)
+            wc = torch.rand((n_clients,), generator=gen, device=dev) + 0.5
+            wc = wc / wc.sum()
+            wbl = [[client[k][0] for client in many] for k in range(5)]
+            sbl = ([[client[k][1] for client in many] for k in range(5)]
+                   if d == "int8" else None)
+            before = dequant_reduce_leaves_kernel.launches
+            got = dequant_reduce_leaves_kernel(
+                [torch.empty((ws[0].numel(),), device=dev) for ws in wbl],
+                wbl, wc, sbl)
+            launched("dequant_reduce", dequant_reduce_leaves_kernel, before,
+                     -(-n_clients // REDUCE_CLIENTS),
+                     f"{d} over {n_clients} clients")
+            for k, g in enumerate(got):
+                sc = (torch.ones_like(wc) if sbl is None
+                      else torch.stack(sbl[k]))
+                chain = fmaf_chain((wc * sc).cpu().numpy(),
+                                   torch.stack(wbl[k]).float().cpu().numpy())
+                torch.cuda.synchronize()
+                check(np.array_equal(g.cpu().numpy(), chain),
+                      f"dequant_reduce {d} over {n_clients} clients, leaf "
+                      f"{k}: not one fmaf chain in client order")
+                held("dequant_reduce", g, dequant_reduce_leaves(
+                    [wbl[k]], None if sbl is None else [sbl[k]],
+                    wc)[0], False)
+    rnd = rounds["int8"]
+    accs = [torch.randn((x.numel(),), generator=gen, device=dev)
+            for x, _ in (rnd[0] * 5)[:72]]
+    wires = [x for x, _ in (rnd[1] * 5)[:72]]
+    scales = [sc for _, sc in (rnd[1] * 5)[:72]]
+    want = dequant_acc_leaves(accs, wires, scales, 0.3)
+    before = dequant_acc_leaves_kernel.launches
+    got = dequant_acc_leaves_kernel(accs, wires, 0.3, scales)
+    launched("dequant_acc", dequant_acc_leaves_kernel, before,
+             -(-72 // MAX_LEAVES), "over 72 leaves")
+    for g, wl in zip(got, want):
+        held("dequant_acc", g, wl, True)
+    acc = torch.randn((sizes[big],), generator=gen, device=dev)
+    check(torch.equal(dequant_acc_leaves_kernel(
+        [acc.clone(), torch.zeros((1,), device=dev)],
+        [zero_wire, zero_wire[:1]], 0.3, [zero_scale, zero_scale])[0], acc),
+        "dequant_acc table of an all-zero int8 leaf changed the accumulator")
+    check(torch.equal(dequant_reduce_leaves_kernel(
+        [torch.empty((sizes[big],), device=dev)], [[zero_wire] * CLIENTS], w,
+        [[zero_scale] * CLIENTS])[0], torch.zeros((sizes[big],), device=dev)),
+        "dequant_reduce table of an all-zero int8 leaf is not 0")
+
     # top-k: K = 8192 distinct indices into conv2.w, every leaf, ragged
     # leaves (all distinct: equal to index_add bit for bit); then colliding
     # and out-of-range indices (atomic order varies: at tolerance)
@@ -608,10 +747,17 @@ def phase_agg_fuse(dev):
             held("scatter_acc", g, wl, True)
     print(f"agg_fuse vs plain: dequant_reduce {n_cases['dequant_reduce']} "
           f"cases (every D leaf, the whole D, N = 1, 4097, 5000; int8, fp16, "
-          f"fp32), max abs err {err['dequant_reduce']:.3e} (tolerance "
+          f"fp32; {n_table['dequant_reduce']} table calls: a round's 15 "
+          f"leaves of unstacked client wires in one launch, aligned and one "
+          f"element off, equal to the one-leaf table over each stack bit for "
+          f"bit; {REDUCE_CLIENTS + 5} and {2 * REDUCE_CLIENTS + 5} clients "
+          f"in 16-client chunks, equal to one fmaf chain bit for bit), max "
+          f"abs err {err['dequant_reduce']:.3e} (tolerance "
           f"{KERNEL_TOL}), two launches equal bit for bit; dequant_acc "
-          f"{n_cases['dequant_acc']} folds (largest leaf, a round's 60, "
-          f"ragged; int8, fp16, fp32), equal bit for bit, max abs err "
+          f"{n_cases['dequant_acc']} leaf folds (largest leaf, a round's 60, "
+          f"ragged; int8, fp16, fp32; {n_table['dequant_acc']} table calls: "
+          f"a fold's 15 leaves a launch, aligned and one element off, 72 "
+          f"leaves in two), equal bit for bit, max abs err "
           f"{err['dequant_acc']:.3e}; scatter_acc {n_cases['scatter_acc']} "
           f"leaf folds (K = 1% of each leaf, distinct: equal to index_add bit "
           f"for bit, one leaf a launch and a fold's 15 leaves a launch, 72 "
@@ -621,40 +767,79 @@ def phase_agg_fuse(dev):
           f"adds 0")
 
     rows = {}
-    # row 4: a round's batched reduce, one launch a leaf
+    # row 4: a round's batched reduce: one launch over the unstacked client
+    # wires (the main path), beside one launch a leaf over stacks made
+    # beforehand; then, eager (the weights go to the card from the host,
+    # which a CUDA graph cannot capture), the whole batched_reduce of a
+    # round beside the parent's form of it: for each leaf a stack of the
+    # wires and of the scales, the weights normalised and one launch
     for d in ("int8", "fp16", "fp32"):
         rnd = rounds[d]
-        cases = [agg_case_rows(rnd, k) for k in range(len(sizes))]
+        n_l = len(sizes)
+        cases = [agg_case_rows(rnd, k) for k in range(n_l)]
         coefs = [torch.stack([w, sc], dim=1) for _, sc in cases]
         coef = [cf[:, 0] * cf[:, 1] for cf in coefs]
         xs = [x for x, _ in cases]
+        wbl = [[client[k][0] for client in rnd] for k in range(n_l)]
+        sbl = ([[client[k][1] for client in rnd] for k in range(n_l)]
+               if d == "int8" else None)
+        outs = [torch.empty((n,), device=dev) for n in sizes]
         t = time_variants({
-            "kernel": lambda: [dequant_reduce_kernel(x, cf)
-                               for x, cf in zip(xs, coefs)],
+            "kernel": lambda: dequant_reduce_leaves_kernel(outs, wbl, w, sbl),
+            "per_leaf": lambda: [dequant_reduce_kernel(x, cf)
+                                 for x, cf in zip(xs, coefs)],
             "plain": lambda: [dequant_reduce_ref(x, cf)
                               for x, cf in zip(xs, coefs)],
             "library": lambda: [k @ x.to(torch.float32)
                                 for k, x in zip(coef, xs)]})
+        encs = [client[:n_l] for client in rnd]
+        template = {f"{k:02d}": torch.zeros((n,), device=dev)
+                    for k, n in enumerate(sizes)}
+        codec = "none" if d == "fp32" else d
+
+        def stacked_round():
+            wt = torch.tensor(w_host, dtype=torch.float32, device=dev)
+            ones = torch.ones((CLIENTS,), dtype=torch.float32, device=dev)
+            return [dequant_reduce_flat(
+                torch.stack([e[k][0].reshape(-1) for e in encs]),
+                torch.stack([e[k][1].reshape(()) for e in encs])
+                if d == "int8" else ones, wt, use_kernel=True)
+                for k in range(n_l)]
+
+        t_round = time_variants({
+            "round": lambda: batched_reduce(codec, encs, w_host, template,
+                                            use_kernel=True),
+            "stacked": stacked_round}, modes=("eager",))["eager"]
         nbytes = sum(x.numel() * x.element_size() + 4 * x.shape[1]
                      + cf.numel() * 4 for x, cf in zip(xs, coefs))
         bound, by = bound_ms(nbytes, sum(2 * x.numel() for x in xs))
         rows[("dequant_reduce", d)] = (t["device"], bound, by)
-        print(f"dequant_reduce {d}, a round (12 leaves, C = {CLIENTS}): "
+        print(f"dequant_reduce {d}, a round ({n_l} leaves, C = {CLIENTS}): "
               f"bound {bound:.5f} ms ({by}: {nbytes} B at 3.35 TB/s)")
         for mode, tm in t.items():
-            print(f"  {mode:6s} kernel {tm['kernel']:.5f} ms, plain "
-                  f"{tm['plain']:.5f} ms, cast + coef @ wires "
-                  f"{tm['library']:.5f} ms")
-    # row 5: a round's 60 streamed folds, in place
+            print(f"  {mode:6s} kernel {tm['kernel']:.5f} ms (1 launch; one "
+                  f"a leaf over stacks: {tm['per_leaf']:.5f} ms, {n_l} "
+                  f"launches), plain {tm['plain']:.5f} ms, cast + coef @ "
+                  f"wires {tm['library']:.5f} ms")
+        print(f"  eager  batched_reduce of the round {t_round['round']:.5f} "
+              f"ms; stacked per leaf, as before {t_round['stacked']:.5f} ms")
+    # row 5: a round's streamed folds, in place: one launch a client's fold
+    # over its 12 leaves (the main path), beside one launch a leaf
     for d in ("int8", "fp16"):
         rnd = rounds[d]
         accs = [torch.zeros((n,), device=dev) for n in sizes]
         folds = [(accs[k], client[k][0], w_host[ci], client[k][1],
                   w[ci] * (1.0 if client[k][1] is None else client[k][1]))
                  for ci, client in enumerate(rnd) for k in range(len(sizes))]
+        tables = [([x for x, _ in client[:len(sizes)]], w_host[ci],
+                   [sc for _, sc in client[:len(sizes)]]
+                   if d == "int8" else None)
+                  for ci, client in enumerate(rnd)]
         t = time_variants({
-            "kernel": lambda: [dequant_acc_kernel(a, x, wc, sc)
-                               for a, x, wc, sc, _ in folds],
+            "kernel": lambda: [dequant_acc_leaves_kernel(accs, xs, wc, scs)
+                               for xs, wc, scs in tables],
+            "per_leaf": lambda: [dequant_acc_kernel(a, x, wc, sc)
+                                 for a, x, wc, sc, _ in folds],
             "plain": lambda: [dequant_acc_ref(a, x, wc,
                                               1.0 if sc is None else sc)
                               for a, x, wc, sc, _ in folds],
@@ -665,10 +850,13 @@ def phase_agg_fuse(dev):
         bound, by = bound_ms(nbytes, sum(2 * x.numel()
                                          for _, x, _, _, _ in folds))
         rows[("dequant_acc", d)] = (t["device"], bound, by)
-        print(f"dequant_acc {d}, a round's {len(folds)} folds: bound "
-              f"{bound:.5f} ms ({by}: {nbytes} B at 3.35 TB/s)")
+        print(f"dequant_acc {d}, a round's {len(tables)} folds of "
+              f"{len(sizes)} leaves: bound {bound:.5f} ms ({by}: {nbytes} B "
+              f"at 3.35 TB/s)")
         for mode, tm in t.items():
-            print(f"  {mode:6s} kernel {tm['kernel']:.5f} ms, plain "
+            print(f"  {mode:6s} kernel {tm['kernel']:.5f} ms "
+                  f"({len(tables)} launches; one a leaf: "
+                  f"{tm['per_leaf']:.5f} ms, {len(folds)} launches), plain "
                   f"{tm['plain']:.5f} ms, cast + addcmul_ "
                   f"{tm['library']:.5f} ms")
     # row 6: a round's top-k folds, in place: one launch a client's fold
@@ -720,7 +908,8 @@ AGG_KERNELS = {"dequant_reduce", "dequant_acc", "scatter_acc"}
 
 def kernel_wrappers():
     from repro_torch.kernels.agg_fuse.kernel import (
-        dequant_acc_kernel, dequant_reduce_kernel, scatter_acc_leaves_kernel)
+        dequant_acc_leaves_kernel, dequant_reduce_leaves_kernel,
+        scatter_acc_leaves_kernel)
     from repro_torch.kernels.boundary_fuse.kernel import boundary_fuse_kernel
     from repro_torch.kernels.dp_clip.kernel import dp_clip_noise_kernel
     from repro_torch.kernels.fedavg.kernel import fedavg_kernel
@@ -729,8 +918,8 @@ def kernel_wrappers():
     from repro_torch.kernels.wkv6.kernel import wkv6_kernel
     return {"fedavg": fedavg_kernel, "dp_clip": dp_clip_noise_kernel,
             "boundary_fuse": boundary_fuse_kernel,
-            "dequant_reduce": dequant_reduce_kernel,
-            "dequant_acc": dequant_acc_kernel,
+            "dequant_reduce": dequant_reduce_leaves_kernel,
+            "dequant_acc": dequant_acc_leaves_kernel,
             "scatter_acc": scatter_acc_leaves_kernel,
             "flash_attention": flash_attention_kernel,
             "wkv6": wkv6_kernel}
@@ -809,7 +998,7 @@ def phase_main_paths(dev):
         get_config("dcgan-mnist").model.dcgan, "meta"))]
     n_leaves = len(sizes)
     reduce_round = n_leaves * ROUNDS                  # one launch a leaf
-    folds = CLIENTS * n_leaves * ROUNDS               # one a client x leaf
+    folds = CLIENTS * ROUNDS            # agg_fuse: one launch a client's fold
     launches = {}
 
     tr, _, counts = drive_path(dev, "main path", {}, parts,
@@ -851,16 +1040,17 @@ def phase_main_paths(dev):
     launches["boundary_fuse"] = want
 
     # the compressed-domain server reduce: the fedavg kernel does not run
-    # on the flat paths; every client's wire folds leaf by leaf
+    # on the flat paths; every client's wire folds in one launch over its
+    # leaves, or the round's wires reduce in one launch
     int8 = {"fed.codec": "int8"}
     for label, over, expect in (
             ("stream int8 path", {**int8, "fed.server_reduce": "stream"},
              {"dequant_acc": folds}),
             ("batched int8 path", {**int8, "fed.server_reduce": "batched"},
-             {"dequant_reduce": reduce_round}),
+             {"dequant_reduce": ROUNDS}),               # one a round
             ("stream top-k path", {"fed.codec": "topk",
                                    "fed.server_reduce": "stream"},
-             {"scatter_acc": CLIENTS * ROUNDS})):       # one a fold
+             {"scatter_acc": folds})):
         tr, hist, _ = drive_path(dev, label, over, parts, expect)
         check(tr.engine.last_report.peak_live_trees == 1,
               f"{label}: peak_live_trees "

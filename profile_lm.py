@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Where the time goes on the port's LM paths and inside its dp_clip,
-wkv6, boundary_fuse and scatter_acc kernels, on one NVIDIA GPU.
+wkv6, boundary_fuse and agg_fuse kernels, on one NVIDIA GPU.
 
     python3 profile_lm.py [--arch qwen3-14b rwkv6-1.6b] [--kernels]
 
@@ -27,13 +27,16 @@ then one warm DP-SGD round of dcgan-mnist at full width (5 clients, batch
 per-example gradient tree into the stack and of each dp_clip call on it
 (CUDA events around each).  ``--kernels`` also traces boundary_fuse on
 the split path's int8 crossings, (256, 6272) and (256, 4096), with the
-tensor-wide and the per-row amax, and scatter_acc over a round's top-k
-folds (5 clients x the 12 D leaves, K = 1% of each), each with its eager
-time (CUDA events around back-to-back calls, host dispatch included).
-The script measures the checkout it sits in: a copy of it in another
-checkout measures that one (where that checkout's boundary_fuse has no
-amax mode it is timed with the tensor-wide amax alone, and where its
-agg_fuse has no leaf table the folds are timed one launch a leaf).
+tensor-wide and the per-row amax, scatter_acc over a round's top-k folds
+(5 clients x the 12 D leaves, K = 1% of each), dequant_acc over a
+round's int8 folds, and a round's int8 ``batched_reduce`` (the
+dequant_reduce launches and whatever the checkout does around them), each
+with its eager time (CUDA events around back-to-back calls, host
+dispatch included).  The script measures the checkout it sits in: a copy
+of it in another checkout measures that one (where that checkout's
+boundary_fuse has no amax mode it is timed with the tensor-wide amax
+alone, and where its agg_fuse has no leaf table the folds are timed one
+launch a leaf).
 ``--arch`` with no name skips the architectures.
 """
 import argparse
@@ -154,28 +157,39 @@ def boundary_fuse_cases(dev):
     return cases
 
 
+def d_leaf_sizes():
+    """The dcgan-mnist discriminator's 12 leaf sizes at full width."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.dcgan import disc_init
+    from repro_torch.tree import leaves
+
+    return [l.numel() for l in leaves(disc_init(
+        torch.Generator().manual_seed(0),
+        get_config("dcgan-mnist").model.dcgan, "meta"))]
+
+
+def encoded_round(dev, codec_name):
+    """A round's uplinks through the codec: 5 clients x the 12 D leaves,
+    each a delta about the size of two Adam steps."""
+    from repro_torch.fed.transport import make_codec
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    codec = make_codec(codec_name)
+    return [[codec.encode(torch.randn((n,), generator=gen, device=dev)
+                          * 4e-4) for n in d_leaf_sizes()]
+            for _ in range(DP_CLIENTS)]
+
+
 def scatter_acc_case(dev):
     """(label, call) of scatter_acc over a round's top-k folds: 5 clients
     x the 12 D leaves, one launch a fold where the checkout has the leaf
     table, else one a leaf."""
-    from repro_torch.configs.registry import get_config
-    from repro_torch.fed.transport import make_codec
     from repro_torch.kernels.agg_fuse import kernel
-    from repro_torch.models.dcgan import disc_init
-    from repro_torch.tree import leaves
 
-    sizes = [l.numel() for l in leaves(disc_init(
-        torch.Generator().manual_seed(0),
-        get_config("dcgan-mnist").model.dcgan, "meta"))]
-    gen = torch.Generator(device=dev).manual_seed(4)
-    codec = make_codec("topk")
+    sizes = d_leaf_sizes()
     accs = [torch.zeros((n,), device=dev) for n in sizes]
-    folds = []
-    for c in range(DP_CLIENTS):
-        wires = [codec.encode(torch.randn((n,), generator=gen, device=dev)
-                              * 4e-4)[0] for n in sizes]
-        folds.append(([v for v, _ in wires], [i for _, i in wires],
-                      0.5 + 0.1 * c))
+    folds = [([v for (v, _), _ in enc], [i for (_, i), _ in enc], 0.5 + 0.1 * c)
+             for c, enc in enumerate(encoded_round(dev, "topk"))]
     if hasattr(kernel, "scatter_acc_leaves_kernel"):
         def call():
             for vals, idx, w in folds:
@@ -190,6 +204,49 @@ def scatter_acc_case(dev):
     kept = sum(v.numel() for vals, _, _ in folds for v in vals)
     return (f"scatter_acc, a round's {len(folds)} top-k folds of "
             f"{len(sizes)} leaves ({kept} kept entries), {how}", call)
+
+
+def dequant_acc_case(dev):
+    """(label, call) of dequant_acc over a round's int8 folds: 5 clients x
+    the 12 D leaves, one launch a fold where the checkout has the leaf
+    table, else one a leaf."""
+    from repro_torch.kernels.agg_fuse import kernel
+
+    sizes = d_leaf_sizes()
+    accs = [torch.zeros((n,), device=dev) for n in sizes]
+    folds = [([x for x, _ in enc], [s for _, s in enc], 0.5 + 0.1 * c)
+             for c, enc in enumerate(encoded_round(dev, "int8"))]
+    if hasattr(kernel, "dequant_acc_leaves_kernel"):
+        def call():
+            for wires, scales, w in folds:
+                kernel.dequant_acc_leaves_kernel(accs, wires, w, scales)
+        how = "one launch a fold"
+    else:
+        def call():
+            for wires, scales, w in folds:
+                for a, x, sc in zip(accs, wires, scales):
+                    kernel.dequant_acc_kernel(a, x, w, sc)
+        how = "one launch a leaf"
+    return (f"dequant_acc, a round's {len(folds)} int8 folds of "
+            f"{len(sizes)} leaves, {how}", call)
+
+
+def batched_reduce_case(dev):
+    """(label, call) of a round's batched int8 reduce through
+    ``fed.aggregate.batched_reduce`` as the checkout has it: 5 clients'
+    uplinks of the 12 D leaves (one launch over the wires in place, or a
+    stack and a launch a leaf)."""
+    from repro_torch.fed.aggregate import batched_reduce
+
+    sizes = d_leaf_sizes()
+    encs = encoded_round(dev, "int8")
+    template = {f"{k:02d}": torch.zeros((n,), device=dev)
+                for k, n in enumerate(sizes)}
+    weights = [0.5 + 0.1 * c for c in range(len(encs))]
+    return (f"batched_reduce, a round's int8 reduce of {len(encs)} clients "
+            f"x {len(sizes)} leaves",
+            lambda: batched_reduce("int8", encs, weights, template,
+                                   use_kernel=True))
 
 
 def profile_dp_clip(dev):
@@ -374,7 +431,7 @@ def main() -> int:
                     choices=list(FORWARD))
     ap.add_argument("--kernels", action="store_true",
                     help="trace the dp_clip, wkv6, boundary_fuse and "
-                         "scatter_acc kernels first")
+                         "agg_fuse kernels first")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_lm: CUDA is not available; this script measures the "
@@ -391,7 +448,9 @@ def main() -> int:
         from repro_torch.kernels import build
         print(f"build: {build.build(['dp_clip', 'wkv6', 'boundary_fuse',
                                      'agg_fuse'])}")
-        cases = boundary_fuse_cases(dev) + [scatter_acc_case(dev)]
+        cases = boundary_fuse_cases(dev) + [
+            scatter_acc_case(dev), dequant_acc_case(dev),
+            batched_reduce_case(dev)]
         # host dispatch included, before any profiler runs in the process
         eager = {label: eager_ms(call) for label, call in cases}
         profile_dp_clip(dev)

@@ -17,9 +17,10 @@ the ``kernels/agg_fuse`` ops:
   * :func:`decode_enc` / :func:`fused_decode_apply` — decode (and rebase)
     one encoded uplink, used by the async path at ARRIVE time so FINISH
     events queue wire payloads instead of decoded trees;
-  * :func:`batched_reduce` — a whole round's wires reduced per leaf in one
-    ``dequant_reduce`` call (dense codecs) or one decode of the stacked
-    client axis (top-k, plain torch as the reference's is plain JAX).
+  * :func:`batched_reduce` — a whole round's wires reduced in one
+    ``dequant_reduce_leaves`` call, each client's wire read where it lies
+    (dense codecs), or per leaf by one decode of the stacked client axis
+    (top-k, plain torch as the reference's is plain JAX).
 
 A weighted mean of rebased updates equals the base plus the weighted mean
 of the deltas exactly in real arithmetic but only to rounding in float, so
@@ -33,8 +34,8 @@ from typing import Any, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.fed.transport import apply_delta
-from repro_torch.kernels.agg_fuse.ops import (dequant_acc_flat,
-                                              dequant_reduce_flat,
+from repro_torch.kernels.agg_fuse.ops import (dequant_acc_leaves,
+                                              dequant_reduce_leaves,
                                               scatter_acc_leaves)
 from repro_torch.tree import leaves, unflatten_like
 
@@ -116,8 +117,9 @@ class StreamingAggregator:
 
     ``init(template)`` allocates one zero fp32 accumulator per leaf;
     ``fold(enc, weight)`` adds ``weight * dequant(enc)`` through the
-    agg_fuse ops (top-k wires scatter straight into the dense accumulators,
-    every leaf in one ``scatter_acc_leaves`` call);
+    agg_fuse ops, every leaf in one call (``dequant_acc_leaves``; top-k
+    wires scatter straight into the dense accumulators through
+    ``scatter_acc_leaves``);
     ``finalize()`` divides by the folded weight sum and restores leaf
     shapes and dtypes.  The accumulator is the only decoded tree alive,
     however many uplinks fold.  ``use_kernel`` sends CUDA accumulators
@@ -157,11 +159,10 @@ class StreamingAggregator:
                 self._acc, [wire[0] for wire, _ in enc],
                 [wire[1] for wire, _ in enc], w, use_kernel=self.use_kernel)
         else:
-            for i, (wire, meta) in enumerate(enc):
-                scale = meta if name == "int8" else 1.0
-                self._acc[i] = dequant_acc_flat(
-                    self._acc[i], wire.reshape(-1), scale, w,
-                    use_kernel=self.use_kernel)
+            self._acc = dequant_acc_leaves(
+                self._acc, [wire for wire, _ in enc],
+                [meta for _, meta in enc] if name == "int8" else None, w,
+                use_kernel=self.use_kernel)
         num = den = 0.0
         if want_err:
             for (wire, meta), d in zip(enc, dleaves):
@@ -200,27 +201,28 @@ def _topk_batched_mean(vals: torch.Tensor, idx: torch.Tensor,
 def batched_reduce(codec_name: str, encs: Sequence[EncTree],
                    weights: Sequence[float], template, *,
                    use_kernel: bool = False):
-    """Weighted mean over a whole round's encoded uplinks, one call per
-    leaf: dense wires stack at WIRE dtype into ``dequant_reduce_flat``;
-    top-k wires decode the stacked client axis."""
+    """Weighted mean over a whole round's encoded uplinks: dense wires go,
+    at WIRE dtype and unstacked, into one ``dequant_reduce_leaves`` call
+    for every leaf; top-k wires decode the stacked client axis, leaf by
+    leaf."""
     if not encs:
         raise ValueError("batched_reduce over no uplinks")
     name = _norm(codec_name)
     tleaves = leaves(template)
     dev = tleaves[0].device
     w = torch.tensor(list(weights), dtype=torch.float32, device=dev)
-    ones = torch.ones((len(encs),), dtype=torch.float32, device=dev)
-    out = []
-    for i, t in enumerate(tleaves):
-        if name == "topk":
-            vals = torch.stack([e[i][0][0] for e in encs])
-            idx = torch.stack([e[i][0][1] for e in encs])
-            mean = _topk_batched_mean(vals, idx, w, t.numel())
-        else:
-            wires = torch.stack([e[i][0].reshape(-1) for e in encs])
-            scales = (torch.stack([e[i][1].reshape(()) for e in encs])
-                      if name == "int8" else ones)
-            mean = dequant_reduce_flat(wires, scales, w,
-                                       use_kernel=use_kernel)
-        out.append(mean.reshape(t.shape).to(t.dtype))
+    if name == "topk":
+        means = [_topk_batched_mean(torch.stack([e[i][0][0] for e in encs]),
+                                    torch.stack([e[i][0][1] for e in encs]),
+                                    w, t.numel())
+                 for i, t in enumerate(tleaves)]
+    else:
+        # the kernel reads each client's wire in place: ``encs`` holds them
+        # until the launch is queued, and the caching allocator orders any
+        # reuse of their memory after it on the stream
+        means = dequant_reduce_leaves(
+            [[e[i][0] for e in encs] for i in range(len(tleaves))],
+            [[e[i][1] for e in encs] for i in range(len(tleaves))]
+            if name == "int8" else None, w, use_kernel=use_kernel)
+    out = [m.reshape(t.shape).to(t.dtype) for m, t in zip(means, tleaves)]
     return unflatten_like(template, out)

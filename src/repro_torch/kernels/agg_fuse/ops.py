@@ -10,14 +10,14 @@ returns a new tensor, and the caller keeps whichever comes back.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
-from repro_torch.kernels.agg_fuse.kernel import (dequant_acc_kernel,
-                                                 dequant_reduce_kernel,
-                                                 scatter_acc_kernel,
-                                                 scatter_acc_leaves_kernel)
+from repro_torch.kernels.agg_fuse.kernel import (
+    dequant_acc_kernel, dequant_acc_leaves_kernel, dequant_reduce_kernel,
+    dequant_reduce_leaves_kernel, scatter_acc_kernel,
+    scatter_acc_leaves_kernel)
 from repro_torch.kernels.agg_fuse.ref import (dequant_acc_ref,
                                               dequant_reduce_ref,
                                               scatter_acc_ref)
@@ -44,6 +44,36 @@ def dequant_reduce_flat(wires: torch.Tensor, scales: torch.Tensor,
     return dequant_reduce_ref(wires, coefs)
 
 
+def dequant_reduce_leaves(wires_by_leaf: Sequence[Sequence[torch.Tensor]],
+                          scales_by_leaf: Optional[Sequence[Sequence[
+                              torch.Tensor]]],
+                          weights: torch.Tensor, *,
+                          use_kernel: bool = False) -> List[torch.Tensor]:
+    """A whole round's batch reduce: ``wires_by_leaf[l][c]`` is client
+    ``c``'s wire of leaf ``l`` (any shape), ``scales_by_leaf[l][c]`` its
+    0-dim scale (None: every scale 1.0), ``weights`` the (C,) fedavg
+    weights, normalised once here -> one flat fp32 weighted MEAN a leaf.
+    On the kernel path one launch covers the round and each wire is read
+    where it lies; the plain version is ``dequant_reduce_ref`` on each
+    leaf's stack."""
+    if not wires_by_leaf:
+        return []
+    w = (weights / torch.sum(weights)).to(torch.float32)
+    if _use_kernel(wires_by_leaf[0][0], use_kernel, "dequant_reduce_leaves"):
+        outs = [torch.empty((ws[0].numel(),), dtype=torch.float32,
+                            device=w.device) for ws in wires_by_leaf]
+        return dequant_reduce_leaves_kernel(outs, wires_by_leaf, w,
+                                            scales_by_leaf)
+    ones = torch.ones_like(w)
+    out = []
+    for leaf, ws in enumerate(wires_by_leaf):
+        scales = ones if scales_by_leaf is None else torch.stack(
+            [s.reshape(()) for s in scales_by_leaf[leaf]]).to(torch.float32)
+        out.append(dequant_reduce_ref(torch.stack([x.reshape(-1) for x in ws]),
+                                      torch.stack([w, scales], dim=1)))
+    return out
+
+
 def dequant_acc_flat(acc: torch.Tensor, wire: torch.Tensor, scale, weight,
                      *, use_kernel: bool = False) -> torch.Tensor:
     """Streaming fold: (N,) fp32 accumulator + one (N,) wire at its wire
@@ -57,6 +87,29 @@ def dequant_acc_flat(acc: torch.Tensor, wire: torch.Tensor, scale, weight,
             scale = None
         return dequant_acc_kernel(acc, wire, weight, scale)
     return dequant_acc_ref(acc, wire, weight, scale)
+
+
+def dequant_acc_leaves(accs: Sequence[torch.Tensor],
+                       wires: Sequence[torch.Tensor],
+                       scales: Optional[Sequence[torch.Tensor]], weight, *,
+                       use_kernel: bool = False) -> List[torch.Tensor]:
+    """A whole dense streaming fold: leaf ``l``'s wire (any shape, N_l
+    elements) times ``weight * scales[l]`` (an int8 wire's 0-dim scale;
+    ``scales`` None: every scale 1.0) added into the flat fp32
+    ``accs[l]``.  On the kernel path one launch covers every leaf; the
+    plain version is ``dequant_acc_ref`` leaf by leaf.  Returns the new
+    accumulators."""
+    if len(accs) != len(wires) or (scales is not None
+                                   and len(scales) != len(accs)):
+        raise ValueError(f"{len(accs)} accumulators, {len(wires)} wires")
+    if not accs:
+        return []
+    if _use_kernel(accs[0], use_kernel, "dequant_acc_leaves"):
+        return dequant_acc_leaves_kernel(accs, wires, weight, scales)
+    if scales is None:
+        scales = [1.0] * len(accs)
+    return [dequant_acc_ref(a, x.reshape(-1), weight, s)
+            for a, x, s in zip(accs, wires, scales)]
 
 
 def scatter_acc_flat(acc: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,

@@ -41,15 +41,18 @@ from repro_torch.fed.programs import (ClientHyper, RoundExecutor,
                                       fedavg_stacked, stack_trees)
 from repro_torch.fed.transport import make_codec, tree_rel_error
 from repro_torch.fed import aggregate as agg_module
-from repro_torch.kernels.agg_fuse.kernel import (MAX_LEAVES,
-                                                 dequant_acc_kernel,
-                                                 dequant_reduce_kernel,
-                                                 scatter_acc_kernel,
-                                                 scatter_acc_leaves_kernel)
+from repro_torch.config import DCGANConfig
+from repro_torch.kernels.agg_fuse.kernel import (
+    MAX_LEAVES, REDUCE_CLIENTS, dequant_acc_kernel, dequant_acc_leaves_kernel,
+    dequant_reduce_kernel, dequant_reduce_leaves_kernel, scatter_acc_kernel,
+    scatter_acc_leaves_kernel)
 from repro_torch.kernels.agg_fuse.ops import (dequant_acc_flat,
+                                              dequant_acc_leaves,
                                               dequant_reduce_flat,
+                                              dequant_reduce_leaves,
                                               scatter_acc_flat,
                                               scatter_acc_leaves)
+from repro_torch.models.dcgan import disc_init
 from repro_torch.kernels.agg_fuse.ref import (dequant_acc_ref,
                                               dequant_reduce_ref,
                                               scatter_acc_ref)
@@ -224,6 +227,143 @@ def test_topk_fold_makes_one_leaves_call_per_fold(monkeypatch):
     for d in deltas:
         agg.fold(_encode("topk", d), 1.0)
     assert calls == [2, 2, 2]          # the tree's two leaves, once a fold
+
+
+def _small_d_sizes():
+    """The discriminator's 12 leaf sizes at base_filters 8."""
+    return tuple(l.numel() for l in leaves(disc_init(
+        torch.Generator().manual_seed(0), DCGANConfig(base_filters=8),
+        "meta")))
+
+
+LEAF_SIZES = {"ragged": (1, 7, 4097, 33, 5000), "small_d": _small_d_sizes()}
+
+
+def _client_wires(rng, sizes, c, wire):
+    """Per leaf: C clients' wires (numpy) and their scales."""
+    return [_wires(rng, c, n, wire) for n in sizes]
+
+
+@pytest.mark.parametrize("jmode", sorted(JAX_MODES))
+@pytest.mark.parametrize("wire", WIRES)
+@pytest.mark.parametrize("sizes", sorted(LEAF_SIZES))
+def test_dequant_acc_leaves_matches_jax_leaf_by_leaf(sizes, wire, jmode):
+    """A whole fold's table (one call) against JAX's dequant_acc_flat leaf
+    by leaf; the port's op takes its plain version on CPU tensors even
+    with use_kernel."""
+    rng = np.random.default_rng(len(sizes))
+    per_leaf = _client_wires(rng, LEAF_SIZES[sizes], 1, wire)
+    accs = [rng.standard_normal(x.shape[1]).astype(np.float32)
+            for x, _ in per_leaf]
+    scales = ([torch.tensor(float(s[0])) for _, s in per_leaf]
+              if wire == "int8" else None)
+    got = dequant_acc_leaves([torch.tensor(a) for a in accs],
+                             [torch.tensor(x[0]) for x, _ in per_leaf],
+                             scales, 1.7, use_kernel=True)
+    assert len(got) == len(accs)
+    for g, a, (x, s) in zip(got, accs, per_leaf):
+        want = jdequant_acc_flat(jnp.asarray(a), jnp.asarray(x[0]),
+                                 jnp.float32(s[0]), 1.7, **JAX_MODES[jmode])
+        assert g.shape == a.shape and g.dtype == torch.float32
+        _close(g, want)
+
+
+@pytest.mark.parametrize("jmode", sorted(JAX_MODES))
+@pytest.mark.parametrize("wire", WIRES)
+@pytest.mark.parametrize("sizes", sorted(LEAF_SIZES))
+def test_dequant_reduce_leaves_matches_jax_on_stacked_wires(sizes, wire,
+                                                            jmode):
+    """A whole round's reduce over unstacked client wires (one call)
+    against JAX's dequant_reduce_flat on each leaf's (C, N) stack."""
+    rng = np.random.default_rng(len(sizes) + 1)
+    per_leaf = _client_wires(rng, LEAF_SIZES[sizes], 5, wire)
+    weights = rng.uniform(0.5, 2.0, 5).astype(np.float32)
+    got = dequant_reduce_leaves(
+        [[torch.tensor(row) for row in x] for x, _ in per_leaf],
+        [[torch.tensor(v) for v in s] for _, s in per_leaf]
+        if wire == "int8" else None, torch.tensor(weights), use_kernel=True)
+    assert len(got) == len(per_leaf)
+    for g, (x, s) in zip(got, per_leaf):
+        want = jdequant_reduce_flat(jnp.asarray(x), jnp.asarray(s),
+                                    jnp.asarray(weights), **JAX_MODES[jmode])
+        assert g.shape == (x.shape[1],) and g.dtype == torch.float32
+        _close(g, want)
+
+
+def test_leaves_ops_return_new_tensors_and_stay_plain_on_the_cpu():
+    """On CPU tensors the table ops take the plain version even with
+    use_kernel (no launch counted) and return new tensors; the table
+    kernels themselves refuse CPU tensors."""
+    rng = np.random.default_rng(9)
+    per_leaf = _client_wires(rng, (9, 100, 4097), 3, "int8")
+    accs = [torch.zeros(x.shape[1]) for x, _ in per_leaf]
+    wires = [[torch.tensor(row) for row in x] for x, _ in per_leaf]
+    scales = [[torch.tensor(v) for v in s] for _, s in per_leaf]
+    w = torch.tensor([1.0, 2.0, 0.5])
+    acc_before = dequant_acc_leaves_kernel.launches
+    red_before = dequant_reduce_leaves_kernel.launches
+    got = dequant_acc_leaves(accs, [ws[0] for ws in wires],
+                             [sc[0] for sc in scales], 0.7, use_kernel=True)
+    for g, a, ws, sc in zip(got, accs, wires, scales):
+        assert g is not a and torch.equal(a, torch.zeros_like(a))
+        assert torch.equal(g, dequant_acc_flat(a, ws[0], sc[0], 0.7))
+    means = dequant_reduce_leaves(wires, scales, w, use_kernel=True)
+    for m, ws, sc in zip(means, wires, scales):
+        assert torch.equal(m, dequant_reduce_flat(torch.stack(ws),
+                                                  torch.stack(sc), w))
+    assert dequant_acc_leaves_kernel.launches == acc_before
+    assert dequant_reduce_leaves_kernel.launches == red_before
+    assert dequant_acc_leaves([], [], None, 1.0) == []
+    assert dequant_reduce_leaves([], None, w) == []
+    with pytest.raises(ValueError, match="accumulators"):
+        dequant_acc_leaves(accs, [wires[0][0]], None, 1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        dequant_acc_leaves_kernel(accs, [ws[0] for ws in wires], 0.7,
+                                  [sc[0] for sc in scales])
+    with pytest.raises(ValueError, match="CUDA"):
+        dequant_reduce_leaves_kernel([torch.empty(x.shape[1])
+                                      for x, _ in per_leaf], wires, w / 3.5,
+                                     scales)
+    with pytest.raises(ValueError, match="CUDA"):
+        dequant_acc_kernel(accs[0], wires[0][0], 0.7, scales[0][0])
+    with pytest.raises(ValueError, match="CUDA"):
+        dequant_reduce_kernel(torch.stack(wires[0]),
+                              torch.stack([w, torch.stack(scales[0])], 1))
+
+
+@pytest.mark.parametrize("codec_name", ["none", "fp16", "int8"])
+def test_dense_fold_makes_one_leaves_call_per_fold(codec_name, monkeypatch):
+    calls = []
+    real = agg_module.dequant_acc_leaves
+
+    def counting(accs, *args, **kwargs):
+        calls.append(len(accs))
+        return real(accs, *args, **kwargs)
+
+    monkeypatch.setattr(agg_module, "dequant_acc_leaves", counting)
+    deltas = [_delta(s) for s in range(3)]
+    agg = StreamingAggregator(codec_name)
+    agg.init(params_from_numpy(deltas[0], "cpu"))
+    for d in deltas:
+        agg.fold(_encode(codec_name, d), 1.0)
+    assert calls == [2, 2, 2]          # the tree's two leaves, once a fold
+
+
+@pytest.mark.parametrize("codec_name", ["none", "fp16", "int8"])
+def test_batched_reduce_makes_one_leaves_call_per_round(codec_name,
+                                                        monkeypatch):
+    calls = []
+    real = agg_module.dequant_reduce_leaves
+
+    def counting(wires_by_leaf, *args, **kwargs):
+        calls.append([len(ws) for ws in wires_by_leaf])
+        return real(wires_by_leaf, *args, **kwargs)
+
+    monkeypatch.setattr(agg_module, "dequant_reduce_leaves", counting)
+    deltas = [_delta(s) for s in range(4)]
+    batched_reduce(codec_name, [_encode(codec_name, d) for d in deltas],
+                   [1.0, 2.0, 0.5, 1.5], params_from_numpy(deltas[0], "cpu"))
+    assert calls == [[4, 4]]     # once a round: 2 leaves x 4 client wires
 
 
 def test_ops_return_new_tensors_on_the_cpu():
@@ -530,11 +670,11 @@ def test_dense_kernels_match_plain_versions_on_gpu(cuda, wire, n):
     coefs = torch.stack([torch.tensor(rng.uniform(0.1, 0.3, 5),
                                       dtype=torch.float32),
                          torch.tensor(scales)], dim=1).to(cuda)
-    before = dequant_reduce_kernel.launches
+    before = dequant_reduce_leaves_kernel.launches
     got = dequant_reduce_kernel(tw, coefs)
     again = dequant_reduce_kernel(tw, coefs)
     torch.cuda.synchronize()
-    assert dequant_reduce_kernel.launches == before + 2
+    assert dequant_reduce_leaves_kernel.launches == before + 2
     torch.testing.assert_close(got, dequant_reduce_ref(tw, coefs), **TOL)
     assert torch.equal(got, again)
     acc = torch.tensor(rng.standard_normal(n), dtype=torch.float32,
@@ -620,3 +760,151 @@ def test_scatter_table_sums_collisions_and_drops_out_of_range_on_gpu(cuda):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, **TOL)
+
+
+def _gpu_wires(rng, sizes, c, wire, dev, offset=0):
+    """Per leaf: C client wires on ``dev`` (each a view ``offset`` elements
+    into its own buffer) and their scales (None unless int8)."""
+    wires, scales = [], []
+    for n in sizes:
+        x, s = _wires(rng, c, n + offset, wire)
+        wires.append([torch.tensor(row, device=dev)[offset:] for row in x])
+        scales.append([torch.tensor(v, device=dev) for v in s]
+                      if wire == "int8" else None)
+    return wires, (scales if wire == "int8" else None)
+
+
+def _fmaf_chain(coefs, rows):
+    """The reduce kernel's order of sums, emulated on the host: one fused
+    multiply-add a client in client order, each exact in long double and
+    rounded once to fp32."""
+    acc = np.zeros(rows.shape[1], np.float32)
+    for k, x in zip(coefs, rows):
+        acc = (np.longdouble(k) * x.astype(np.longdouble)
+               + acc.astype(np.longdouble)).astype(np.float32)
+    return acc
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wire", WIRES)
+@pytest.mark.parametrize("n_leaves", [None, MAX_LEAVES + 6])
+def test_dequant_acc_table_matches_plain_bit_for_bit_on_gpu(cuda, wire,
+                                                            n_leaves):
+    """A fold over the 12 D leaves in one launch, and over a table one
+    chunk longer than a launch takes in two, equal to the plain version
+    bit for bit, in place."""
+    sizes = _d_leaf_sizes()
+    if n_leaves is not None:
+        sizes = (sizes * 8)[:n_leaves]
+    rng = np.random.default_rng(len(sizes))
+    wires, scales = _gpu_wires(rng, sizes, 1, wire, cuda)
+    wires = [ws[0] for ws in wires]
+    scales = None if scales is None else [sc[0] for sc in scales]
+    accs = [torch.tensor(rng.standard_normal(n), dtype=torch.float32,
+                         device=cuda) for n in sizes]
+    want = dequant_acc_leaves(accs, wires, scales, 0.3)
+    before = dequant_acc_leaves_kernel.launches
+    got = dequant_acc_leaves(accs, wires, scales, 0.3, use_kernel=True)
+    torch.cuda.synchronize()
+    assert dequant_acc_leaves_kernel.launches - before == -(-len(sizes)
+                                                            // MAX_LEAVES)
+    for g, a, w in zip(got, accs, want):
+        assert g is a and torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wire", WIRES)
+def test_dequant_reduce_table_matches_plain_and_the_stacked_table_on_gpu(
+        cuda, wire):
+    """A round's reduce over the 12 D leaves and ragged ones, client wires
+    read in place: one launch, at TOL of the plain version, the same bits
+    on a second launch and as the one-leaf table over each leaf's stacked
+    rows."""
+    sizes = _d_leaf_sizes() + [1, 4097, 5000]
+    rng = np.random.default_rng(7)
+    wires, scales = _gpu_wires(rng, sizes, 5, wire, cuda)
+    weights = torch.tensor(rng.uniform(0.5, 2.0, 5), dtype=torch.float32,
+                           device=cuda)
+    want = dequant_reduce_leaves(wires, scales, weights)
+    before = dequant_reduce_leaves_kernel.launches
+    got = dequant_reduce_leaves(wires, scales, weights, use_kernel=True)
+    again = dequant_reduce_leaves(wires, scales, weights, use_kernel=True)
+    torch.cuda.synchronize()
+    assert dequant_reduce_leaves_kernel.launches - before == 2
+    w = (weights / weights.sum()).to(torch.float32)
+    for leaf, (g, a, p) in enumerate(zip(got, again, want)):
+        torch.testing.assert_close(g, p, **TOL)
+        assert torch.equal(g, a)
+        sc = (torch.ones_like(w) if scales is None
+              else torch.stack(scales[leaf]))
+        stacked = dequant_reduce_kernel(torch.stack(wires[leaf]),
+                                        torch.stack([w, sc], dim=1))
+        assert torch.equal(g, stacked)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wire", WIRES)
+@pytest.mark.parametrize("n_clients", [5, REDUCE_CLIENTS + 4,
+                                       2 * REDUCE_CLIENTS + 5])
+def test_dequant_reduce_chunks_clients_bit_for_bit_on_gpu(cuda, wire,
+                                                          n_clients):
+    """More clients than one launch takes go in chunks that continue the
+    fmaf chain from out in client order: the result equals one chain over
+    all clients (emulated on the host) bit for bit, as one launch's does
+    at C = 5."""
+    sizes = (1, 4097, 5000, 64)
+    rng = np.random.default_rng(n_clients)
+    wires, scales = _gpu_wires(rng, sizes, n_clients, wire, cuda)
+    w = torch.tensor(rng.uniform(0.5, 2.0, n_clients),
+                     dtype=torch.float32, device=cuda)
+    w = (w / w.sum()).to(torch.float32)
+    outs = [torch.empty((n,), device=cuda) for n in sizes]
+    before = dequant_reduce_leaves_kernel.launches
+    got = dequant_reduce_leaves_kernel(outs, wires, w, scales)
+    torch.cuda.synchronize()
+    assert dequant_reduce_leaves_kernel.launches - before == -(
+        -n_clients // REDUCE_CLIENTS)
+    for leaf, g in enumerate(got):
+        sc = (torch.ones_like(w) if scales is None
+              else torch.stack(scales[leaf]))
+        coefs = (w * sc).cpu().numpy()
+        rows = torch.stack(wires[leaf]).float().cpu().numpy()
+        assert np.array_equal(g.cpu().numpy(), _fmaf_chain(coefs, rows))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wire", WIRES)
+def test_dense_tables_take_unaligned_views_one_element_and_zero_leaves_on_gpu(
+        cuda, wire):
+    """Wires, accumulators and outputs one element off a 4-element
+    boundary take the scalar path beside aligned leaves of the same table;
+    N = 1; an all-zero int8 leaf (scale 1.0) adds 0."""
+    sizes = (1, 4096, 4097, 1600)
+    rng = np.random.default_rng(3)
+    wires, scales = _gpu_wires(rng, sizes, 5, wire, cuda, offset=1)
+    weights = torch.tensor(rng.uniform(0.5, 2.0, 5), dtype=torch.float32,
+                           device=cuda)
+    w = (weights / weights.sum()).to(torch.float32)
+    outs = [torch.empty((n + 1,), device=cuda)[1:] for n in sizes]
+    got = dequant_reduce_leaves_kernel(outs, wires, w, scales)
+    for g, p in zip(got, dequant_reduce_leaves(wires, scales, weights)):
+        torch.testing.assert_close(g, p, **TOL)
+    accs = [torch.tensor(rng.standard_normal(n + 1), dtype=torch.float32,
+                         device=cuda)[1:] for n in sizes]
+    one = [ws[0] for ws in wires]
+    sc1 = None if scales is None else [s[0] for s in scales]
+    want = dequant_acc_leaves(accs, one, sc1, 0.45)
+    got = dequant_acc_leaves_kernel(accs, one, 0.45, sc1)
+    torch.cuda.synchronize()
+    for g, p in zip(got, want):
+        assert torch.equal(g, p)
+    zero = torch.zeros((4096,), dtype=torch.int8, device=cuda)
+    one_scale = torch.ones((), device=cuda)
+    acc = torch.randn((4096,), device=cuda)
+    out = dequant_acc_leaves_kernel([acc.clone()], [zero], 0.3,
+                                    [one_scale])[0]
+    red = dequant_reduce_leaves_kernel(
+        [torch.empty((4096,), device=cuda)], [[zero] * 5], w,
+        [[one_scale] * 5])[0]
+    torch.cuda.synchronize()
+    assert torch.equal(out, acc) and torch.equal(red, torch.zeros_like(red))
