@@ -15,19 +15,22 @@ non-zero exit, and no result line:
 3. kernel vs plain — each kernel on the card at the shapes the main paths
    give it, and at ragged sizes and edge cases, held against its plain
    PyTorch version; kernel, plain and library-call times from CUDA events,
-   beside the card's bound for the same work;
+   beside the card's bound for the same work (fedavg's also with the L2
+   flushed before every call);
 4. the main paths — ``FSLGANTrainer.train_epoch`` on ``dcgan-mnist`` at
    full width (5 clients, batch 256, base_filters 64, latent 100, Adam
    2e-4) with ``fed.kernel_aggregation``, 2 rounds x 2 batches per client,
-   seven times: plain; with DP-SGD through the dp_clip kernel
+   eight times: plain; with DP-SGD through the dp_clip kernel
    (``privacy.use_kernel``); with the executed split and the fused
    ``int8+dp`` boundary stage through the boundary_fuse kernel
-   (``split.use_kernel``); the int8 uplink with the stream server reduce
+   (``split.use_kernel``) — each of these three with the fedavg kernel,
+   one launch a round: 2; the int8 uplink with the stream server reduce
    (dequant_acc, one launch a client's fold: 10) and with the batched one
    (dequant_reduce, one launch a round: 2); the top-k uplink with the
    stream reduce (scatter_acc, one launch a fold: 10); the edge hierarchy
-   (2 cohorts) with int8 and the stream reduce (dequant_acc 10, fedavg
-   24).  Then the LM substrate at
+   (2 cohorts) with int8 and the stream reduce (dequant_acc 10, fedavg 2)
+   and with the decode reduce (fedavg 6: each cohort's pre-reduce and the
+   server's average, one launch each a round).  Then the LM substrate at
    full width: ``lm_loss`` forward (``torch.no_grad``,
    ``parallel.use_flash_kernel``) and ``serve_batch`` (4 requests, 16
    greedy tokens, bf16 cache) on qwen3-14b (40 layers, bf16, 29.5 GB;
@@ -78,8 +81,9 @@ SPLIT = {"split.enabled": True, "split.boundary_stage": "int8+dp",
          "split.use_kernel": True}
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 (non-tensor) FLOP/s
 HBM_BPS, FP32_FLOPS = 3.35e12, 67e12
-# kernel vs plain: both sum C <= 5 fp32 products, in another order (fmaf
-# in client order vs PyTorch's reduction), so they differ by a few ulp
+# kernel vs plain: both sum C fp32 products (5 on the main paths, up to 37
+# in the client-chunk cases), in another order (fmaf in client order vs
+# PyTorch's reduction), so they differ by a few ulp
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-6)
 # Biases that feed straight into a batch norm have a zero analytic
 # gradient; Adam turns their rounding-noise gradient into steps of about
@@ -171,70 +175,260 @@ def fedavg_bound_ms(shapes):
     return (*bound_ms(nbytes, flops), nbytes)
 
 
+L2_BYTES = 50 * 2 ** 20         # the H100's L2
+
+
+def cold_variants(fns, dev, iters=50, modes=("eager", "device")):
+    """ms of each variant in ``fns`` when its call finds the L2 cold: before
+    every call a buffer of 4x the L2 is written (evicting what the last
+    call left) and another of 4x the L2 read (so the lines left are clean
+    and the call pays no write-back of the flush), then the call alone is
+    timed with CUDA events: "device" one call captured in a CUDA graph and
+    replayed while the card is still busy with the flush, "eager" the
+    Python call after a synchronise (host dispatch included).  Each the
+    median of three turns in rotating order, a turn the mean of ``iters``
+    calls."""
+    dirty = torch.empty((L2_BYTES,), dtype=torch.float32, device=dev)
+    clean = torch.ones((L2_BYTES,), dtype=torch.float32, device=dev)
+
+    def flush():
+        dirty.fill_(1.0)
+        clean.max()
+
+    def graphed(fn):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        return graph
+
+    def timed(call, sync):
+        ev = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+        for start, end in ev:
+            flush()
+            if sync:
+                torch.cuda.synchronize()
+            start.record()
+            call()
+            end.record()
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in ev) / iters
+
+    names = list(fns)
+    out = {}
+    for mode in modes:
+        if mode == "device":
+            graphs = {k: graphed(f) for k, f in fns.items()}
+            calls = {k: g.replay for k, g in graphs.items()}
+        else:
+            calls = fns
+        runs = {k: [] for k in names}
+        for turn in range(3):
+            for name in names[turn:] + names[:turn]:
+                runs[name].append(timed(calls[name], mode == "eager"))
+        out[mode] = {k: float(np.median(v)) for k, v in runs.items()}
+    return out
+
+
+def fmaf_chain(coefs, rows):
+    """One fmaf chain a column over ``rows`` (C, N) in row order from 0,
+    in fp32: each product and sum in long double (exact for an fp32
+    product), rounded once to fp32 — the CUDA kernels' order of sums,
+    emulated on the host."""
+    acc = np.zeros(rows.shape[1], np.float32)
+    for k, x in zip(coefs, rows):
+        acc = (np.longdouble(k) * x.astype(np.longdouble)
+               + acc.astype(np.longdouble)).astype(np.float32)
+    return acc
+
+
+def off_by_one(t):
+    """A copy of ``t`` that starts one element into its buffer."""
+    buf = torch.empty((t.numel() + 1,), dtype=t.dtype, device=t.device)
+    buf[1:].copy_(t.reshape(-1))
+    return buf[1:]
+
+
 def paths(tree, prefix=()):
     if not isinstance(tree, dict):
         return [prefix]
     return [p for k in sorted(tree) for p in paths(tree[k], prefix + (k,))]
 
 
-def phase_kernel_vs_plain(dev):
+def phase_fedavg(dev):
+    """The fedavg kernel against its plain version: a round's table (the
+    12 D leaves of 5 clients read where they lie, one launch) equal to the
+    one-leaf tables over each leaf's stack and to the host emulation of
+    the fmaf chain bit for bit; aligned and one element off, with empty and
+    one-element leaves; 21 and 37 clients (chunks of 16 that continue the
+    chain); the one-leaf form over stacks, the whole D and ragged sizes.
+    Then a round's times, L2-warm and L2-flushed, against the bound, one
+    launch a leaf over stacks, the plain version and ``w @ x``; and the
+    whole ``fedavg_trees`` call beside the parent's form of it."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels.fedavg.kernel import fedavg_kernel
-    from repro_torch.kernels.fedavg.ref import fedavg_ref
+    from repro_torch.kernels.fedavg.kernel import (MAX_CLIENTS,
+                                                   fedavg_kernel,
+                                                   fedavg_leaves_kernel)
+    from repro_torch.kernels.fedavg.ops import fedavg_flat, fedavg_trees
+    from repro_torch.kernels.fedavg.ref import fedavg_leaves_ref, fedavg_ref
     from repro_torch.models.dcgan import disc_init
-    from repro_torch.tree import leaves
+    from repro_torch.tree import leaves, unflatten_like
 
     c = get_config("dcgan-mnist").model.dcgan
     gen = torch.Generator().manual_seed(1)
     trees = [disc_init(gen, c, dev) for _ in range(CLIENTS)]
-    # the stacks the server reduce builds: one (C, N) per D leaf
-    stacks = [torch.stack([l.reshape(-1) for l in ls])
-              for ls in zip(*(leaves(t) for t in trees))]
+    params = [leaves(t) for t in trees]         # client c's leaf l
+    sizes = [p.numel() for p in params[0]]
+    # the stacks the parent's server reduce built: one (C, N) per D leaf
+    stacks = [torch.stack([l.reshape(-1) for l in ls]) for ls in zip(*params)]
     w = torch.rand(CLIENTS, generator=gen).to(dev) + 0.5
     w = w / w.sum()
-    whole = torch.cat(stacks, dim=1).contiguous()       # the whole D
+    w_host = [float(x) for x in w.cpu()]
+    err = {"abs": 0.0, "rel": 0.0}
+    n_cases = {"one-leaf": 0, "table": 0, "exact": 0}
+
+    def held(got, want, kind):
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **KERNEL_TOL)
+        e = float((got - want).abs().max()) if got.numel() else 0.0
+        err["abs"] = max(err["abs"], e)
+        err["rel"] = max(err["rel"], e / max(float(want.abs().max())
+                                             if got.numel() else 0.0, 1e-30))
+        n_cases[kind] += 1
+
+    def exact(what, got, rows, wc):
+        """``got`` is the one-leaf table over ``rows`` and one fmaf chain in
+        client order, bit for bit."""
+        torch.cuda.synchronize()
+        check(torch.equal(got, fedavg_kernel(rows, wc)),
+              f"fedavg {what}: not the one-leaf table over the stack")
+        check(np.array_equal(got.cpu().numpy(), fmaf_chain(
+            wc.cpu().numpy(), rows.cpu().numpy())),
+            f"fedavg {what}: not one fmaf chain in client order")
+        n_cases["exact"] += 1
+
+    def table(outs, ps, wc, launches, what):
+        before = fedavg_leaves_kernel.launches
+        got = fedavg_leaves_kernel(outs, ps, wc)
+        check(fedavg_leaves_kernel.launches - before == launches,
+              f"fedavg {what}: {fedavg_leaves_kernel.launches - before} "
+              f"launches, expected {launches}")
+        check(all(g is o for g, o in zip(got, outs)),
+              f"fedavg {what}: outputs not written in place")
+        for g, want in zip(got, fedavg_leaves_ref(ps, wc)):
+            held(g, want, "table")
+        return got
+
+    # the one-leaf form: every D leaf's stack, the whole D, ragged sizes,
+    # one client
+    whole = torch.cat(stacks, dim=1).contiguous()
     ragged = [torch.randn((CLIENTS, n), generator=gen).to(dev)
               for n in (1, 4097, 999_999)]
     cases = [(s, w) for s in stacks + [whole] + ragged]
     cases += [(s[:1].contiguous(), torch.ones(1, device=dev))
               for s in (stacks[0], ragged[1])]
-    max_abs = max_rel = 0.0
     for x, wx in cases:
-        got, want = fedavg_kernel(x, wx), fedavg_ref(x, wx)
+        held(fedavg_kernel(x, wx), fedavg_ref(x, wx), "one-leaf")
+    # the round's table, as fedavg_trees launches it: one launch, twice
+    outs = [torch.empty_like(p) for p in params[0]]
+    got = table(outs, params, w, 1, "round")
+    again = fedavg_leaves_kernel([torch.empty_like(o) for o in outs],
+                                 params, w)
+    for k, (g, a) in enumerate(zip(got, again)):
         torch.cuda.synchronize()
-        torch.testing.assert_close(got, want, **KERNEL_TOL)
-        err = float((got - want).abs().max())
-        max_abs = max(max_abs, err)
-        max_rel = max(max_rel, err / max(float(want.abs().max()), 1e-30))
-    print(f"fedavg vs plain: {len(cases)} shapes, max abs err {max_abs:.3e}, "
-          f"max abs err / max |plain| {max_rel:.3e} (tolerance {KERNEL_TOL})")
-    print(f"fedavg: one round reduces {len(stacks)} leaves, N = "
-          f"{[s.shape[1] for s in stacks]}, whole D N = {whole.shape[1]}")
+        check(torch.equal(g, a), f"fedavg round, leaf {k}: not deterministic")
+        exact(f"round, leaf {k}", g.reshape(-1), stacks[k], w)
+    # one element off 16-byte alignment, with an empty and a one-element
+    # leaf among them
+    ps = [[off_by_one(p) for p in cl] + [torch.empty((0,), device=dev),
+                                         off_by_one(cl[0][:1])]
+          for cl in params]
+    outs = [off_by_one(torch.empty_like(p)) for p in ps[0]]
+    table(outs, ps, w, 1, "one element off")
+    # more clients than a launch takes: the ragged leaves, two small D
+    # leaves and the largest
+    for n_clients in (MAX_CLIENTS + 5, 2 * MAX_CLIENTS + 5):
+        shapes = [1, 4097, 5000, 1600, 64, max(sizes)]
+        ps = [[torch.randn((n,), generator=gen).to(dev) for n in shapes]
+              for _ in range(n_clients)]
+        wc = torch.rand((n_clients,), generator=gen).to(dev) + 0.5
+        wc = wc / wc.sum()
+        got = table([torch.empty((n,), device=dev) for n in shapes], ps, wc,
+                    -(-n_clients // MAX_CLIENTS), f"{n_clients} clients")
+        for k, g in enumerate(got):
+            exact(f"{n_clients} clients, leaf {k}", g,
+                  torch.stack([p[k] for p in ps]), wc)
+    print(f"fedavg vs plain: {n_cases['one-leaf']} one-leaf cases and "
+          f"{n_cases['table']} table leaves (a round's 12 D leaves x "
+          f"{CLIENTS} clients in one launch, aligned and one element off "
+          f"with empty and one-element leaves; {MAX_CLIENTS + 5} and "
+          f"{2 * MAX_CLIENTS + 5} clients in chunks of {MAX_CLIENTS}), max "
+          f"abs err {err['abs']:.3e}, max abs err / max |plain| "
+          f"{err['rel']:.3e} (tolerance {KERNEL_TOL}); {n_cases['exact']} "
+          f"leaves equal to the one-leaf table and to the host fmaf chain "
+          f"bit for bit; two launches equal")
+    print(f"fedavg: one round reduces {len(stacks)} leaves, N = {sizes}, "
+          f"whole D N = {whole.shape[1]}")
 
-    def timed(xs):
-        return time_variants({
-            "kernel": lambda: [fedavg_kernel(x, w) for x in xs],
-            "plain": lambda: [fedavg_ref(x, w) for x in xs],
-            "library": lambda: [w @ x for x in xs]})
+    # a round's reduce: one launch over the clients' leaves in place (the
+    # main path), one launch a leaf over stacks made beforehand, the plain
+    # version and w @ x over the same stacks; L2-warm and L2-flushed
+    outs = [torch.empty_like(p) for p in params[0]]
+    fns = {"kernel": lambda: fedavg_leaves_kernel(outs, params, w),
+           "per_leaf": lambda: [fedavg_kernel(x, w) for x in stacks],
+           "plain": lambda: fedavg_leaves_ref(params, w),
+           "library": lambda: [w @ x for x in stacks]}
+    warm = time_variants(fns)
+    cold = cold_variants(fns, dev)
+    # what this timing reads for a one-element fill: its floor
+    one = torch.empty((1,), device=dev)
+    floor = cold_variants({"fill": lambda: one.fill_(1.0)}, dev,
+                          modes=("device",))["device"]["fill"]
 
-    rows = {}
-    for label, xs in (("round (12 leaves)", stacks),
-                      ("largest leaf conv2.w", [stacks[int(np.argmax(
-                          [s.shape[1] for s in stacks]))]]),
-                      ("whole D", [whole])):
-        t = timed(xs)
-        bound, by, nbytes = fedavg_bound_ms([tuple(x.shape) for x in xs])
-        rows[label] = (t["device"], bound, by)
-        print(f"fedavg {label}: bound {bound:.4f} ms ({by}: {nbytes} B at "
-              f"3.35 TB/s)")
+    # the whole call, eager (the weights go to the card from the host,
+    # which a CUDA graph cannot capture): fedavg_trees beside the parent's
+    # form of it, a stack a leaf, the weights normalised a leaf and one
+    # launch a leaf
+    def parent_form():
+        wt = torch.tensor(w_host, dtype=torch.float32, device=dev)
+        out = []
+        for ls in zip(*params):
+            stacked = torch.stack([l.reshape(-1).to(torch.float32)
+                                   for l in ls])
+            out.append(fedavg_flat(stacked, wt).reshape(ls[0].shape)
+                       .to(ls[0].dtype))
+        return unflatten_like(trees[0], out)
+
+    calls = {"trees": lambda: fedavg_trees(trees, w_host),
+             "parent": parent_form}
+    warm_call = time_variants(calls, modes=("eager",))["eager"]
+    cold_call = cold_variants(calls, dev, modes=("eager",))["eager"]
+    bound, by, nbytes = fedavg_bound_ms([tuple(x.shape) for x in stacks])
+    print(f"fedavg, a round ({len(stacks)} leaves, C = {CLIENTS}): bound "
+          f"{bound:.5f} ms ({by}: {nbytes} B at 3.35 TB/s)")
+    for label, t in (("L2-warm", warm), ("L2-flushed", cold)):
         for mode, tm in t.items():
-            print(f"  {mode:6s} kernel {tm['kernel']:.4f} ms, plain "
-                  f"{tm['plain']:.4f} ms, w @ x {tm['library']:.4f} ms")
-    t, bound, by = rows["round (12 leaves)"]
+            print(f"  {label:10s} {mode:6s} kernel {tm['kernel']:.5f} ms (1 "
+                  f"launch; one a leaf over stacks: {tm['per_leaf']:.5f} ms, "
+                  f"{len(stacks)} launches), plain {tm['plain']:.5f} ms, "
+                  f"w @ x {tm['library']:.5f} ms")
+    print(f"  L2-flushed device timing of a one-element fill (the floor of "
+          f"that timing: event, graph launch and an empty kernel): "
+          f"{floor:.5f} ms")
+    for label, t in (("L2-warm", warm_call), ("L2-flushed", cold_call)):
+        print(f"  {label:10s} eager  fedavg_trees of the round "
+              f"{t['trees']:.5f} ms; the parent's form (a stack, the weights "
+              f"normalised and a launch a leaf) {t['parent']:.5f} ms")
+    t = warm["device"]
     return {"name": "fedavg", "route": "cuda",
             "source": "src/repro_torch/csrc/fedavg.cu",
             "replaces": "src/repro/kernels/fedavg/kernel.py:24",
-            "launches": None, "max_abs_err": max_abs,
+            "launches": None, "max_abs_err": err["abs"],
             "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": bound,
             "bound_by": by, "library_ms": t["library"]}
 
@@ -591,19 +785,6 @@ def phase_agg_fuse(dev):
         check(got == want, f"{name} {what}: {got} launches, expected {want}")
         n_table[name] += 1
 
-    def fmaf_chain(coefs, rows):
-        acc = np.zeros(rows.shape[1], np.float32)
-        for k, x in zip(coefs, rows):
-            acc = (np.longdouble(k) * x.astype(np.longdouble)
-                   + acc.astype(np.longdouble)).astype(np.float32)
-        return acc
-
-    def off_by_one(t):
-        """A copy of ``t`` that starts one element into its buffer."""
-        buf = torch.empty((t.numel() + 1,), dtype=t.dtype, device=t.device)
-        buf[1:].copy_(t.reshape(-1))
-        return buf[1:]
-
     for d in ("int8", "fp16", "fp32"):
         rnd = rounds[d]
         n_l = len(rnd[0])
@@ -912,11 +1093,11 @@ def kernel_wrappers():
         scatter_acc_leaves_kernel)
     from repro_torch.kernels.boundary_fuse.kernel import boundary_fuse_kernel
     from repro_torch.kernels.dp_clip.kernel import dp_clip_noise_kernel
-    from repro_torch.kernels.fedavg.kernel import fedavg_kernel
+    from repro_torch.kernels.fedavg.kernel import fedavg_leaves_kernel
     from repro_torch.kernels.flash_attention.kernel import \
         flash_attention_kernel
     from repro_torch.kernels.wkv6.kernel import wkv6_kernel
-    return {"fedavg": fedavg_kernel, "dp_clip": dp_clip_noise_kernel,
+    return {"fedavg": fedavg_leaves_kernel, "dp_clip": dp_clip_noise_kernel,
             "boundary_fuse": boundary_fuse_kernel,
             "dequant_reduce": dequant_reduce_leaves_kernel,
             "dequant_acc": dequant_acc_leaves_kernel,
@@ -996,8 +1177,7 @@ def phase_main_paths(dev):
     sizes = [l.numel() for l in leaves(disc_init(
         torch.Generator().manual_seed(0),
         get_config("dcgan-mnist").model.dcgan, "meta"))]
-    n_leaves = len(sizes)
-    reduce_round = n_leaves * ROUNDS                  # one launch a leaf
+    reduce_round = ROUNDS                 # fedavg: one launch a round
     folds = CLIENTS * ROUNDS            # agg_fuse: one launch a client's fold
     launches = {}
 
@@ -1080,6 +1260,19 @@ def phase_main_paths(dev):
     print(f"hierarchy stream path: cohorts {cohort_sizes}, edge_mbytes "
           f"{edge} = {CLIENTS} x the int8 "
           f"wire, up_mbytes {up} = 2 cohorts x 4 x {sum(sizes)} B")
+
+    # the edge hierarchy with the decode reduce: each cohort pre-reduces
+    # its members' trees in one fedavg launch, the server averages the 2
+    # aggregates in one more (3 a round)
+    tr, hist, _ = drive_path(dev, "hierarchy decode path",
+                             {"fed.hierarchy_cohorts": 2}, parts,
+                             {"fedavg": 3 * ROUNDS})
+    groups = tr.engine.hierarchy.group(tr.engine.roster)
+    check(sorted(len(m) for m in groups.values()) == [2, 3],
+          f"cohorts {groups}")
+    live = tr.engine.last_report.peak_live_trees
+    check(live == CLIENTS + 2, f"hierarchy decode: peak_live_trees {live}, "
+          f"expected {CLIENTS + 2} (every member tree and the 2 aggregates)")
     return launches
 
 
@@ -1750,7 +1943,7 @@ def main() -> int:
         print(f"nvcc report for {name}:\n{build.build_log(name).strip()}")
 
     t0 = time.perf_counter()
-    rows = [phase_kernel_vs_plain(dev), phase_dp_clip(dev),
+    rows = [phase_fedavg(dev), phase_dp_clip(dev),
             phase_boundary_fuse(dev), *phase_agg_fuse(dev),
             phase_flash_attention(dev), phase_wkv6(dev)]
     print(f"kernel vs plain: {time.perf_counter() - t0:.1f} s")

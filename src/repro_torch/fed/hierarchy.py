@@ -21,6 +21,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.fed.aggregate import StreamingAggregator
 from repro_torch.fed.programs import fedavg_stacked, stack_trees
+from repro_torch.kernels.fedavg.ops import fedavg_trees, normalised_weights
+from repro_torch.tree import leaves
 
 __all__ = ["CohortReduction", "HierarchicalAggregator", "assign_cohorts"]
 
@@ -59,8 +61,9 @@ class HierarchicalAggregator:
     """Edge-tier reducer: weighted FedAvg over each cohort's updates.
 
     ``use_kernel`` is the engine's ``fed.kernel_aggregation``: the decode
-    pre-reduce goes through the fedavg kernel, the streaming one through
-    the agg_fuse kernels, as the server reduce they replace would."""
+    pre-reduce goes through the fedavg kernel (one launch a cohort over
+    the members' trees where they lie), the streaming one through the
+    agg_fuse kernels, as the server reduce they replace would."""
 
     def __init__(self, num_cohorts: int, *, use_kernel: bool = False,
                  cohort_of: Optional[Callable[[str], int]] = None):
@@ -80,8 +83,13 @@ class HierarchicalAggregator:
         with the sum of member weights as its weight."""
         if not trees:
             raise ValueError(f"cohort {cohort} has no member updates")
-        agg = fedavg_stacked(stack_trees(list(trees)), list(weights),
-                             use_kernel=self.use_kernel)
+        if self.use_kernel:
+            # the members' trees read in place, one launch a cohort; the
+            # weights normalised twice, as fedavg_stacked's kernel form does
+            agg = fedavg_trees(list(trees), normalised_weights(
+                weights, leaves(trees[0])[0].device))
+        else:
+            agg = fedavg_stacked(stack_trees(list(trees)), list(weights))
         return CohortReduction(int(cohort), agg, float(sum(weights)),
                                tuple(members))
 

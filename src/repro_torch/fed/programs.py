@@ -20,8 +20,8 @@ waits for ROADMAP Queue A item 7.
 Noise-key contract (:mod:`repro_torch.keys`): a step's noise depends only
 on (round key, cohort, client roster index, execution index, batch index).
 
-:func:`stack_trees` / :func:`fedavg_stacked` are the stacked-tree reduce
-the edge hierarchy's decode pre-reduce uses.
+:func:`stack_trees` / :func:`fedavg_stacked` are the stacked-tree reduce,
+which the edge hierarchy's decode pre-reduce uses with the kernel off.
 """
 from __future__ import annotations
 
@@ -31,8 +31,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch import keys
-from repro_torch.kernels.fedavg.ops import fedavg_flat
-from repro_torch.tree import leaves, tree_map, value_and_grad
+from repro_torch.kernels.fedavg.ops import fedavg_leaves, normalised_weights
+from repro_torch.tree import leaves, tree_map, unflatten_like, value_and_grad
 
 # loss_fn(params, real_batch, fake_batch) -> scalar loss
 LossFn = Callable[[Any, torch.Tensor, torch.Tensor], torch.Tensor]
@@ -48,21 +48,21 @@ def stack_trees(trees: Sequence) -> Any:
 def fedavg_stacked(stacked_tree, weights: Sequence[float], *,
                    use_kernel: bool = False):
     """Weighted average over the leading client axis of a stacked tree.
-    ``use_kernel`` sends each leaf through ``kernels/fedavg`` (the CUDA
-    kernel for a CUDA tensor); otherwise a tensordot in fp32."""
-    w = torch.tensor(list(weights), dtype=torch.float32,
-                     device=leaves(stacked_tree)[0].device)
-    w = w / torch.sum(w)
+    ``use_kernel`` sends the whole tree through ``kernels/fedavg`` in one
+    :func:`fedavg_leaves` call (one launch on the card), each client's row
+    of a leaf read in place; it normalises the normalised weights again,
+    as the reference's ``fedavg_flat`` does.  Otherwise a tensordot in
+    fp32."""
+    flat = leaves(stacked_tree)
+    w = normalised_weights(weights, flat[0].device)
     if use_kernel:
-        def avg(leaf):
-            flat = leaf.reshape(leaf.shape[0], -1).to(torch.float32)
-            return fedavg_flat(flat.contiguous(), w).reshape(
-                leaf.shape[1:]).to(leaf.dtype)
-    else:
-        def avg(leaf):
-            return torch.tensordot(w, leaf.to(torch.float32),
-                                   dims=([0], [0])).to(leaf.dtype)
-    return tree_map(avg, stacked_tree)
+        rows = [l.to(torch.float32).contiguous().unbind(0) for l in flat]
+        avgs = fedavg_leaves(list(zip(*rows)), w)
+        return unflatten_like(stacked_tree, [
+            a.to(l.dtype) for a, l in zip(avgs, flat)])
+    return tree_map(lambda leaf: torch.tensordot(
+        w, leaf.to(torch.float32), dims=([0], [0])).to(leaf.dtype),
+        stacked_tree)
 
 
 def _is_dp(privacy) -> bool:
