@@ -14,17 +14,26 @@ non-zero exit, and no result line:
    (sm_90a) per source, all started together;
 3. kernel vs plain — each kernel on the card at the shapes the main paths
    give it, and at ragged sizes and edge cases, held against its plain
-   PyTorch version; kernel, plain and library-call times from CUDA events,
+   PyTorch version (boundary_fuse also as the per-example int8+dp stage at
+   the DP-SGD split path's crossings, one ``amax="row"`` launch each);
+   kernel, plain and library-call times from CUDA events,
    beside the card's bound for the same work (fedavg's also with the L2
    flushed before every call);
 4. the main paths — ``FSLGANTrainer.train_epoch`` on ``dcgan-mnist`` at
    full width (5 clients, batch 256, base_filters 64, latent 100, Adam
    2e-4) with ``fed.kernel_aggregation``, 2 rounds x 2 batches per client,
-   eight times: plain; with DP-SGD through the dp_clip kernel
+   ten times: plain; with DP-SGD through the dp_clip kernel
    (``privacy.use_kernel``); with the executed split and the fused
    ``int8+dp`` boundary stage through the boundary_fuse kernel
-   (``split.use_kernel``) — each of these three with the fedavg kernel,
-   one launch a round: 2; the int8 uplink with the stream server reduce
+   (``split.use_kernel``; one launch a crossing: 4 x boundaries x 2 x 2);
+   the same split pipelined over 4 micro-batches of 64 (4 x 4 x
+   boundaries x 2 x 2); DP-SGD through the split (the per-example staged
+   step: one ``amax="row"`` launch a crossing for the whole batch, 4 x
+   boundaries x 2 x 2, and dp_clip 20) — each of these five with the
+   fedavg kernel, one launch a round: 2; each split path with one more
+   round under ``torch.profiler`` for boundary_fuse's device time, and
+   the per-example staged step timed against the unsplit DP step's
+   vmap; the int8 uplink with the stream server reduce
    (dequant_acc, one launch a client's fold: 10) and with the batched one
    (dequant_reduce, one launch a round: 2); the top-k uplink with the
    stream reduce (scatter_acc, one launch a fold: 10); the edge hierarchy
@@ -40,18 +49,24 @@ non-zero exit, and no result line:
    before a path and read just after it, and must be exactly what the path
    runs;
 5. the output — finite losses, every parameter on the card, generated
-   images in range, epsilon finite and growing, the LAN and edge bytes the
-   split and the codec predict, the server's peak of live trees, generated
-   tokens in the vocabulary, the rwkv6-1.6b loss through the wkv6 kernel
-   against the plain scan's at full depth; and on small inputs the kernel
+   images in range, epsilon finite and growing (DP-SGD, with and without
+   the split), the LAN and edge bytes the split and the codec predict (the
+   same on the three split paths), the server's peak of live trees,
+   generated tokens in the vocabulary, the rwkv6-1.6b loss through the
+   wkv6 kernel against the plain scan's at full depth; and on small inputs the kernel
    round against the sequential round with the host FedAvg, the DP-SGD
    engine round against the sequential one, the identity-stage split round
    against the unsplit one (and, under deterministic cuDNN, bit for bit in
    every leaf), one uplink-DP round with the int8 codec, the stream and
    batched reduce against the decode reduce (flat, hierarchical, fedasync,
-   fedbuff), the LM forward through the kernels against the plain path,
-   and prefill + decode against the teacher-forced forward (full and
-   sliding-window caches).
+   fedbuff), the pipelined step at K = 1 against the unpipelined one
+   (bit for bit), K = 2 against the mean of the chunks' monolithic
+   gradients, the batched per-example
+   staged step against its loop oracle, DP-SGD through the identity split
+   against DP-SGD unsplit, and through the int8+dp split at K = 4 against
+   K = 1 (bit for bit), the LM forward through the kernels against the
+   plain path, and prefill + decode against the teacher-forced forward
+   (full and sliding-window caches).
 
 Prints ``{"kernels": [...]}`` on a line of its own and, as the last line,
 ``{"ok": true, "device": {...}}``.
@@ -79,6 +94,7 @@ DP_SGD = {"privacy.enabled": True, "privacy.mode": "dp_sgd",
 SPLIT = {"split.enabled": True, "split.boundary_stage": "int8+dp",
          "split.stage_clip": 1.0, "split.stage_sigma": 0.5,
          "split.use_kernel": True}
+PIPELINE_K = 4                  # the pipelined split path's micro-batches
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 (non-tensor) FLOP/s
 HBM_BPS, FP32_FLOPS = 3.35e12, 67e12
 # kernel vs plain: both sum C fp32 products (5 on the main paths, up to 37
@@ -621,6 +637,32 @@ def phase_boundary_fuse(dev):
             else:
                 torch.testing.assert_close(got[keep], want[keep],
                                            **KERNEL_TOL)
+    # the dp-sgd split path's crossings: the fused int8+dp stage's
+    # per-example form, one amax="row" launch for the whole batch, against
+    # the same stage on the plain version with the same key (same noise)
+    from repro_torch import keys
+    from repro_torch.core.split import FusedBoundaryStage
+    kernel_stage = FusedBoundaryStage("int8", 1.0, 0.5, use_kernel=True)
+    plain_stage = FusedBoundaryStage("int8", 1.0, 0.5)
+    dp_shapes = ((BATCH, 14, 14, 64), (BATCH, 7, 7, 128), (BATCH, 4, 4, 256))
+    for i, shape in enumerate(dp_shapes):
+        x = torch.randn(shape, generator=gen, device=dev) \
+            * torch.logspace(-3, 0, BATCH, device=dev)[:, None, None, None]
+        key = keys.root(keys.DP_SGD, i)
+        before = boundary_fuse_kernel.launches
+        got = kernel_stage.apply_per_example(x, key)
+        check(boundary_fuse_kernel.launches == before + 1,
+              "the per-example stage did not launch boundary_fuse once")
+        want = plain_stage.apply_per_example(x, key)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **KERNEL_TOL)
+        max_abs = max(max_abs, float((got - want).abs().max()))
+        n_cases += 1
+        calls += 1
+    print(f"boundary_fuse per-example int8+dp stage (the dp-sgd split "
+          f"path's crossings {[s_[1:] for s_ in dp_shapes]} x {BATCH} "
+          f"examples, rows over 3 decades, noise 0.5): 1 amax=row launch "
+          f"each, equal to the plain stage within {KERNEL_TOL}")
     print(f"boundary_fuse vs plain: {n_cases} cases (codecs none/fp16/int8, "
           f"amax tensor/row, {[s[:2] for s in shapes]}, x 1 and 3 floats "
           f"off a 16-byte boundary), max abs err {max_abs:.3e} (tolerance "
@@ -1164,6 +1206,84 @@ def drive_path(dev, label, over, parts, expect):
     return tr, hist, counts
 
 
+def profile_round(tr, label, expect_fuse):
+    """One more warm round of ``tr`` under ``torch.profiler``: the
+    boundary_fuse launches in it (held to ``expect_fuse`` when the trace
+    has kernels) and their device time, and the time of all its kernels."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tr.train_epoch(batches_per_client=BATCHES)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    if not kernels:
+        print(f"{label}: the profiler traced no kernel; boundary_fuse device "
+              f"time not measured")
+        return None
+    fuse = [k["dur"] for k in kernels if re.search(r"\bfuse<", k["name"])]
+    check(len(fuse) == expect_fuse, f"{label}: {len(fuse)} boundary_fuse "
+          f"kernels in the profiled round, expected {expect_fuse}")
+    ms = sum(fuse) / 1e3
+    print(f"{label}: profiled round: boundary_fuse {len(fuse)} launches, "
+          f"{ms:.4f} ms on the device ({ms / max(len(fuse), 1):.4f} ms a "
+          f"launch); all {len(kernels)} kernels "
+          f"{sum(k['dur'] for k in kernels) / 1e3:.3f} ms")
+    return ms
+
+
+def time_per_example_steps(tr):
+    """Full width, a batch of the client whose plan has the most
+    boundaries: the per-example staged step through the split against the
+    unsplit DP step's ``torch.func.vmap`` of per-example gradients, CUDA
+    events around 5 calls each after a warm-up, in turns (unsplit, staged,
+    staged, unsplit); the staged step's boundary_fuse launches a call."""
+    import functools
+    from repro_torch import keys
+    from repro_torch.core.gan import d_loss_fn
+    from repro_torch.kernels.boundary_fuse.kernel import boundary_fuse_kernel
+    from repro_torch.tree import tree_map
+
+    cid = max(tr.split_execs, key=lambda c: tr.split_execs[c].num_boundaries)
+    ex = tr.split_execs[cid]
+    params = tree_map(torch.Tensor.detach, tr.state.d_params[cid])
+    real = tr._sample_real(cid, BATCH)
+    fake = tr._gen(tr.state.g_params, tr._z(BATCH))
+    key = keys.root(keys.DP_SGD, 0)
+    loss_fn = functools.partial(d_loss_fn, c=tr.c)
+    mono = torch.func.vmap(torch.func.grad_and_value(
+        lambda p, r, f: loss_fn(p, r[None], f[None])), in_dims=(None, 0, 0))
+
+    def unsplit():
+        with torch.enable_grad():
+            return mono(params, real, fake)
+
+    def staged():
+        return ex.per_example_value_and_grad(params, real, fake, key)
+
+    before = boundary_fuse_kernel.launches
+    staged()
+    per_call = boundary_fuse_kernel.launches - before
+    check(per_call == 4 * ex.num_boundaries,
+          f"per-example step: {per_call} boundary_fuse launches, expected "
+          f"{4 * ex.num_boundaries}")
+    runs = {"unsplit": [], "staged": []}
+    for name in ("unsplit", "staged", "staged", "unsplit"):
+        runs[name].append(time_ms({"unsplit": unsplit,
+                                   "staged": staged}[name], iters=5))
+    t = {k: float(np.mean(v)) for k, v in runs.items()}
+    print(f"per-example step at full width (B {BATCH}, {ex.num_boundaries} "
+          f"boundaries): staged through the split {t['staged']:.2f} ms "
+          f"({per_call} boundary_fuse launches), unsplit vmap "
+          f"{t['unsplit']:.2f} ms, ratio {t['staged'] / t['unsplit']:.3f}")
+    return t
+
+
 def phase_main_paths(dev):
     from repro_torch.configs.registry import get_config
     from repro_torch.data import partition_dirichlet, synthetic_mnist
@@ -1218,6 +1338,67 @@ def phase_main_paths(dev):
           f"boundary_fuse 4 x {bounds} x {BATCHES} x {ROUNDS} = {want}, "
           f"lan_mbytes {lan / 1e6} as step_wire_bytes predicts")
     launches["boundary_fuse"] = want
+    by_path = {"boundary_fuse": {"split path": want}}
+    profile_round(tr, "split path", want // ROUNDS)
+
+    # the pipelined split: each batch in PIPELINE_K micro-batches of
+    # BATCH / PIPELINE_K, the staged chain once a micro-batch; the same
+    # LAN bytes, the round priced by the 1F1B schedule's makespan
+    def pipelined_launches(tr):
+        check(tr._pipeline_k() == PIPELINE_K and all(
+            ex.pipeline_microbatches == PIPELINE_K
+            for ex in tr.split_execs.values()), "the split is not pipelined")
+        return {"fedavg": reduce_round, "boundary_fuse": sum(
+            4 * PIPELINE_K * ex.num_boundaries * BATCHES * ROUNDS
+            for ex in tr.split_execs.values())}
+
+    tr, phist, counts = drive_path(
+        dev, "pipelined split path",
+        {**SPLIT, "split.pipeline_microbatches": PIPELINE_K}, parts,
+        pipelined_launches)
+    for m, ms in zip(phist, hist):
+        check(m["lan_mbytes"] == lan / 1e6,
+              f"pipelined lan_mbytes {m['lan_mbytes']} != {lan / 1e6}")
+        check(m["round_time_s"] < ms["round_time_s"],
+              f"pipelined virtual round {m['round_time_s']} not below the "
+              f"split path's {ms['round_time_s']}")
+    print(f"pipelined split path: boundary_fuse 4 x {PIPELINE_K} x {bounds} "
+          f"x {BATCHES} x {ROUNDS} = {counts['boundary_fuse']}, lan_mbytes "
+          f"{lan / 1e6} as the split path, virtual round "
+          f"{phist[-1]['round_time_s']} s against the split path's "
+          f"{hist[-1]['round_time_s']} s")
+    by_path["boundary_fuse"]["pipelined split path"] = counts["boundary_fuse"]
+    profile_round(tr, "pipelined split path",
+                  counts["boundary_fuse"] // ROUNDS)
+
+    # DP-SGD through the split: the per-example staged step, one
+    # amax="row" boundary_fuse launch a crossing for the whole batch, then
+    # one dp_clip launch a step
+    def dp_split_launches(tr):
+        return {"fedavg": reduce_round,
+                "dp_clip": CLIENTS * BATCHES * ROUNDS,
+                "boundary_fuse": sum(4 * ex.num_boundaries * BATCHES * ROUNDS
+                                     for ex in tr.split_execs.values())}
+
+    tr, hist, counts = drive_path(dev, "dp-sgd split path",
+                                  {**DP_SGD, **SPLIT}, parts,
+                                  dp_split_launches)
+    eps = [m["dp_epsilon"] for m in hist]
+    check(all(math.isfinite(e) for e in eps) and eps[1] > eps[0] > 0,
+          f"dp-sgd split: dp_epsilon not finite and growing: {eps}")
+    for m in hist:
+        check(m["lan_mbytes"] == lan / 1e6,
+              f"dp-sgd split lan_mbytes {m['lan_mbytes']} != {lan / 1e6}")
+    print(f"dp-sgd split path: boundary_fuse 4 x {bounds} x {BATCHES} x "
+          f"{ROUNDS} = {counts['boundary_fuse']} (amax=row, one a crossing "
+          f"for the whole batch), dp_clip {counts['dp_clip']}, epsilon "
+          f"{eps}, lan_mbytes {lan / 1e6} as the split path")
+    by_path["boundary_fuse"]["dp-sgd split path"] = counts["boundary_fuse"]
+    by_path["dp_clip"] = {"dp-sgd path": launches["dp_clip"],
+                          "dp-sgd split path": counts["dp_clip"]}
+    profile_round(tr, "dp-sgd split path", counts["boundary_fuse"] // ROUNDS)
+    time_per_example_steps(tr)
+    del tr
 
     # the compressed-domain server reduce: the fedavg kernel does not run
     # on the flat paths; every client's wire folds in one launch over its
@@ -1273,7 +1454,7 @@ def phase_main_paths(dev):
     live = tr.engine.last_report.peak_live_trees
     check(live == CLIENTS + 2, f"hierarchy decode: peak_live_trees {live}, "
           f"expected {CLIENTS + 2} (every member tree and the 2 aggregates)")
-    return launches
+    return launches, by_path
 
 
 def compare_states(label, ta, tb, start):
@@ -1438,6 +1619,156 @@ def phase_small_reference(dev):
         against_decode(f"{mode} int8", {"fed.codec": "int8",
                                         "fed.mode": mode}, ("stream",), {})
     torch.backends.cudnn.deterministic = deterministic
+
+
+def phase_small_split_reference(dev):
+    """On the card at a small width (base_filters 8, batch 8, a plan of 3
+    boundaries, the fused int8+dp stage through the kernel): the pipelined
+    step at K = 1 against ``run``, bit for bit; at K = 2 with the identity stage against the mean
+    of the per-chunk monolithic gradients; the batched per-example staged
+    step against the loop oracle with the same noise; and two DP-SGD
+    trainers through the split: identity stage against no split, K = 4
+    against K = 1.  The bit-for-bit checks run with cuDNN's deterministic
+    algorithms, which make two runs of one computation equal."""
+    import functools
+    from repro_torch import keys
+    from repro_torch.config import DCGANConfig, SplitConfig
+    from repro_torch.core import split as ts
+    from repro_torch.core.devices import Client, Device
+    from repro_torch.core.gan import bce_logits, d_loss_fn
+    from repro_torch.core.selection import make_plan
+    from repro_torch.kernels.boundary_fuse.kernel import boundary_fuse_kernel
+    from repro_torch.models.dcgan import (disc_apply_layer, disc_init,
+                                          disc_layer_costs, disc_layer_names)
+    from repro_torch.tree import leaves, tree_map, value_and_grad
+
+    c = DCGANConfig(base_filters=8)
+    costs = disc_layer_costs(c)
+    plan = make_plan(Client("c0", [Device("d0", 1.0, 2),
+                                   Device("d1", 2.0, 2)]),
+                     [(n, costs[n]) for n in disc_layer_names(c)],
+                     "sorted_single", 3)
+    tails = (functools.partial(bce_logits, target=1.0),
+             functools.partial(bce_logits, target=0.0))
+
+    def execution(name, k=1):
+        stage = ts.make_boundary_stage(SplitConfig(
+            enabled=True, stage_clip=1.0, stage_sigma=0.5, use_kernel=True),
+            name)
+        return ts.SplitExecution(plan, functools.partial(disc_apply_layer,
+                                                         c=c), tails,
+                                 stage=stage, pipeline_microbatches=k)
+
+    def equal(a, b):
+        return all(torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
+
+    def worst(got, want):
+        """Largest difference of a leaf over that leaf's largest magnitude
+        (BN-fed biases: over the whole tree's largest)."""
+        top = max(float(w.abs().max()) for w in leaves(want))
+        return max(float((g - w).abs().max()) / (
+            top if p[-2:] in BN_FED_BIASES else float(w.abs().max()))
+            for p, g, w in zip(paths(got), leaves(got), leaves(want)))
+
+    params = disc_init(torch.Generator().manual_seed(0), c, dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    real = torch.rand((8, 28, 28, 1), generator=gen, device=dev) * 2 - 1
+    fake = torch.tanh(torch.randn((8, 28, 28, 1), generator=gen,
+                                  device=dev))
+    key = keys.root(keys.STAGE, 5)
+    check(execution("int8+dp").num_boundaries == 3, "the plan is not 3 "
+          "boundaries")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ex = execution("int8+dp", k=4)
+        l1, g1, _ = ex.run(params, (real, fake), key)
+        lp, gp, _ = ex.run_pipelined(params, (real, fake), key,
+                                     num_microbatches=1)
+        check(torch.equal(l1, lp) and equal(g1, gp),
+              "run_pipelined at K = 1 differs from run")
+        print("small input, pipelined split (int8+dp, kernel): K = 1 equals "
+              "run, bit for bit")
+
+        pl, pg = execution("identity", 2).value_and_grad(params, real, fake)
+        vg = value_and_grad(functools.partial(d_loss_fn, c=c))
+        (l0, g0), (l1, g1) = (vg(params, real[m * 4:(m + 1) * 4],
+                                 fake[m * 4:(m + 1) * 4]) for m in (0, 1))
+        ml, mg = (l0 + l1) * 0.5, tree_map(lambda a, b: (a + b) * 0.5, g0,
+                                           g1)
+        diff = worst(pg, mg)
+        check(abs(float(pl - ml)) <= 1e-6 * abs(float(ml)) and diff <= 1e-6,
+              f"K = 2 identity: loss {float(pl)} vs {float(ml)}, grads "
+              f"{diff}")
+        print(f"small input, pipelined identity split at K = 2 vs the mean "
+              f"of the 2 chunks' monolithic gradients: loss diff "
+              f"{abs(float(pl - ml)):.3e}, grads max diff {diff:.3e} of each "
+              f"leaf's largest (tolerance 1e-6)")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    # the batched per-example step against the loop oracle, same noise.
+    # Through int8 a quantum can flip between the two (the batched
+    # convolutions sum in another order) and is not diluted by a batch
+    # mean: the classifier's weight gradient is its input times one
+    # number, so one flipped input element moves it by up to 1/127 of the
+    # leaf's largest.  Losses at 1e-3 relative, gradients at 1/127.
+    ex = execution("int8+dp")
+    before = boundary_fuse_kernel.launches
+    bl, bg = ex.per_example_value_and_grad(params, real, fake, key)
+    batched = boundary_fuse_kernel.launches - before
+    ol, og = ex.per_example_oracle(params, real, fake, key)
+    check(batched == 12, f"the batched per-example step launched "
+          f"boundary_fuse {batched} times, expected 12 (one a crossing)")
+    ldiff = float(((bl - ol).abs() / ol.abs()).max())
+    diff = worst(bg, og)
+    check(ldiff <= 1e-3 and diff <= 1 / 127,
+          f"per-example step vs oracle: losses {ldiff}, grads {diff}")
+    print(f"small input, batched per-example staged step (int8+dp, kernel, "
+          f"12 launches) vs the loop oracle (96 launches): losses max rel "
+          f"diff {ldiff:.3e} (tolerance 1e-3), grads max diff {diff:.3e} of "
+          f"each leaf's largest (tolerance 1/127)")
+
+    # DP-SGD through the split, trainers: with the identity stage against
+    # DP-SGD without the split (noise on; the same dp_clip draw), losses
+    # within 1e-4 and parameters as compare_states holds them; and at
+    # K = 4 against K = 1, bit for bit but the virtual round time
+    dp = {**DP_SGD, "privacy.clip_norm": 0.1}
+    ta, tb = small_trainer({**dp, "split.enabled": True}), small_trainer(dp)
+    start = [t.clone() for t in leaves(ta.state.g_params)
+             + leaves(ta.state.d_params["c0"])]
+    for _ in range(ROUNDS):
+        ma = ta.train_epoch(batches_per_client=BATCHES)
+        mb = tb.train_epoch(batches_per_client=BATCHES)
+        for k in ("d_loss", "g_loss"):
+            check(abs(ma[k] - mb[k]) <= 1e-4 * abs(mb[k]),
+                  f"dp-sgd identity split vs unsplit: {k} {ma[k]} vs "
+                  f"{mb[k]}")
+    diff = compare_states("dp-sgd identity split vs unsplit", ta, tb, start)
+    print(f"small input, dp-sgd round through the identity-stage split vs "
+          f"without the split (noise on): losses within 1e-4 rel, params "
+          f"max abs diff {diff:.3e}")
+    torch.backends.cudnn.deterministic = True
+    try:
+        over = {**DP_SGD, **SPLIT}
+        t1 = small_trainer(over)
+        t4 = small_trainer({**over, "split.pipeline_microbatches": 4})
+        times = ("round_time_s", "clock_s")
+        for _ in range(ROUNDS):
+            m1 = t1.train_epoch(batches_per_client=BATCHES)
+            m4 = t4.train_epoch(batches_per_client=BATCHES)
+            check({k: v for k, v in m1.items() if k not in times}
+                  == {k: v for k, v in m4.items() if k not in times},
+                  f"dp-sgd split K = 4 vs K = 1: {m4} vs {m1}")
+        check(equal(t1.state.g_params, t4.state.g_params) and all(
+            equal(t1.state.d_params[c_], t4.state.d_params[c_])
+            for c_ in t1.state.d_params), "dp-sgd split K = 4 parameters "
+              "differ from K = 1")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    print("small input, dp-sgd split (int8+dp, both kernels, noise on) at "
+          "K = 4 vs K = 1: every metric but the virtual round time and "
+          "every parameter equal, bit for bit")
 
 
 # ---------------------------------------------------------------------------
@@ -1948,15 +2279,18 @@ def main() -> int:
             phase_flash_attention(dev), phase_wkv6(dev)]
     print(f"kernel vs plain: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    launches = phase_main_paths(dev)
+    launches, by_path = phase_main_paths(dev)
     print(f"main paths: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     launches.update(phase_lm_paths(dev))
     print(f"LM paths: {time.perf_counter() - t0:.1f} s")
     for row in rows:
         row["launches"] = launches[row["name"]]
+        if row["name"] in by_path:
+            row["launches_by_path"] = by_path[row["name"]]
     t0 = time.perf_counter()
     phase_small_reference(dev)
+    phase_small_split_reference(dev)
     phase_lm_small_reference(dev)
     print(f"small references: {time.perf_counter() - t0:.1f} s")
 

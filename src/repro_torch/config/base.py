@@ -483,6 +483,7 @@ class SplitConfig:
     # compile the K-micro-batch loop as ONE lax.scan instead of K unrolled
     # staged chains (trace size O(1) in K; tolerance-pinned against the
     # unrolled loop).  Off (default) keeps the unrolled reference path.
+    # The port ignores it: eager PyTorch has no trace to shrink.
     pipeline_scan: bool = False
     # fuse composed codec+dp stages into kernels/boundary_fuse (the
     # unfused ComposedBoundaryStage remains the pinned reference)

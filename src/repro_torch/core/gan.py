@@ -14,8 +14,11 @@ Roles:
     boundary stage (identity | transport codec | DP noise, the fused
     ``codec+dp`` stage through the boundary_fuse CUDA kernel with
     ``split.use_kernel``), and round time + LAN bytes are priced from the
-    measured per-boundary payloads.  Disabled, the plan only prices the
-    round and the monolithic D trains, as in the paper's Colab runs.
+    measured per-boundary payloads.  ``split.pipeline_microbatches`` > 1
+    runs the 1F1B-pipelined step over micro-batches, priced by the overlap
+    schedule's makespan; under DP-SGD the split runs per example.
+    Disabled, the plan only prices the round and the monolithic D trains,
+    as in the paper's Colab runs.
 
 Losses: non-saturating DCGAN BCE.
     L_D = BCE(D(x_real), 1) + BCE(D(G(z)), 0)
@@ -48,6 +51,7 @@ from repro_torch import keys
 from repro_torch.config import RunConfig
 from repro_torch.core.devices import make_pool
 from repro_torch.core.fedavg import fedavg
+from repro_torch.core.pipeline import effective_microbatches
 from repro_torch.core.selection import plan_all_clients
 from repro_torch.core.simulate import plan_epoch_time
 from repro_torch.core.split import (SplitExecution, SplitPlan,
@@ -90,12 +94,6 @@ _UNPORTED = (
      "item 7 (vectorized backend)"),
     (lambda cfg: cfg.fed.shard_clients, "fed.shard_clients",
      "item 7 (client mesh)"),
-    (lambda cfg: cfg.split.enabled and cfg.split.pipeline_microbatches > 1,
-     "split.pipeline_microbatches > 1", "item 12 (pipelined split)"),
-    (lambda cfg: (cfg.split.enabled and cfg.privacy.enabled
-                  and cfg.privacy.mode == "dp_sgd"),
-     "privacy.mode='dp_sgd' with split.enabled",
-     "item 13 (DP-SGD with the executed split)"),
     (lambda cfg: cfg.control.mode == "adaptive", "control.mode='adaptive'",
      "item 8 (control plane)"),
     (lambda cfg: cfg.obs.enabled, "obs.enabled", "item 8 (flight recorder)"),
@@ -236,8 +234,10 @@ class FSLGANTrainer:
             # wire bytes are a function of (split signature, x_shape):
             # measure once per signature
             bytes_by_sig: Dict[Any, Tuple[int, List[Dict[str, int]]]] = {}
+            pipeline_k = self._pipeline_k()
             for cid, plan in self.plans.items():
-                ex = SplitExecution(plan, apply_layer, tails, stage=stage)
+                ex = SplitExecution(plan, apply_layer, tails, stage=stage,
+                                    pipeline_microbatches=pipeline_k)
                 self.split_execs[cid] = ex
                 if ex.signature not in bytes_by_sig:
                     bytes_by_sig[ex.signature] = ex.step_wire_bytes(
@@ -304,6 +304,15 @@ class FSLGANTrainer:
         when set, else the paper's ``cfg.fsl.lan_latency_s`` (50 ms)."""
         return self.cfg.split.lan_latency_s or self.cfg.fsl.lan_latency_s
 
+    def _pipeline_k(self) -> int:
+        """Micro-batches per batch for the pipelined split step: the
+        configured K clamped to a divisor of the batch size (1 when split
+        execution is off)."""
+        if not self.cfg.split.enabled:
+            return 1
+        return effective_microbatches(self.batch_size,
+                                      self.cfg.split.pipeline_microbatches)
+
     def _ensure_engine(self, batches_per_client: int) -> FederationEngine:
         """(Re)build the engine when the local-round length changes — client
         compute times are priced per round.  Rebuilding resets the virtual
@@ -313,17 +322,20 @@ class FSLGANTrainer:
             return self.engine
         by_id = {cl.client_id: cl for cl in self.pool}
         specs = []
+        pipeline_k = self._pipeline_k()
         for cid in self._active_clients():
             steps = self._client_steps(cid, batches_per_client)
             if cid in self.plans and cid in by_id:
                 # split-executed clients are priced from the MEASURED
                 # per-boundary bytes their step ships; unsplit training
-                # keeps the analytic hop constant
+                # keeps the analytic hop constant.  A pipelined step is
+                # priced by the 1F1B schedule's makespan
                 ct = plan_epoch_time(
                     self.plans[cid], by_id[cid], batches_per_epoch=steps,
                     lan_latency_s=self._lan_latency_s(),
                     boundary_bytes=self._split_hop_events.get(cid),
-                    lan_bandwidth_bps=self.cfg.split.lan_bandwidth_bps)
+                    lan_bandwidth_bps=self.cfg.split.lan_bandwidth_bps,
+                    pipeline_microbatches=pipeline_k)
             else:
                 ct = 0.0
             specs.append(ClientSpec(

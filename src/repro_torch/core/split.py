@@ -1,6 +1,7 @@
 """Model splitting (paper §3.2/§4): the SplitPlan as the *executed* local
-step.  Port of ``repro/core/split.py`` for the sequential step; the
-pipelined (1F1B) step waits for ROADMAP Queue A item 12.
+step.  Port of ``repro/core/split.py``: the sequential step, the
+pipelined (1F1B) step over micro-batches, and the per-example staged step
+DP-SGD trains through.
 
 A :class:`SplitPlan` records which device trains which contiguous layer
 range of the discriminator.  :class:`SplitExecution` compiles a plan into a
@@ -17,6 +18,14 @@ The same object prices what it executes: ``step_wire_bytes`` measures the
 per-boundary LAN payload of one local step, which
 ``core/simulate.plan_epoch_time`` consumes in place of the paper's fixed
 hop constant and ``fed/transport.TrafficLedger`` records per round.
+
+Per-example noise: the reference draws each example's stage noise from its
+own key (``fold_in(key, i)`` under ``jax.vmap``).  The port's per-example
+step draws ONE ``(B, N)`` normal per crossing from the crossing's key,
+which does not depend on the example, and row ``i`` is example ``i``'s
+noise: one generator a crossing instead of B.  The streams differ from
+the reference's by construction; the contract — independent noise per
+example, per crossing, per step — is the same.
 """
 from __future__ import annotations
 
@@ -137,6 +146,16 @@ class BoundaryStage:
         del key
         return x
 
+    def apply_per_example(self, x: torch.Tensor, key=None,
+                          noise: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+        """The stage applied to each example (row of ``x``) alone, as
+        ``apply`` on ``x[i:i+1]`` would.  A stochastic stage gives example
+        ``i`` row ``i`` of one ``(B, N)`` normal drawn from ``key``, or of
+        ``noise`` when given (the module's per-example noise contract)."""
+        del key, noise
+        return x
+
     def wire_bytes(self, shape: Sequence[int],
                    dtype: torch.dtype = torch.float32) -> int:
         return tensor_wire_bytes(shape, dtype)
@@ -166,6 +185,25 @@ class CodecBoundaryStage(BoundaryStage):
         dec, _ = self.codec.roundtrip(x)
         return dec
 
+    def apply_per_example(self, x: torch.Tensor, key=None,
+                          noise: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+        """int8: one scale a row; top-k: k of each row; the elementwise
+        codecs as ``apply``."""
+        del key, noise
+        if self.name not in ("int8", "topk"):
+            return self.apply(x)
+        flat = x.reshape(x.shape[0], -1).to(torch.float32)
+        if self.name == "int8":
+            from repro_torch.kernels.boundary_fuse.ref import codec_qdq
+            out = codec_qdq(flat, "int8", amax="row")
+        else:
+            from repro_torch.fed.transport import _topk_k
+            k = _topk_k(flat.shape[1], self.codec.frac)
+            idx = torch.topk(torch.abs(flat), k, dim=1).indices
+            out = flat * torch.zeros_like(flat).scatter_(1, idx, 1.0)
+        return out.reshape(x.shape).to(x.dtype)
+
     def wire_bytes(self, shape: Sequence[int],
                    dtype: torch.dtype = torch.float32) -> int:
         _, nbytes = self.codec.roundtrip(torch.zeros(tuple(shape),
@@ -189,14 +227,21 @@ class GaussianBoundaryStage(BoundaryStage):
         return (self.name, self.clip, self.sigma)
 
     def apply(self, x: torch.Tensor, key=None) -> torch.Tensor:
+        return self.apply_per_example(x, key)
+
+    def apply_per_example(self, x: torch.Tensor, key=None,
+                          noise: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+        """Already per row: each row's clip, row ``i`` of the draw."""
         flat = x.reshape(x.shape[0], -1).to(torch.float32)
         norms = torch.linalg.vector_norm(flat, dim=1)
         scale = torch.clamp(self.clip / torch.clamp(norms, min=1e-12),
                             max=1.0)
         y = flat * scale[:, None]
-        if self.sigma > 0.0 and key is not None:
-            y = y + self.sigma * self.clip * keys.normal(key, y.shape,
-                                                         y.device)
+        if self.sigma > 0.0 and (key is not None or noise is not None):
+            if noise is None:
+                noise = keys.normal(key, y.shape, y.device)
+            y = y + self.sigma * self.clip * noise
         return y.reshape(x.shape).to(x.dtype)
 
 
@@ -220,6 +265,13 @@ class ComposedBoundaryStage(BoundaryStage):
     def apply(self, x: torch.Tensor, key=None) -> torch.Tensor:
         for s in self.stages_seq:
             x = s.apply(x, key)
+        return x
+
+    def apply_per_example(self, x: torch.Tensor, key=None,
+                          noise: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+        for s in self.stages_seq:
+            x = s.apply_per_example(x, key, noise)
         return x
 
     def wire_bytes(self, shape: Sequence[int],
@@ -257,16 +309,26 @@ class FusedBoundaryStage(BoundaryStage):
                 self.use_kernel)
 
     def apply(self, x: torch.Tensor, key=None) -> torch.Tensor:
+        return self._fused(x, key, None, "tensor")
+
+    def apply_per_example(self, x: torch.Tensor, key=None,
+                          noise: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+        """ONE fused launch for the whole batch with a per-row int8 amax."""
+        return self._fused(x, key, noise, "row")
+
+    def _fused(self, x, key, noise, amax: str) -> torch.Tensor:
         from repro_torch.kernels.boundary_fuse.ops import fused_boundary_flat
         flat = x.reshape(x.shape[0], -1).to(torch.float32).contiguous()
         noise_scale = 0.0
-        if self.sigma > 0.0 and key is not None:
+        if self.sigma > 0.0 and (key is not None or noise is not None):
             noise_scale = self.sigma * self.clip
-            noise = keys.normal(key, flat.shape, flat.device)
+            if noise is None:
+                noise = keys.normal(key, flat.shape, flat.device)
         else:
             noise = torch.zeros_like(flat)
         y = fused_boundary_flat(flat, self.clip, noise_scale, noise,
-                                codec=self.codec_name,
+                                codec=self.codec_name, amax=amax,
                                 use_kernel=self.use_kernel)
         return y.reshape(x.shape).to(x.dtype)
 
@@ -334,16 +396,16 @@ class SplitExecution:
                  stages: Optional[Sequence[BoundaryStage]] = None,
                  pipeline_microbatches: int = 1):
         """``stage`` applies one stage at every boundary; ``stages`` assigns
-        one per boundary (index-aligned with ``self.boundaries``)."""
-        if int(pipeline_microbatches) > 1:
-            raise NotImplementedError(
-                "the pipelined split step (pipeline_microbatches > 1) is not "
-                "ported to repro_torch yet (ROADMAP Queue A item 12)")
+        one per boundary (index-aligned with ``self.boundaries``).
+
+        ``pipeline_microbatches`` > 1 makes ``value_and_grad`` run the
+        1F1B-pipelined step (``run_pipelined``) over that many
+        micro-batches a batch, priced by ``overlap_schedule``."""
         self.plan = plan
         self.apply_layer = apply_layer
         self.tails = tuple(tails)
         self.stage = stage or BoundaryStage()
-        self.pipeline_microbatches = 1
+        self.pipeline_microbatches = max(1, int(pipeline_microbatches))
         self.segments = plan_segments(plan)
         self.boundaries: List[Boundary] = []
         depth = 0
@@ -380,9 +442,13 @@ class SplitExecution:
     def signature(self) -> Tuple:
         """Step key: plans with the same boundary depths and the same
         per-boundary stages run the same staged step — device identity
-        only affects pricing, never math."""
-        return (tuple(b.depth for b in self.boundaries),
+        only affects pricing, never math.  A pipelined execution carries
+        ``("pipeline", K)``."""
+        base = (tuple(b.depth for b in self.boundaries),
                 tuple(s.signature for s in self.stages))
+        if self.pipeline_microbatches > 1:
+            return base + (("pipeline", self.pipeline_microbatches),)
+        return base
 
     def _key(self, key, b: int, p: int, direction: int):
         """Per-(boundary, pass, direction) stage key, distinct within one
@@ -402,12 +468,14 @@ class SplitExecution:
 
     # ------------------------------------------------------------------
     def run(self, params, batches: Sequence[torch.Tensor], key=None,
-            collect: bool = False):
+            collect: bool = False, cross=None):
         """One staged forward+backward over per-pass ``batches``.
 
         Returns ``(loss, grads, records)``; ``records`` (when ``collect``)
         holds the staged tensors that crossed each boundary:
-        ``records["fwd"][b][p]`` / ``records["bwd"][b][p]``.
+        ``records["fwd"][b][p]`` / ``records["bwd"][b][p]``.  ``cross``,
+        given, replaces each crossing's stage call:
+        ``cross(boundary, pass, direction, x) -> x``.
         """
         if len(batches) != self.num_passes:
             raise ValueError(f"{len(batches)} batches for "
@@ -415,6 +483,10 @@ class SplitExecution:
         if key is None and self.stochastic:
             # a stochastic stage never runs keyless-and-noiseless
             key = keys.root(keys.DEFAULT, 0)
+        if cross is None:
+            def cross(si, p, direction, x):
+                return self.stages[si].apply(
+                    x, self._key(key, si, p, direction))
         records = {"fwd": [None] * self.num_boundaries,
                    "bwd": [None] * self.num_boundaries}
         flat = leaves(params)
@@ -432,9 +504,8 @@ class SplitExecution:
                 seg_out.append(outs)
                 if si < last:
                     with torch.no_grad():
-                        xs = tuple(self.stages[si].apply(
-                            x.detach(), self._key(key, si, p, 0))
-                            for p, x in enumerate(outs))
+                        xs = tuple(cross(si, p, 0, x.detach())
+                                   for p, x in enumerate(outs))
                     if collect:
                         records["fwd"][si] = xs
             loss = sum(tail(z) for tail, z in zip(self.tails, seg_out[-1]))
@@ -456,21 +527,190 @@ class SplitExecution:
                     grads[i] = g if grads[i] is None else grads[i] + g
             if si > 0:
                 with torch.no_grad():
-                    g_act = tuple(self.stages[si - 1].apply(
-                        g, self._key(key, si - 1, p, 1))
-                        for p, g in enumerate(got[len(live):]))
+                    g_act = tuple(cross(si - 1, p, 1, g)
+                                  for p, g in enumerate(got[len(live):]))
                 if collect:
                     records["bwd"][si - 1] = g_act
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(flat, grads)]
         return loss.detach(), unflatten_like(params, grads), records
 
+    def run_pipelined(self, params, batches: Sequence[torch.Tensor],
+                      key=None, collect: bool = False,
+                      num_microbatches: Optional[int] = None):
+        """The 1F1B-pipelined local step: each pass's batch split into K
+        equal micro-batches, the staged chain run per micro-batch, so on
+        several devices segment ``s`` of micro-batch ``m`` overlaps
+        segment ``s+1`` of micro-batch ``m-1`` (what ``overlap_schedule``
+        prices; one card runs them one after another).  Loss and grads
+        are summed in micro-batch order and scaled by ``1/K``: the mean of
+        the per-micro-batch steps (batch norm sees per-micro-batch
+        statistics, the usual shift of gradient accumulation).
+
+        ``K = 1`` (or a batch K does not divide: clamped to a divisor by
+        ``core.pipeline.effective_microbatches``) is ``run`` unchanged.
+        Micro-batch ``m``'s stage key is ``fold_in(key, m)``.  With
+        ``collect``, each boundary's records are concatenated back to the
+        full-batch view."""
+        from repro_torch.core.pipeline import effective_microbatches
+        if len(batches) != self.num_passes:
+            raise ValueError(f"{len(batches)} batches for "
+                             f"{self.num_passes} loss tails")
+        req = self.pipeline_microbatches if num_microbatches is None \
+            else int(num_microbatches)
+        bsz = min(int(b.shape[0]) for b in batches)
+        k = effective_microbatches(bsz, req)
+        if k == 1:
+            return self.run(params, batches, key, collect)
+        if key is None and self.stochastic:
+            key = keys.root(keys.DEFAULT, 0)
+        mb = bsz // k
+        loss = grads = None
+        recs = []
+        for m in range(k):
+            chunk = tuple(b[m * mb:(m + 1) * mb] for b in batches)
+            mkey = None if key is None else keys.fold_in(key, m)
+            l, g, r = self.run(params, chunk, mkey, collect)
+            loss = l if loss is None else loss + l
+            grads = g if grads is None else tree_map(torch.add, grads, g)
+            recs.append(r)
+        inv = 1.0 / k
+        loss = loss * inv
+        grads = tree_map(lambda g: g * inv, grads)
+        records = {"fwd": [None] * self.num_boundaries,
+                   "bwd": [None] * self.num_boundaries}
+        if collect:
+            for d in ("fwd", "bwd"):
+                for b in range(self.num_boundaries):
+                    records[d][b] = tuple(
+                        torch.cat([r[d][b][p] for r in recs], dim=0)
+                        for p in range(self.num_passes))
+        return loss, grads, records
+
     def value_and_grad(self, params, real, fake, key=None):
         """The D-loss contract of ``fed/programs.make_local_step``:
         ``(params, real, fake, key) -> (loss, grads)`` through the staged
-        execution."""
-        loss, grads, _ = self.run(params, (real, fake), key)
+        execution, pipelined when ``pipeline_microbatches > 1``."""
+        if self.pipeline_microbatches > 1:
+            loss, grads, _ = self.run_pipelined(params, (real, fake), key)
+        else:
+            loss, grads, _ = self.run(params, (real, fake), key)
         return loss, grads
+
+    # ------------------------------------------------------------------
+    # the per-example staged step (DP-SGD through the split)
+    # ------------------------------------------------------------------
+    def _segment_one(self, names):
+        """A segment applied to ONE example of each pass (no batch axis),
+        as a batch of one: what ``torch.func.vmap`` maps over examples."""
+        def seg(params, xs):
+            return tuple(o[0] for o in self._segment(
+                names, params, tuple(x[None] for x in xs)))
+        return seg
+
+    def per_example_value_and_grad(self, params, real, fake, key=None):
+        """DP-SGD's per-example step through the split: ``(losses (B,),
+        grads)`` with every gradient leaf ``(B, ...)``, example ``i``'s
+        loss and gradient as ``run`` on ``(real[i:i+1], fake[i:i+1])``
+        computes them, batch norm and the int8 amax included.
+
+        The stages stay outside the vmap.  Each segment's forward is
+        ``torch.func.vmap`` over examples; its backward is the vmap of the
+        segment's ``torch.func.vjp``, which recomputes its forward; each
+        crossing applies its stage's per-example form once to the whole
+        ``(B, ...)`` tensor (the fused stage: one boundary_fuse launch
+        with a per-row amax), with the module's per-example noise
+        contract.  K plays no part: a batch of one is never pipelined."""
+        vmap = torch.func.vmap
+        batches = (real, fake)
+        if len(batches) != self.num_passes:
+            raise ValueError(f"{len(batches)} batches for "
+                             f"{self.num_passes} loss tails")
+        if key is None and self.stochastic:
+            key = keys.root(keys.DEFAULT, 0)
+        last = len(self.segments) - 1
+        held = tree_map(torch.Tensor.detach, params)
+        subs = [{n: held[n] for n in names if n in held}
+                for _, names in self.segments]
+        xs = tuple(batches)
+        seg_in = []
+        with torch.no_grad():
+            for si in range(last):
+                seg_in.append(xs)
+                outs = vmap(self._segment_one(self.segments[si][1]),
+                            in_dims=(None, 0))(subs[si], xs)
+                xs = tuple(self.stages[si].apply_per_example(
+                    o, self._key(key, si, p, 0)) for p, o in enumerate(outs))
+        tail_seg = self._segment_one(self.segments[last][1])
+
+        def loss_one(p, xs):
+            zs = tail_seg(p, xs)
+            return sum(tail(z[None]) for tail, z in zip(self.tails, zs))
+
+        per: List[Dict[str, Any]] = [None] * len(self.segments)
+        with torch.enable_grad():
+            got, losses = vmap(torch.func.grad_and_value(
+                loss_one, argnums=(0, 1) if last else 0),
+                in_dims=(None, 0))(subs[last], xs)
+            if last:
+                per[last], g_act = got
+            else:
+                per[last] = got
+            for si in range(last - 1, -1, -1):
+                with torch.no_grad():
+                    g_act = tuple(self.stages[si].apply_per_example(
+                        g, self._key(key, si, p, 1))
+                        for p, g in enumerate(g_act))
+                seg = self._segment_one(self.segments[si][1])
+                if si:
+                    def vjp_one(p, xs, gs, seg=seg):
+                        return torch.func.vjp(seg, p, xs)[1](gs)
+                    per[si], g_act = vmap(vjp_one, in_dims=(None, 0, 0))(
+                        subs[si], seg_in[si], g_act)
+                else:
+                    def vjp_one(p, xs, gs, seg=seg):
+                        return torch.func.vjp(
+                            lambda q: seg(q, xs), p)[1](gs)[0]
+                    per[si] = vmap(vjp_one, in_dims=(None, 0, 0))(
+                        subs[si], seg_in[si], g_act)
+        merged: Dict[str, Any] = {}
+        for d in per:
+            merged.update(d)
+        b = int(real.shape[0])
+        grads = {n: merged[n] if n in merged else tree_map(
+            lambda l: l.new_zeros((b,) + tuple(l.shape)), held[n])
+            for n in held}
+        return losses.detach(), tree_map(torch.Tensor.detach, grads)
+
+    def per_example_oracle(self, params, real, fake, key=None):
+        """What ``per_example_value_and_grad`` must equal, as a plain loop:
+        each example alone through ``run``, its crossings' stages taking
+        its row of the per-crossing ``(B, N)`` draw.  A reference for the
+        tests and the GPU smoke run; no training path calls it."""
+        if key is None and self.stochastic:
+            key = keys.root(keys.DEFAULT, 0)
+        b = int(real.shape[0])
+        draws: Dict[Tuple[int, int, int], torch.Tensor] = {}
+
+        def cross(i, si, p, direction, x):
+            stage, noise = self.stages[si], None
+            if stage.stochastic:
+                ck = (si, p, direction)
+                if ck not in draws:
+                    draws[ck] = keys.normal(self._key(key, si, p, direction),
+                                            (b, x[0].numel()), x.device)
+                noise = draws[ck][i:i + 1]
+            return stage.apply_per_example(x, noise=noise)
+
+        losses, grads = [], []
+        for i in range(b):
+            l, g, _ = self.run(
+                params, (real[i:i + 1], fake[i:i + 1]), key,
+                cross=lambda *a, i=i: cross(i, *a))
+            losses.append(l)
+            grads.append(g)
+        return torch.stack(losses), tree_map(
+            lambda *gs: torch.stack(gs), *grads)
 
     # ------------------------------------------------------------------
     def forward_boundaries(self, params, x, key=None,
@@ -489,6 +729,15 @@ class SplitExecution:
                 if upto is not None and si >= upto:
                     break
         return out
+
+    def shipped_boundaries(self, params, real, fake, key=None
+                           ) -> Dict[str, List[Tuple[torch.Tensor, ...]]]:
+        """Every boundary tensor one local step ships (fwd activations and
+        bwd activation-grads, both passes), as staged; a pipelined step's
+        per-micro-batch tensors concatenated back to the full batch."""
+        _, _, records = self.run_pipelined(params, (real, fake), key,
+                                           collect=True)
+        return records
 
     def boundary_shapes(self, params, x_shape: Sequence[int],
                         dtype: torch.dtype = torch.float32
@@ -522,12 +771,32 @@ class SplitExecution:
                 prev = p.device_id
         return costs
 
+    def overlap_schedule(self, time_factors: Dict[str, float], *,
+                         lan_latency_s: float = 0.050,
+                         compute_unit_s: float = 0.010,
+                         bwd_fwd_ratio: float = 2.0,
+                         hop_bytes: Optional[Sequence[int]] = None,
+                         lan_bandwidth_bps: float = 100e6,
+                         pipeline_microbatches: Optional[int] = None):
+        """The 1F1B :class:`core.pipeline.OverlapSchedule` of one batch of
+        this plan (K defaults to ``pipeline_microbatches``)."""
+        from repro_torch.core.pipeline import schedule_for
+        k = self.pipeline_microbatches if pipeline_microbatches is None \
+            else int(pipeline_microbatches)
+        return schedule_for(
+            self.segment_costs(), [dev for dev, _ in self.segments],
+            time_factors, num_microbatches=k,
+            compute_unit_s=compute_unit_s, bwd_fwd_ratio=bwd_fwd_ratio,
+            lan_latency_s=lan_latency_s, hop_bytes=hop_bytes,
+            lan_bandwidth_bps=lan_bandwidth_bps)
+
     def round_timeline(self, time_factors: Dict[str, float], *,
                        lan_latency_s: float = 0.050,
                        compute_unit_s: float = 0.010,
                        bwd_fwd_ratio: float = 2.0,
                        hop_bytes: Optional[Sequence[int]] = None,
-                       lan_bandwidth_bps: float = 100e6
+                       lan_bandwidth_bps: float = 100e6,
+                       pipeline_microbatches: Optional[int] = None
                        ) -> Tuple[List[Dict[str, Any]], float]:
         """The ordered phases of ONE local batch under this plan: forward
         segment computes and boundary hops chain down the device list, then
@@ -539,8 +808,45 @@ class SplitExecution:
         ``lan_latency_s + 8*bytes/bw``, else ``lan_latency_s``.  Returns
         ``(phases, batch_time_s)``; the durations sum to
         ``core/simulate.plan_epoch_time``'s per-batch time under the same
-        arguments.
+        arguments.  Pipelined (``K > 1``, defaulting to
+        ``pipeline_microbatches``), the phases are the 1F1B schedule's
+        per-micro-batch spans, which overlap across devices, and the batch
+        time is its makespan (``plan_epoch_time``'s at the same K).
         """
+        k = self.pipeline_microbatches if pipeline_microbatches is None \
+            else int(pipeline_microbatches)
+        if k > 1 and self.num_boundaries > 0:
+            sched = self.overlap_schedule(
+                time_factors, lan_latency_s=lan_latency_s,
+                compute_unit_s=compute_unit_s, bwd_fwd_ratio=bwd_fwd_ratio,
+                hop_bytes=hop_bytes, lan_bandwidth_bps=lan_bandwidth_bps,
+                pipeline_microbatches=k)
+            phases: List[Dict[str, Any]] = []
+            for task in sched.tasks:
+                if task.kind in ("fwd", "bwd"):
+                    dev = task.device
+                    phases.append({
+                        "name": f"{task.kind} {dev} mb{task.microbatch}",
+                        "cat": "segment", "track": dev,
+                        "t0": task.t0, "t1": task.t1,
+                        "args": {"microbatch": task.microbatch,
+                                 "segment": task.index}})
+                else:
+                    b = self.boundaries[task.index]
+                    direction = "fwd" if task.kind == "hop_fwd" else "bwd"
+                    frm, to = (b.from_device, b.to_device) \
+                        if direction == "fwd" \
+                        else (b.to_device, b.from_device)
+                    phases.append({
+                        "name": f"b{b.index} {direction} {frm}->{to} "
+                                f"mb{task.microbatch}",
+                        "cat": "boundary", "track": frm,
+                        "t0": task.t0, "t1": task.t1,
+                        "args": {"boundary": b.index,
+                                 "direction": direction,
+                                 "microbatch": task.microbatch,
+                                 "stage": self.stages[b.index].name}})
+            return phases, sched.makespan
         seg_costs = self.segment_costs()
         bw = max(float(lan_bandwidth_bps), 1.0)
 

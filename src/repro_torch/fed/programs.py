@@ -86,7 +86,11 @@ def make_local_step(optimizer, loss_fn: LossFn, privacy=None, *,
     ``split_exec`` (``core/split.SplitExecution``, or None) selects HOW the
     gradient is computed: None differentiates the monolithic ``loss_fn``;
     a SplitExecution runs the staged split forward/backward, bit-exact with
-    the monolithic gradient under the identity stage.
+    the monolithic gradient under the identity stage.  Under DP-SGD it
+    runs the split's per-example staged step
+    (``SplitExecution.per_example_value_and_grad``), whose boundary-stage
+    noise keys extend ``key``: dp_clip's noise (``key`` itself) stays
+    independent of it.
     """
     if not _is_dp(privacy):
         if split_exec is None:
@@ -105,25 +109,29 @@ def make_local_step(optimizer, loss_fn: LossFn, privacy=None, *,
                 return params, opt, loss
         return step
 
-    if split_exec is not None:
-        raise NotImplementedError(
-            "DP-SGD with the executed split is not ported to repro_torch "
-            "yet (ROADMAP Queue A item 13)")
     from repro_torch.kernels.dp_clip.ops import dp_clip_noise_tree
     clip = float(privacy.clip_norm)
     noise_scale = float(privacy.noise_multiplier) * clip
     use_kernel = bool(privacy.use_kernel)
 
-    def one_example(p, r, f):
-        return loss_fn(p, r[None], f[None])
+    if split_exec is None:
+        def one_example(p, r, f):
+            return loss_fn(p, r[None], f[None])
 
-    per_example_vg = torch.func.vmap(torch.func.grad_and_value(one_example),
-                                     in_dims=(None, 0, 0))
+        grad_one = torch.func.vmap(torch.func.grad_and_value(one_example),
+                                   in_dims=(None, 0, 0))
+
+        def per_example_vg(params, real, fake, key):
+            del key
+            with torch.enable_grad():
+                per_ex, losses = grad_one(
+                    tree_map(torch.Tensor.detach, params), real, fake)
+            return losses, per_ex
+    else:
+        per_example_vg = split_exec.per_example_value_and_grad
 
     def step(params, opt, real, fake, lr, key):
-        with torch.enable_grad():
-            per_ex, losses = per_example_vg(
-                tree_map(torch.Tensor.detach, params), real, fake)
+        losses, per_ex = per_example_vg(params, real, fake, key)
         summed = dp_clip_noise_tree(per_ex, clip, noise_scale, key,
                                     use_kernel=use_kernel)
         del per_ex

@@ -1,6 +1,7 @@
 """The port's privacy slice held against the JAX package on the CPU: the
-dp_clip op, per-example gradients, the DP-SGD step, the uplink DP stage
-and the RDP accountant; plus the in-port pins of DP-SGD and uplink DP.
+dp_clip op, per-example gradients, the DP-SGD step (monolithic and through
+the executed split), the uplink DP stage and the RDP accountant; plus the
+in-port pins of DP-SGD and uplink DP.
 
 On the CPU the port's ``dp_clip_noise_flat`` takes its plain version; it
 must match the JAX Pallas kernel run in interpret mode, fed the same noise
@@ -16,22 +17,37 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_gpu import cuda_fp32  # noqa: F401  (a fixture)
 
 from repro.config import DCGANConfig as JDCGANConfig
 from repro.config import OptimConfig as JOptimConfig
+from repro.config import PrivacyConfig as JPrivacyConfig
+from repro.config import SplitConfig as JSplitConfig
+from repro.core import split as js
+from repro.core.devices import Client as JClient
+from repro.core.devices import Device as JDevice
+from repro.core.gan import bce_logits as jbce_logits
 from repro.core.gan import d_loss_fn as jd_loss_fn
+from repro.core.selection import make_plan as jmake_plan
+from repro.fed.programs import make_local_step as jmake_local_step
 from repro.kernels.dp_clip.ops import dp_clip_noise_flat as jdp_clip_noise_flat
 from repro.kernels.dp_clip.ops import flatten_per_example as jflatten
 from repro.kernels.dp_clip.ops import unflatten_summed as junflatten
 from repro.kernels.dp_clip.ref import dp_clip_noise_ref as jdp_clip_noise_ref
+from repro.models.dcgan import disc_apply_layer as jdisc_apply_layer
 from repro.models.dcgan import disc_init as jdisc_init
+from repro.models.dcgan import disc_layer_costs, disc_layer_names
 from repro.optim import make_optimizer as jmake_optimizer
 from repro.privacy import defenses as jdef
 from repro_torch import keys
 from repro_torch.bridge import params_from_numpy
-from repro_torch.config import DCGANConfig, OptimConfig, PrivacyConfig
+from repro_torch.config import (DCGANConfig, OptimConfig, PrivacyConfig,
+                                SplitConfig)
 from repro_torch.configs.registry import get_config
-from repro_torch.core.gan import FSLGANTrainer, d_loss_fn
+from repro_torch.core import split as ts
+from repro_torch.core.devices import Client, Device
+from repro_torch.core.gan import FSLGANTrainer, bce_logits, d_loss_fn
+from repro_torch.core.selection import make_plan
 from repro_torch.data import partition_dirichlet, synthetic_mnist
 from repro_torch.fed.programs import make_local_step
 from repro_torch.kernels.dp_clip.kernel import dp_clip_noise_kernel
@@ -40,9 +56,10 @@ from repro_torch.kernels.dp_clip.ops import (dp_clip_noise_flat,
                                              flatten_per_example,
                                              unflatten_summed)
 from repro_torch.kernels.dp_clip.ref import dp_clip_noise_ref
+from repro_torch.models.dcgan import disc_apply_layer
 from repro_torch.optim import make_optimizer
 from repro_torch.privacy import defenses as tdef
-from repro_torch.tree import leaves
+from repro_torch.tree import leaves, tree_map
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 SMALL = {"shape.global_batch": 8, "fsl.num_clients": 2,
@@ -290,10 +307,210 @@ def test_dp_step_matches_jax_without_noise():
                                        atol=1e-6, err_msg=str(path))
 
 
-def test_dp_step_refuses_the_executed_split():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_local_step(None, None, PrivacyConfig(enabled=True),
-                        split_exec=object())
+# ---------------------------------------------------------------------------
+# DP-SGD through the executed split: the per-example staged step
+# ---------------------------------------------------------------------------
+
+# the plan of 2 devices (capacities 2, 2; time factors 1, 2) that
+# sorted_single cuts into 4 segments: 3 boundaries, every layer alone
+SPLIT_DEVICES = ([2, 2], [1.0, 2.0])
+LOSSY = ("int8", "fp16", "topk")
+
+
+def _split_execs(name, sigma=0.0, k=1, use_kernel=False):
+    """The port's and the JAX executor of the same plan and stage."""
+    costs = disc_layer_costs(JDCGANConfig(base_filters=8))
+    layers = [(n, costs[n]) for n in disc_layer_names(
+        JDCGANConfig(base_filters=8))]
+    devs = list(zip(*SPLIT_DEVICES))
+    plan = make_plan(Client("c0", [Device(f"d{i}", tf, cap) for i, (cap, tf)
+                                   in enumerate(devs)]),
+                     layers, "sorted_single", 3)
+    jplan = jmake_plan(JClient("c0", [JDevice(f"d{i}", tf, cap) for i,
+                                      (cap, tf) in enumerate(devs)]),
+                       layers, "sorted_single", 3)
+    base = dict(enabled=True, stage_clip=1.0, stage_sigma=sigma,
+                topk_frac=0.1)
+    ex = ts.SplitExecution(
+        plan, functools.partial(disc_apply_layer,
+                                c=DCGANConfig(base_filters=8)),
+        (functools.partial(bce_logits, target=1.0),
+         functools.partial(bce_logits, target=0.0)),
+        stage=ts.make_boundary_stage(SplitConfig(
+            **base, use_kernel=use_kernel), name),
+        pipeline_microbatches=k)
+    jex = js.SplitExecution(
+        jplan, functools.partial(jdisc_apply_layer,
+                                 c=JDCGANConfig(base_filters=8)),
+        (functools.partial(jbce_logits, target=1.0),
+         functools.partial(jbce_logits, target=0.0)),
+        stage=js.make_boundary_stage(JSplitConfig(**base), name),
+        pipeline_microbatches=k)
+    assert ex.num_boundaries == 3
+    return ex, jex
+
+
+def _assert_tree_close(got, want, tol):
+    """Each leaf within ``tol`` of its largest magnitude; the BN-fed
+    biases of the whole tree's largest."""
+    want = [np.asarray(w) for w in want]
+    top = max(float(np.abs(w).max()) for w in want)
+    for path, g, w in zip(_paths(got), leaves(got), want):
+        scale = top if path[-2:] in BN_FED_BIASES else np.abs(w).max()
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=tol * scale,
+                                   err_msg=str(path))
+
+
+@pytest.mark.parametrize("name", ["identity", "fp16", "dp", "int8+dp"])
+def test_per_example_split_grads_match_jax(name):
+    """The batched per-example staged step against ``jax.vmap`` of the
+    JAX executor's step on batches of one (stage noise off): losses at
+    1e-5, gradients at 1e-5 of each leaf's largest.  Through fp16, 1e-3
+    for both: a quantum that flips between frameworks at a crossing of
+    ONE example is not diluted by a batch mean (at this input one fp16
+    flip moves an example's loss by 4e-5 and its classifier-bias
+    gradient by 1.3e-4 of the leaf's largest).  Through int8, one quantum:
+    the classifier's weight gradient is its input times one number, so a
+    flipped input element (1/127 of the crossing's amax) moves it by up to
+    1/127 of the leaf's largest."""
+    jc, c, jparams, real, fake = _d_setup(b=5, seed=3)
+    ex, jex = _split_execs(name)
+    jp = jax.tree.map(jnp.asarray, jparams)
+    jl, jg = jax.vmap(lambda r, f: jex.value_and_grad(
+        jp, r[None], f[None], jax.random.PRNGKey(0)))(jnp.asarray(real),
+                                                        jnp.asarray(fake))
+    tl, tg = ex.per_example_value_and_grad(
+        params_from_numpy(jparams, "cpu"), torch.tensor(real),
+        torch.tensor(fake), keys.root(keys.DP_SGD, 0))
+    assert tl.shape == (5,)
+    tol = {"int8": 1 / 127, "fp16": 1e-3}.get(name.split("+")[0], 1e-5)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=tol)
+    _assert_tree_close(tg, jax.tree.leaves(jg), tol)
+
+
+@pytest.mark.parametrize("name", ["identity", "int8+dp"])
+def test_dp_split_step_matches_jax_without_noise(name):
+    """One DP-SGD step through the split (clip binding, noise off) against
+    the JAX ``make_local_step`` with the JAX executor.  SGD at lr 1 makes
+    the step's update the privatized mean gradient itself (Adam's first
+    step would map each element to +-lr, blowing up the rounding noise of
+    near-zero elements).  The update, read back as params - new params,
+    is held to ``tol`` of each leaf's largest plus 4 ulp of the leaf's
+    largest parameter (the read-back's rounding); ``tol`` is 1e-5, and
+    1e-3 through int8 (a quantum that flips in one example, 1/127 of its
+    crossing's amax, reaches the classifier's gradient through the mean
+    over 5 clipped examples).  The loss at 1e-5 (1e-3 through int8)."""
+    jc, c, jparams, real, fake = _d_setup(b=5, seed=1)
+    ex, jex = _split_execs(name)
+    ocfg = dict(name="sgd", lr=1.0, beta1=0.0, grad_clip=0.0)
+    jopt = jmake_optimizer(JOptimConfig(**ocfg))
+    topt = make_optimizer(OptimConfig(**ocfg))
+    priv = dict(enabled=True, mode="dp_sgd", clip_norm=0.1,
+                noise_multiplier=0.0)
+    jstep = jmake_local_step(jopt, functools.partial(jd_loss_fn, c=jc),
+                             JPrivacyConfig(**priv), split_exec=jex)
+    tstep = make_local_step(topt, functools.partial(d_loss_fn, c=c),
+                            PrivacyConfig(**priv), split_exec=ex)
+    jp = jax.tree.map(jnp.asarray, jparams)
+    jp2, _, jl = jstep(jp, jopt.init(jp), jnp.asarray(real),
+                       jnp.asarray(fake), 1.0, jax.random.PRNGKey(0))
+    tp = params_from_numpy(jparams, "cpu")
+    tp2, _, tl = tstep(tp, topt.init(tp), torch.tensor(real),
+                       torch.tensor(fake), 1.0, keys.root(keys.DP_SGD, 0))
+    tol = 1e-5 if name == "identity" else 1e-3
+    np.testing.assert_allclose(float(tl), float(jl), rtol=tol)
+    starts = jax.tree.leaves(jparams)
+    want = [s - np.asarray(w) for s, w in zip(starts, jax.tree.leaves(jp2))]
+    top = max(float(np.abs(w).max()) for w in want)
+    for path, s, a, w in zip(_paths(tp2), starts, leaves(tp2), want):
+        scale = top if path[-2:] in BN_FED_BIASES else np.abs(w).max()
+        np.testing.assert_allclose(
+            s - a.numpy(), w, rtol=0, err_msg=str(path),
+            atol=tol * scale + 4 * np.spacing(np.abs(s).max()))
+
+
+@pytest.mark.parametrize("name", ["identity", "int8", "topk", "dp",
+                                  "int8+dp", "fp16+dp", "topk+dp"])
+@pytest.mark.parametrize("sigma", [0.0, 0.5])
+def test_batched_per_example_step_matches_the_loop_oracle(name, sigma):
+    """The batched form (vmap per segment, each crossing's stage once on
+    the whole batch) against the loop over examples through ``run``, with
+    the same noise (row i of each crossing's draw): losses at 1e-5,
+    gradients at 1e-5 of each leaf's largest; through a codec both at
+    1e-4 (the batched convolutions sum in another order, ~2e-7, which can
+    flip one quantum)."""
+    _, _, jparams, real, fake = _d_setup(b=6, seed=5)
+    ex, _ = _split_execs(name, sigma)
+    params = params_from_numpy(jparams, "cpu")
+    r, f = torch.tensor(real), torch.tensor(fake)
+    key = keys.fold_in(keys.root(keys.DP_SGD, 2), 0, 1)
+    bl, bg = ex.per_example_value_and_grad(params, r, f, key)
+    ol, og = ex.per_example_oracle(params, r, f, key)
+    tol = 1e-4 if name.split("+")[0] in LOSSY else 1e-5
+    np.testing.assert_allclose(bl.numpy(), ol.numpy(), rtol=tol)
+    _assert_tree_close(bg, leaves(og), tol)
+    if sigma and ex.stochastic:
+        other, _ = ex.per_example_value_and_grad(
+            params, r, f, keys.fold_in(key, 9))
+        assert not torch.equal(other, bl)
+
+
+def _dp_step(ex, noise, use_kernel=False):
+    c = DCGANConfig(base_filters=8)
+    opt = make_optimizer(OptimConfig(name="adam", lr=2e-4, beta1=0.5,
+                                     beta2=0.999))
+    step = make_local_step(
+        opt, functools.partial(d_loss_fn, c=c),
+        PrivacyConfig(enabled=True, mode="dp_sgd", clip_norm=0.1,
+                      noise_multiplier=noise, use_kernel=use_kernel),
+        split_exec=ex)
+    return step, opt
+
+
+def test_dp_split_with_the_identity_stage_matches_dp_without_split():
+    """Noise on (the same dp_clip draw from the same key): the parameters
+    after one Adam step at 1e-6, BN-fed biases within lr of their start;
+    the loss at 1e-6."""
+    _, _, jparams, real, fake = _d_setup(b=6, seed=2)
+    ex, _ = _split_execs("identity")
+    params = params_from_numpy(jparams, "cpu")
+    key = keys.root(keys.DP_SGD, 4)
+    out = []
+    for split in (ex, None):
+        step, opt = _dp_step(split, 1.0)
+        out.append(step(params, opt.init(params), torch.tensor(real),
+                        torch.tensor(fake), 2e-4, key))
+    (sp, _, sl), (mp, _, ml) = out
+    np.testing.assert_allclose(float(sl), float(ml), rtol=1e-6)
+    for path, a, b, s in zip(_paths(sp), leaves(sp), leaves(mp),
+                             leaves(params)):
+        if path[-2:] in BN_FED_BIASES:
+            for side in (a, b):
+                np.testing.assert_allclose(side.numpy(), s.numpy(), rtol=0,
+                                           atol=2e-4)
+        else:
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
+                                       atol=1e-6, err_msg=str(path))
+
+
+@pytest.mark.parametrize("name", ["identity", "int8+dp"])
+def test_dp_split_at_k4_equals_k1_bit_for_bit(name):
+    """A batch of one is never pipelined (effective_microbatches(1, K) ==
+    1), so K = 4 runs the same per-example step: equal bit for bit, noise
+    on in both the stage and dp_clip."""
+    _, _, jparams, real, fake = _d_setup(b=8, seed=6)
+    params = params_from_numpy(jparams, "cpu")
+    key = keys.root(keys.DP_SGD, 8)
+    out = []
+    for k in (4, 1):
+        ex, _ = _split_execs(name, 0.5, k=k)
+        step, opt = _dp_step(ex, 1.0)
+        out.append(step(params, opt.init(params), torch.tensor(real),
+                        torch.tensor(fake), 2e-4, key))
+    (p4, o4, l4), (p1, o1, l1) = out
+    assert torch.equal(l4, l1)
+    for a, b in zip(leaves(p4) + leaves(o4), leaves(p1) + leaves(o1)):
+        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------
@@ -439,6 +656,40 @@ def test_noisy_dp_sgd_runs_repeat_bit_for_bit(parts):
                            leaves(tc.state.d_params["c0"])[0])
 
 
+TIMES = ("round_time_s", "clock_s")
+SPLIT_DP = {**DP, "privacy.noise_multiplier": 1.0, "split.enabled": True,
+            "split.boundary_stage": "int8+dp", "split.stage_sigma": 0.5}
+
+
+def test_dp_split_rounds_repeat_and_k4_equals_k1(parts):
+    """DP-SGD through the split, noise on in the stage and in dp_clip: a
+    seed fixes the run, K = 4 trains as K = 1 bit for bit (only the
+    virtual round time differs: it is priced pipelined), epsilon grows as
+    the accountant's, and the LAN bytes are the split's measured ones."""
+    ta, tb = _trainer(parts, SPLIT_DP), _trainer(parts, SPLIT_DP)
+    tk = _trainer(parts, {**SPLIT_DP, "split.pipeline_microbatches": 4})
+    assert all(ex.pipeline_microbatches == 4
+               for ex in tk.split_execs.values())
+    eps = []
+    for _ in range(2):
+        ma = ta.train_epoch(batches_per_client=1)
+        assert ma == tb.train_epoch(batches_per_client=1)
+        mk = tk.train_epoch(batches_per_client=1)
+        # K prices the round by the 1F1B schedule, as in the reference
+        assert mk["round_time_s"] < ma["round_time_s"]
+        assert {k: v for k, v in mk.items() if k not in TIMES} == \
+            {k: v for k, v in ma.items() if k not in TIMES}
+        eps.append(ma["dp_epsilon"])
+    _assert_same_state(ta, tb)
+    _assert_same_state(ta, tk)
+    acct = tdef.RDPAccountant(1.0, 1.0)
+    acct.step(2 * len(ta.client_ids))
+    assert eps[1] > eps[0] > 0 and eps[1] == acct.epsilon(1e-5)[0]
+    want = sum(ex.step_wire_bytes(ta.state.d_params[cid], (8, 28, 28, 1))[0]
+               for cid, ex in ta.split_execs.items())
+    assert ma["lan_mbytes"] == want / 1e6
+
+
 def test_dp_epsilon_grows_with_rounds(parts):
     tr = _trainer(parts, {**DP, "privacy.noise_multiplier": 1.0})
     eps = [tr.train_epoch(batches_per_client=1)["dp_epsilon"]
@@ -510,3 +761,43 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         dp_clip_noise_kernel(x, 1.0, 0.0, z[:4])
     with pytest.raises(ValueError):
         dp_clip_noise_kernel(x[:, :0].contiguous(), 1.0, 0.0, z[:0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["int8+dp", "fp16+dp", "none+dp"])
+def test_per_example_split_step_launches_one_kernel_a_crossing_on_gpu(
+        cuda_fp32, name):
+    """The batched per-example staged step on the card: ONE boundary_fuse
+    launch (amax="row") a crossing for the whole batch — 2 passes x 2
+    directions x 3 boundaries = 12 — and one dp_clip launch a DP step;
+    held against the loop oracle (which launches a kernel per example).
+    cuDNN may take other convolution algorithms for the batched and the
+    single-example shapes (~1e-5 relative), and through a codec that can
+    flip a quantum in one example: losses and gradients (of each leaf's
+    largest) at 1e-4, through fp16 at 1e-3, through int8 the gradients at
+    one quantum, 1/127 (test_per_example_split_grads_match_jax says
+    why)."""
+    from repro_torch.kernels.boundary_fuse.kernel import boundary_fuse_kernel
+    _, _, jparams, real, fake = _d_setup(b=16, seed=7)
+    ex, _ = _split_execs(name, 0.5, use_kernel=True)
+    params = params_from_numpy(jparams, cuda_fp32)
+    r = torch.tensor(real, device=cuda_fp32)
+    f = torch.tensor(fake, device=cuda_fp32)
+    key = keys.root(keys.DP_SGD, 3)
+    before = boundary_fuse_kernel.launches
+    bl, bg = ex.per_example_value_and_grad(params, r, f, key)
+    assert boundary_fuse_kernel.launches - before == 12
+    ol, og = ex.per_example_oracle(params, r, f, key)
+    assert boundary_fuse_kernel.launches - before == 12 + 16 * 12
+    codec = name.split("+")[0]
+    np.testing.assert_allclose(bl.cpu().numpy(), ol.cpu().numpy(),
+                               rtol=1e-4 if codec == "none" else 1e-3)
+    _assert_tree_close(tree_map(torch.Tensor.cpu, bg),
+                       [g.cpu() for g in leaves(og)],
+                       {"int8": 1 / 127, "fp16": 1e-3}.get(codec, 1e-4))
+    step, opt = _dp_step(ex, 1.0, use_kernel=True)
+    b0, d0 = boundary_fuse_kernel.launches, dp_clip_noise_kernel.launches
+    p2, _, _ = step(params, opt.init(params), r, f, 2e-4, key)
+    assert (boundary_fuse_kernel.launches - b0,
+            dp_clip_noise_kernel.launches - d0) == (12, 1)
+    assert all(bool(torch.isfinite(l).all()) for l in leaves(p2))

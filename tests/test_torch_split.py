@@ -434,10 +434,58 @@ def test_forward_boundaries_and_partition():
     assert ts.tensor_wire_bytes((2, 3)) == js.tensor_wire_bytes((2, 3))
 
 
-def test_pipelined_split_is_not_ported():
-    plan, _ = _plan("sorted_single")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.SplitExecution(plan, None, (), pipeline_microbatches=2)
+# ---------------------------------------------------------------------------
+# the stages' per-example forms (DP-SGD through the split)
+# ---------------------------------------------------------------------------
+
+def _rows_x(b=6, seed=8):
+    """(B, 7, 7, 4) boundary tensor whose rows span three decades, so a
+    per-row int8 amax and top-k differ from the whole tensor's."""
+    return torch.tensor(_x_rows(b, 196, seed)[0]).reshape(b, 7, 7, 4)
+
+
+@pytest.mark.parametrize("name", STAGES)
+@pytest.mark.parametrize("sigma", [0.0, 0.5])
+def test_per_example_form_is_apply_on_each_row_alone(name, sigma):
+    """Row i of the per-example form is the stage applied to example i
+    alone, bit for bit: ``apply(x[i:i+1])`` for a stage without noise; for
+    a noisy one, the single-row form fed row i of ONE (B, N) draw from the
+    crossing's key (the port's per-example noise contract)."""
+    cfg, _ = _scfg(stage_sigma=sigma)
+    st = ts.make_boundary_stage(cfg, name)
+    x = _rows_x()
+    key = keys.root(keys.STAGE, 21)
+    got = st.apply_per_example(x, key)
+    assert got.shape == x.shape
+    noise = keys.normal(key, (6, 196), "cpu")
+    for i in range(6):
+        if sigma and st.stochastic:
+            want = st.apply_per_example(x[i:i + 1], noise=noise[i:i + 1])
+        else:
+            want = st.apply(x[i:i + 1], key)
+        assert torch.equal(got[i:i + 1], want), i
+    if sigma and st.stochastic:
+        quiet = ts.make_boundary_stage(_scfg(stage_sigma=0.0)[0], name)
+        assert not torch.equal(got, quiet.apply_per_example(x, key))
+    if name.split("+")[0] in ("int8", "topk"):
+        assert not torch.equal(got, st.apply(x, key))
+
+
+@pytest.mark.parametrize("name", STAGES)
+def test_per_example_form_matches_jax_on_each_row(name):
+    """Noise off, the port's per-example form against the JAX stage
+    applied to each example alone (what the reference computes under
+    ``jax.vmap``): the codec's qdq is the reference's bit for bit, the
+    clip's norm sums in another order, so rtol 1e-5 / atol 1e-6."""
+    cfg, jcfg = _scfg(stage_sigma=0.0)
+    st, jst = ts.make_boundary_stage(cfg, name), js.make_boundary_stage(
+        jcfg, name)
+    x = _rows_x(seed=9)
+    got = st.apply_per_example(x, keys.root(keys.STAGE, 0))
+    want = np.concatenate([np.asarray(jst.apply(
+        jnp.asarray(x[i:i + 1].numpy()), jax.random.PRNGKey(0)))
+        for i in range(6)])
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
 # ---------------------------------------------------------------------------
@@ -471,6 +519,31 @@ def test_identity_split_round_equals_unsplit_round_bit_for_bit(parts):
         assert ma["lan_mbytes"] > 0 and "lan_mbytes" not in mb
     for a, b in zip(leaves(ta.state.d_params["c0"]),
                     leaves(tb.state.d_params["c0"])):
+        assert torch.equal(a, b)
+
+
+def test_pipelined_split_rounds(parts):
+    """``split.pipeline_microbatches``: K = 1 is the unpipelined trainer
+    bit for bit; K = 2 (4 micro-batches of 2 clamp to a divisor of 8:
+    K = 3 runs as 2) trains, measures the same LAN bytes, prices the round
+    by the 1F1B schedule."""
+    over = {"split.enabled": True, "split.boundary_stage": "int8+dp",
+            "split.stage_sigma": 0.5}
+    t1 = _trainer(parts, {**over, "split.pipeline_microbatches": 1})
+    t0 = _trainer(parts, over)
+    tk = _trainer(parts, {**over, "split.pipeline_microbatches": 3})
+    assert tk._pipeline_k() == 2 and t1._pipeline_k() == 1
+    assert all(("pipeline", 2) in ex.signature
+               for ex in tk.split_execs.values())
+    for _ in range(2):
+        m1, m0, mk = (t.train_epoch(batches_per_client=1)
+                      for t in (t1, t0, tk))
+        assert m1 == m0
+        assert mk["lan_mbytes"] == m0["lan_mbytes"]
+        assert mk["round_time_s"] < m0["round_time_s"]
+        assert np.isfinite(mk["d_loss"]) and mk["d_loss"] != m0["d_loss"]
+    for a, b in zip(leaves(t1.state.d_params["c0"]),
+                    leaves(t0.state.d_params["c0"])):
         assert torch.equal(a, b)
 
 

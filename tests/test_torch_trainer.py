@@ -146,6 +146,18 @@ PRIVATE_AND_SPLIT = {
     "split_int8_dp": {"split.enabled": True,
                       "split.boundary_stage": "int8+dp",
                       "split.stage_sigma": 0.0},
+    # 4 micro-batches of 2 a batch, through the fused int8+dp stage
+    "split_pipelined": {"split.enabled": True,
+                        "split.boundary_stage": "int8+dp",
+                        "split.stage_sigma": 0.0,
+                        "split.pipeline_microbatches": 4},
+    # DP-SGD through the split: the per-example staged step through the
+    # fused clip stage (its codec-free form), then dp_clip
+    "dp_sgd_split": {"privacy.enabled": True, "privacy.mode": "dp_sgd",
+                     "privacy.clip_norm": 0.1,
+                     "privacy.noise_multiplier": 0.0,
+                     "split.enabled": True, "split.boundary_stage": "dp",
+                     "split.stage_sigma": 0.0},
 }
 
 
@@ -190,6 +202,49 @@ def test_private_and_split_rounds_match_jax(parts, case):
             else:
                 np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-4,
                                            err_msg=str(path))
+
+
+def test_dp_sgd_split_int8_round_matches_jax(parts):
+    """One round of DP-SGD through the split with the fused int8+dp stage
+    (noise off) against the JAX trainer, both with SGD (no momentum, no
+    clip) so that each parameter's change over the round is lr times its
+    summed privatized gradients: a gradient of the wrong size moves it in
+    proportion, where Adam's update would not.  Each example crosses
+    alone, so an int8 quantum that flips between frameworks moves that
+    example's gradient by up to one quantum, 1/127 of the leaf's largest
+    (test_torch_privacy.py's test_per_example_split_grads_match_jax says
+    why), and the clip and the mean over examples only shrink it.  So:
+    the losses at 1e-4 relative; every leaf's change within 1/127 of its
+    largest change, the BN-fed biases (whose gradient is rounding noise)
+    within 1/127 of the tree's largest change, plus 4 ulp of the leaf's
+    largest parameter (the read-back's rounding)."""
+    over = {**SMALL, **KERNEL, **PRIVATE_AND_SPLIT["dp_sgd_split"],
+            "split.boundary_stage": "int8+dp", "optim.name": "sgd",
+            "optim.beta1": 0.0, "optim.grad_clip": 0.0}
+    jtr = JTrainer(jget_config("dcgan-mnist").override(over), parts, seed=0)
+    cid0 = jtr.client_ids[0]
+    init = (_np(jtr.state.g_params), _np(jtr.state.d_params[cid0]))
+    tr = _port_trainer(parts, over, init)
+    jm = jtr.train_epoch(batches_per_client=BATCHES)
+    m = tr.train_epoch(batches_per_client=BATCHES)
+    assert set(m) == set(jm)
+    for k in ("d_loss", "g_loss"):
+        np.testing.assert_allclose(m[k], jm[k], rtol=1e-4, err_msg=k)
+    for k in set(m) - {"d_loss", "g_loss"}:
+        assert m[k] == jm[k], k
+    g0, d0 = init
+    for got, want, start in (
+            (tr.state.g_params, _np(jtr.state.g_params), g0),
+            (tr.state.d_params[cid0], _np(jtr.state.d_params[cid0]), d0)):
+        starts = jax.tree.leaves(start)
+        moved = [s - w for s, w in zip(starts, jax.tree.leaves(want))]
+        top = max(float(np.abs(w).max()) for w in moved)
+        assert top > 0.0
+        for path, g, w, s in zip(_paths(got), leaves(got), moved, starts):
+            scale = top if path[-2:] in BN_FED_BIASES else np.abs(w).max()
+            np.testing.assert_allclose(
+                s - g.numpy(), w, rtol=0, err_msg=str(path),
+                atol=scale / 127 + 4 * np.spacing(np.abs(s).max()))
 
 
 # The compressed-domain server reduce, the edge hierarchy and the async
@@ -419,11 +474,8 @@ def test_trainer_runs_on_the_gpu_unless_told_otherwise(parts, monkeypatch):
 
 
 @pytest.mark.parametrize("over", [
-    {"split.enabled": True, "split.pipeline_microbatches": 2},
     {"fed.backend": "vectorized"},
     {"fed.backend": "auto"}, {"fed.shard_clients": True},
-    {"split.enabled": True, "privacy.enabled": True,
-     "privacy.mode": "dp_sgd"},
     {"privacy.enabled": True, "control.mode": "adaptive"},
     {"control.mode": "adaptive"}, {"obs.enabled": True},
     {"obs.health.enabled": True},
@@ -437,15 +489,19 @@ def test_unported_option_raises(parts, over):
 @pytest.mark.parametrize("over", [
     {"fed.mode": "fedasync"}, {"fed.mode": "fedbuff"},
     {"fed.server_reduce": "stream"}, {"fed.hierarchy_cohorts": 2},
+    {"split.enabled": True, "split.pipeline_microbatches": 2},
+    {"split.enabled": True, "privacy.enabled": True,
+     "privacy.mode": "dp_sgd"},
 ])
 def test_ported_option_runs_one_round(parts, over):
-    """The options this slice ported, which used to raise: one CPU round
-    each, with finite losses and both clients' updates landed."""
+    """Options ported since the first slice, which used to raise: one CPU
+    round each, with finite losses and both clients' updates landed."""
     tr = _port_trainer(parts, {**SMALL, **over})
     m = tr.train_epoch(batches_per_client=1)
     assert np.isfinite(m["d_loss"]) and np.isfinite(m["g_loss"])
     assert m["num_clients"] == 2
     assert ("edge_mbytes" in m) == ("fed.hierarchy_cohorts" in over)
+    assert ("lan_mbytes" in m) == ("split.enabled" in over)
 
 
 def test_unported_backend_argument_raises(parts):
