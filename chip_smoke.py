@@ -8,14 +8,18 @@ Phases; a failure in any of them ends the script with a traceback and a
 non-zero exit, and no result line:
 
 1. the card — CUDA required; nvidia-smi's name and power limit printed;
-   TF32 off, since the configuration computes in float32;
+   cuDNN's TF32 flag left at PyTorch's default (on): the trainer's entry
+   points compute their convolutions in float32 themselves, and the
+   direct module calls that compare convolutions take the same guard;
 2. build — every kernel (fedavg, dp_clip, boundary_fuse, agg_fuse,
    flash_attention, wkv6), from ``src/repro_torch/csrc``, one ``nvcc``
    (sm_90a) per source, all started together;
 3. kernel vs plain — each kernel on the card at the shapes the main paths
    give it, and at ragged sizes and edge cases, held against its plain
    PyTorch version (boundary_fuse also as the per-example int8+dp stage at
-   the DP-SGD split path's crossings, one ``amax="row"`` launch each);
+   the DP-SGD split path's crossings, one ``amax="row"`` launch each, and
+   at the vectorized DP-SGD split's crossings: each signature group's
+   C x B rows, its clients' noise draws concatenated);
    kernel, plain and library-call times from CUDA events,
    beside the card's bound for the same work (fedavg's also with the L2
    flushed before every call);
@@ -39,7 +43,19 @@ non-zero exit, and no result line:
    stream reduce (scatter_acc, one launch a fold: 10); the edge hierarchy
    (2 cohorts) with int8 and the stream reduce (dequant_acc 10, fedavg 2)
    and with the decode reduce (fedavg 6: each cohort's pre-reduce and the
-   server's average, one launch each a round).  Then the LM substrate at
+   server's average, one launch each a round); the first five again under
+   ``fed.backend="vectorized"`` (the clients of a split signature stacked
+   under ``torch.func.vmap``; fedavg 2 each; dp_clip 20, one a client a
+   step; boundary_fuse 112 and 448, one a crossing a client; on the
+   DP-SGD split 4 x each signature group's boundaries x 2 x 2, one
+   ``amax="row"`` launch a crossing a group), each warm round printed
+   beside its loop path's; ``fed.backend="auto"`` on the plain, split and
+   DP-SGD split paths (fedavg 2; the probe's dispatch runs the step's
+   kernels for 4 loop and 4 vectorized rounds more: a warm-up and 3 timed
+   runs each), with the probe's
+   two times and its pick beside the loop and vectorized warm rounds; and
+   ``fed.shard_clients`` on one card (no mesh) against the unsharded
+   vectorized round, bit for bit.  Then the LM substrate at
    full width: ``lm_loss`` forward (``torch.no_grad``,
    ``parallel.use_flash_kernel``) and ``serve_batch`` (4 requests, 16
    greedy tokens, bf16 cache) on qwen3-14b (40 layers, bf16, 29.5 GB;
@@ -66,11 +82,16 @@ non-zero exit, and no result line:
    against DP-SGD unsplit, and through the int8+dp split at K = 4 against
    K = 1 (bit for bit), the LM forward through the kernels against the
    plain path, and prefill + decode against the teacher-forced forward
-   (full and sliding-window caches).
+   (full and sliding-window caches); over 3 clients the vectorized round
+   against the loop round (plain, DP-SGD, split) at the reference's
+   tolerances, ``fed.shard_clients`` on one card against the unsharded
+   vectorized round, and rounds with cuDNN's TF32 flag on globally
+   against the same rounds with it off, both bit for bit.
 
 Prints ``{"kernels": [...]}`` on a line of its own and, as the last line,
 ``{"ok": true, "device": {...}}``.
 """
+import functools
 import json
 import math
 import os
@@ -103,15 +124,34 @@ HBM_BPS, FP32_FLOPS = 3.35e12, 67e12
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-6)
 # Biases that feed straight into a batch norm have a zero analytic
 # gradient; Adam turns their rounding-noise gradient into steps of about
-# +-lr whose sign the noise picks, so they are held to lr x steps of drift
-# from the start instead of to the reference.
+# +-lr whose sign the noise picks, so they are held to the most Adam can
+# move them from the start (``adam_reach``) instead of to the reference.
 BN_FED_BIASES = {("conv1", "b"), ("conv2", "b"), ("deconv0", "b"),
                  ("deconv1", "b")}
+# the D biases the reference's backend comparisons skip (their gradient is
+# rounding noise that Adam turns into steps of about lr), and its
+# tolerances there (tests/test_fed_runtime.py)
+DEAD_BIASES = {("conv1", "b"), ("conv2", "b")}
+VEC_LOSS_TOL, VEC_PARAM_TOL = 1e-5, 5e-5
+# each main path's round wall times, seconds (drive_path)
+WALLS = {}
 
 
 def check(cond, msg):
     if not cond:
         raise RuntimeError(msg)
+
+
+def fp32_convs(fn):
+    """``fn`` under the port's fp32-convolution guard: a direct module call
+    that compares or times convolutions computes them as the trainer's
+    entry points do, whatever the global cuDNN TF32 flag says."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        from repro_torch.device import fp32_convolutions
+        with fp32_convolutions():
+            return fn(*args, **kwargs)
+    return wrapped
 
 
 def time_ms(fn, iters=200):
@@ -559,7 +599,10 @@ def phase_boundary_fuse(dev):
     hold on chip, x 4 bytes off a 16-byte boundary, an all-zero tensor
     (int8 scale 1.0), noise 0 and > 0 with injected noise, one launch a
     call, and the qdq before the clip bit for bit; a NaN in both amax
-    modes; then times at the main path's shapes."""
+    modes; the per-example stage at the DP-SGD split's crossings, and at
+    the vectorized DP-SGD split's group crossings
+    (``vectorized_group_crossings``); then times at the main path's
+    shapes."""
     from repro_torch.core.split import (CodecBoundaryStage,
                                         GaussianBoundaryStage)
     from repro_torch.fed.transport import make_codec
@@ -663,6 +706,10 @@ def phase_boundary_fuse(dev):
           f"path's crossings {[s_[1:] for s_ in dp_shapes]} x {BATCH} "
           f"examples, rows over 3 decades, noise 0.5): 1 amax=row launch "
           f"each, equal to the plain stage within {KERNEL_TOL}")
+    group_err, group_cases = vectorized_group_crossings(dev, gen)
+    max_abs = max(max_abs, group_err)
+    n_cases += len(group_cases)
+    calls += len(group_cases)
     print(f"boundary_fuse vs plain: {n_cases} cases (codecs none/fp16/int8, "
           f"amax tensor/row, {[s[:2] for s in shapes]}, x 1 and 3 floats "
           f"off a 16-byte boundary), max abs err {max_abs:.3e} (tolerance "
@@ -707,6 +754,64 @@ def phase_boundary_fuse(dev):
             "launches": None, "max_abs_err": max_abs,
             "ms": d["kernel"], "plain_ms": d["plain"], "bound_ms": bound,
             "bound_by": by, "library_ms": d["library"]}
+
+
+def vectorized_group_crossings(dev, gen):
+    """The vectorized dp-sgd split path's crossings, kernel against plain:
+    for each signature group of the full-width plans, one amax="row"
+    launch a crossing over the group's C x B rows, its noise each client's
+    (B, N) draw from its crossing key, concatenated
+    (``SplitExecution.group_noise``, as ``clients_per_example_value_and_
+    grad`` builds it); forward crossings carry activations, backward ones
+    gradients (scaled 1e-4).  Returns the largest error and the (rows, N)
+    of each case."""
+    from repro_torch import keys
+    from repro_torch.core.split import FusedBoundaryStage
+    from repro_torch.kernels.boundary_fuse.kernel import boundary_fuse_kernel
+
+    tr = full_width_trainer({**DP_SGD, **SPLIT,
+                             "fed.backend": "vectorized"})
+    groups = {}
+    for cid, ex in tr.split_execs.items():
+        groups.setdefault(ex.signature, (ex, []))[1].append(cid)
+    max_abs, group_cases = 0.0, []
+    for gi, (ex, cids) in enumerate(groups.values()):
+        c = len(cids)
+        ks = [keys.fold_in(keys.root(keys.DP_SGD, 100 + gi), i)
+              for i in range(c)]
+        for si, shape in enumerate(ex.boundary_shapes(
+                tr.state.d_params[cids[0]], (BATCH, 28, 28, 1))):
+            stage = ex.stages[si]
+            check(isinstance(stage, FusedBoundaryStage) and stage.use_kernel,
+                  f"the trainer's stage {stage.signature} is not the fused "
+                  f"kernel stage")
+            plain = FusedBoundaryStage(stage.codec_name, stage.clip,
+                                       stage.sigma)
+            n = math.prod(shape[1:])
+            for direction, scale in ((0, 1.0), (1, 1e-4)):
+                x = torch.randn((c * BATCH,) + tuple(shape[1:]),
+                                generator=gen, device=dev) * scale \
+                    * torch.logspace(-3, 0, c * BATCH, device=dev).view(
+                        (-1,) + (1,) * (len(shape) - 1))
+                noise = ex.group_noise(ks, si, 0, direction, BATCH, n, dev)
+                before = boundary_fuse_kernel.launches
+                got = stage.apply_per_example(x, noise=noise)
+                check(boundary_fuse_kernel.launches == before + 1,
+                      f"a group crossing over {c} x {BATCH} rows did not "
+                      f"launch boundary_fuse once")
+                want = plain.apply_per_example(x, noise=noise)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got, want, **KERNEL_TOL)
+                max_abs = max(max_abs, float((got - want).abs().max()))
+                group_cases.append((c * BATCH, n))
+    del tr
+    print(f"boundary_fuse per-example int8+dp stage at the vectorized "
+          f"dp-sgd split path's group crossings ({len(groups)} signature "
+          f"groups of {sorted(len(g[1]) for g in groups.values())} "
+          f"clients; (rows, N) {sorted(set(group_cases))}, forward and "
+          f"backward, each client's noise draw concatenated): 1 amax=row "
+          f"launch each, equal to the plain stage within {KERNEL_TOL}")
+    return max_abs, group_cases
 
 
 def encode_round(dev, codec_name, sizes, seed, clients=CLIENTS):
@@ -1148,36 +1253,29 @@ def kernel_wrappers():
             "wkv6": wkv6_kernel}
 
 
-def drive_path(dev, label, over, parts, expect):
+def drive_path(dev, label, over, expect):
     """One main path: ``train_epoch`` at full width, ROUNDS x BATCHES, with
     every kernel's launch count set to 0 just before and read just after.
     Checks finite losses, every parameter finite on the card, and each
     kernel's launches: ``expect[name]`` for the kernels the path runs, 0
     for every other (``expect`` may be a function of the trainer)."""
-    from repro_torch.configs.registry import get_config
-    from repro_torch.core.gan import FSLGANTrainer
     from repro_torch.tree import leaves
 
-    cfg = get_config("dcgan-mnist").override(
-        {"fed.kernel_aggregation": True, **over})
-    c = cfg.model.dcgan
-    check((cfg.fsl.num_clients, cfg.shape.global_batch, c.base_filters,
-           c.latent_dim, cfg.optim.lr) == (CLIENTS, BATCH, 64, 100, 2e-4),
-          "dcgan-mnist is not at full width")
-    tr = FSLGANTrainer(cfg, parts, seed=0)
+    tr = full_width_trainer(over)
     wrappers = kernel_wrappers()
     for w in wrappers.values():
         w.launches = 0
-    hist = []
+    hist, walls = [], WALLS.setdefault(label, [])
     for r in range(ROUNDS):
         t0 = time.perf_counter()
         m = tr.train_epoch(batches_per_client=BATCHES)
         torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
         hist.append(m)
         extra = "".join(f", {k} {m[k]:.6g}" for k in (
             "dp_epsilon", "lan_mbytes", "edge_mbytes", "codec_error")
             if k in m)
-        print(f"{label} round {r}: wall {time.perf_counter() - t0:.3f} s, "
+        print(f"{label} round {r}: wall {walls[-1]:.3f} s, "
               f"d_loss {m['d_loss']:.6f}, g_loss {m['g_loss']:.6f}, clients "
               f"{m['num_clients']:.0f}, virtual round "
               f"{m['round_time_s']:.1f} s, up {m['up_mbytes']:.3f} MB{extra}")
@@ -1206,16 +1304,20 @@ def drive_path(dev, label, over, parts, expect):
     return tr, hist, counts
 
 
-def profile_round(tr, label, expect_fuse):
+def profile_round(tr, label, expect_fuse, top=0):
     """One more warm round of ``tr`` under ``torch.profiler``: the
     boundary_fuse launches in it (held to ``expect_fuse`` when the trace
-    has kernels) and their device time, and the time of all its kernels."""
+    has kernels) and their device time, the time of all its kernels
+    against the round's wall time (profiler on), and with ``top`` the
+    kernels that took the most device time, summed by name."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         tr.train_epoch(batches_per_client=BATCHES)
         torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
@@ -1230,13 +1332,30 @@ def profile_round(tr, label, expect_fuse):
     check(len(fuse) == expect_fuse, f"{label}: {len(fuse)} boundary_fuse "
           f"kernels in the profiled round, expected {expect_fuse}")
     ms = sum(fuse) / 1e3
+    # busy: the union of the kernels' intervals (cuDNN overlaps some)
+    busy, end = 0.0, float("-inf")
+    for k in sorted(kernels, key=lambda k: k["ts"]):
+        busy += max(0.0, k["ts"] + k["dur"] - max(k["ts"], end))
+        end = max(end, k["ts"] + k["dur"])
+    busy /= 1e3
     print(f"{label}: profiled round: boundary_fuse {len(fuse)} launches, "
           f"{ms:.4f} ms on the device ({ms / max(len(fuse), 1):.4f} ms a "
           f"launch); all {len(kernels)} kernels "
-          f"{sum(k['dur'] for k in kernels) / 1e3:.3f} ms")
+          f"{sum(k['dur'] for k in kernels) / 1e3:.3f} ms, busy {busy:.3f} "
+          f"ms of a {wall * 1e3:.1f} ms round (busy share "
+          f"{busy / wall / 1e3:.3f})")
+    by_name = {}
+    for k in kernels:
+        n, t = by_name.get(k["name"], (0, 0.0))
+        by_name[k["name"]] = (n + 1, t + k["dur"] / 1e3)
+    for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[
+            :top]:
+        print(f"{label}:   {t:8.3f} ms in {n:5d} launches of "
+              f"{name[:90]}")
     return ms
 
 
+@fp32_convs
 def time_per_example_steps(tr):
     """Full width, a batch of the client whose plan has the most
     boundaries: the per-example staged step through the split against the
@@ -1284,16 +1403,34 @@ def time_per_example_steps(tr):
     return t
 
 
+@functools.lru_cache(maxsize=None)
+def full_width_parts():
+    """The main paths' client data: the paper's 24 batches x 256 examples
+    per client, over CLIENTS Dirichlet partitions."""
+    from repro_torch.data import partition_dirichlet, synthetic_mnist
+    imgs, labels = synthetic_mnist(24 * BATCH * CLIENTS, seed=0)
+    return partition_dirichlet(imgs, labels, CLIENTS, alpha=0.5, seed=0)
+
+
+def full_width_trainer(over):
+    """An ``FSLGANTrainer`` on dcgan-mnist at full width, on the card."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.gan import FSLGANTrainer
+    cfg = get_config("dcgan-mnist").override(
+        {"fed.kernel_aggregation": True, **over})
+    c = cfg.model.dcgan
+    check((cfg.fsl.num_clients, cfg.shape.global_batch, c.base_filters,
+           c.latent_dim, cfg.optim.lr) == (CLIENTS, BATCH, 64, 100, 2e-4),
+          "dcgan-mnist is not at full width")
+    return FSLGANTrainer(cfg, full_width_parts(), seed=0)
+
+
 def phase_main_paths(dev):
     from repro_torch.configs.registry import get_config
-    from repro_torch.data import partition_dirichlet, synthetic_mnist
     from repro_torch.fed.transport import predict_codec_bytes
     from repro_torch.models.dcgan import disc_init
     from repro_torch.tree import leaves
 
-    # the paper's 24 batches x 256 examples per client
-    imgs, labels = synthetic_mnist(24 * BATCH * CLIENTS, seed=0)
-    parts = partition_dirichlet(imgs, labels, CLIENTS, alpha=0.5, seed=0)
     sizes = [l.numel() for l in leaves(disc_init(
         torch.Generator().manual_seed(0),
         get_config("dcgan-mnist").model.dcgan, "meta"))]
@@ -1301,19 +1438,21 @@ def phase_main_paths(dev):
     folds = CLIENTS * ROUNDS            # agg_fuse: one launch a client's fold
     launches = {}
 
-    tr, _, counts = drive_path(dev, "main path", {}, parts,
+    tr, _, counts = drive_path(dev, "main path", {},
                                {"fedavg": reduce_round})
+    profile_round(tr, "main path", 0, top=6)
     launches["fedavg"] = counts["fedavg"]
     img = tr.generate(16)
     check(img.shape == (16, 28, 28, 1) and np.isfinite(img).all()
           and np.abs(img).max() <= 1.0, "generated images out of shape/range")
 
     tr, hist, _ = drive_path(
-        dev, "dp-sgd path", DP_SGD, parts,
+        dev, "dp-sgd path", DP_SGD,
         {"fedavg": reduce_round, "dp_clip": CLIENTS * BATCHES * ROUNDS})
     eps = [m["dp_epsilon"] for m in hist]
     check(all(math.isfinite(e) for e in eps) and eps[1] > eps[0] > 0,
           f"dp_epsilon not finite and growing: {eps}")
+    profile_round(tr, "dp-sgd path", 0, top=6)
     launches["dp_clip"] = CLIENTS * BATCHES * ROUNDS
 
     def split_launches(tr):
@@ -1323,7 +1462,7 @@ def phase_main_paths(dev):
             4 * ex.num_boundaries * BATCHES * ROUNDS
             for ex in tr.split_execs.values())}
 
-    tr, hist, counts = drive_path(dev, "split path", SPLIT, parts,
+    tr, hist, counts = drive_path(dev, "split path", SPLIT,
                                   split_launches)
     bounds = sum(ex.num_boundaries for ex in tr.split_execs.values())
     want = counts["boundary_fuse"]
@@ -1354,7 +1493,7 @@ def phase_main_paths(dev):
 
     tr, phist, counts = drive_path(
         dev, "pipelined split path",
-        {**SPLIT, "split.pipeline_microbatches": PIPELINE_K}, parts,
+        {**SPLIT, "split.pipeline_microbatches": PIPELINE_K},
         pipelined_launches)
     for m, ms in zip(phist, hist):
         check(m["lan_mbytes"] == lan / 1e6,
@@ -1381,7 +1520,7 @@ def phase_main_paths(dev):
                                      for ex in tr.split_execs.values())}
 
     tr, hist, counts = drive_path(dev, "dp-sgd split path",
-                                  {**DP_SGD, **SPLIT}, parts,
+                                  {**DP_SGD, **SPLIT},
                                   dp_split_launches)
     eps = [m["dp_epsilon"] for m in hist]
     check(all(math.isfinite(e) for e in eps) and eps[1] > eps[0] > 0,
@@ -1400,6 +1539,140 @@ def phase_main_paths(dev):
     time_per_example_steps(tr)
     del tr
 
+    # the vectorized backend: the same five paths, the clients of a split
+    # signature stacked under torch.func.vmap, one stacked step a batch,
+    # the kernels called outside the vmap: dp_clip once a client a step,
+    # boundary_fuse once a crossing a client (split, pipelined) or once a
+    # crossing a signature group over its C x B rows (amax="row", DP-SGD
+    # split); fedavg once a round, reading the stacked output's rows
+    def dp_split_group_launches(tr):
+        groups = {tr.program.signature_for(cid): ex.num_boundaries
+                  for cid, ex in tr.split_execs.items()}
+        print(f"vectorized dp-sgd split path: {len(groups)} signature "
+              f"groups, boundaries {sorted(groups.values())}")
+        return {"fedavg": reduce_round,
+                "dp_clip": CLIENTS * BATCHES * ROUNDS,
+                "boundary_fuse": 4 * sum(groups.values()) * BATCHES * ROUNDS}
+
+    vec = {"fed.backend": "vectorized"}
+    for name, over, expect in (
+            ("", {}, {"fedavg": reduce_round}),
+            ("dp-sgd ", DP_SGD, {"fedavg": reduce_round,
+                                 "dp_clip": CLIENTS * BATCHES * ROUNDS}),
+            ("split ", SPLIT, split_launches),
+            ("pipelined split ",
+             {**SPLIT, "split.pipeline_microbatches": PIPELINE_K},
+             pipelined_launches),
+            ("dp-sgd split ", {**DP_SGD, **SPLIT}, dp_split_group_launches)):
+        label = f"vectorized {name}path"
+        tr, hist, counts = drive_path(dev, label, {**over, **vec},
+                                      expect)
+        if "split.enabled" in over:
+            check(all(m["lan_mbytes"] == lan / 1e6 for m in hist),
+                  f"{label}: lan_mbytes {[m['lan_mbytes'] for m in hist]}")
+        if "privacy.enabled" in over:
+            eps = [m["dp_epsilon"] for m in hist]
+            check(all(math.isfinite(e) for e in eps) and eps[1] > eps[0] > 0,
+                  f"{label}: dp_epsilon not finite and growing: {eps}")
+        for k, n in counts.items():
+            if n:
+                by_path.setdefault(k, {})[label] = n
+        loop = WALLS["main path" if not name else f"{name}path"][-1]
+        warm = WALLS[label][-1]
+        print(f"{label}: warm round {warm:.3f} s against the loop path's "
+              f"{loop:.3f} s in this run (ratio {warm / loop:.3f}), "
+              f"launches {counts}")
+        profile_round(tr, label, counts["boundary_fuse"] // ROUNDS, top=6)
+        del tr
+
+    # backend="auto" on the plain, split and dp-sgd split paths: the probe
+    # runs both backends' round dispatch on zero batches, a warm-up and
+    # AUTO_PROBE_RUNS timed runs each, then pins the faster for the
+    # trainer's life.  The probe's dispatch launches the step's kernels
+    # (not the reduce's), so each path's counts hold 1 + AUTO_PROBE_RUNS
+    # loop and vectorized rounds' more
+    from repro_torch.core.gan import AUTO_PROBE_RUNS
+    probes = 1 + AUTO_PROBE_RUNS
+
+    def auto_launches(loop_round, vec_round):
+        def expect(tr):
+            picked = {"loop": loop_round,
+                      "vectorized": vec_round}[tr._auto_backend]
+            counts = {k: probes * (loop_round.get(k, 0)
+                                   + vec_round.get(k, 0))
+                      + ROUNDS * picked.get(k, 0)
+                      for k in set(loop_round) | set(vec_round)}
+            return {**counts, "fedavg": reduce_round}
+        return expect
+
+    def per_round(expect):
+        return lambda tr: {k: n // ROUNDS for k, n in expect(tr).items()
+                           if k != "fedavg"}
+
+    auto_picks = {}
+    for name, over, loop_round, vec_round in (
+            ("", {}, lambda tr: {}, lambda tr: {}),
+            ("split ", SPLIT, per_round(split_launches),
+             per_round(split_launches)),
+            ("dp-sgd split ", {**DP_SGD, **SPLIT},
+             per_round(dp_split_launches),
+             per_round(dp_split_group_launches))):
+        label = f"auto {name}path"
+        tr, _, counts = drive_path(
+            dev, label, {**over, "fed.backend": "auto"},
+            lambda tr, lr=loop_round, vr=vec_round: auto_launches(
+                lr(tr), vr(tr))(tr))
+        probe = tr.backend_probe_us
+        pick = tr._auto_backend
+        check(pick in probe and set(probe) == {"loop", "vectorized"}
+              and all(v > 0 for v in probe.values()),
+              f"{label}: pick {pick}, probe {probe}")
+        loop = WALLS["main path" if not name else f"{name}path"][-1]
+        vec = WALLS[f"vectorized {name}path"][-1]
+        faster = "loop" if loop <= vec else "vectorized"
+        auto_picks[label] = (pick, faster)
+        print(f"{label}: probe (round dispatch on zero batches, the "
+              f"fastest of {AUTO_PROBE_RUNS} warm runs) loop "
+              f"{probe['loop'] / 1e3:.1f} ms, vectorized "
+              f"{probe['vectorized'] / 1e3:.1f} ms (ratio "
+              f"{probe['vectorized'] / probe['loop']:.3f}); picked {pick}; "
+              f"this run's warm rounds loop {loop:.3f} s, vectorized "
+              f"{vec:.3f} s (ratio {vec / loop:.3f}, faster: {faster}); "
+              f"auto's warm round {WALLS[label][-1]:.3f} s; launches "
+              f"{counts}")
+        for k, n in counts.items():
+            if n and k != "fedavg":
+                by_path.setdefault(k, {})[label] = n
+        del tr
+    print(f"auto picks (pick, faster warm round in this run): {auto_picks}")
+
+    # fed.shard_clients on one card at full width: no mesh, one shard, and
+    # under cuDNN's deterministic algorithms a round equal in every leaf
+    # to the unsharded vectorized round
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        vec = {"fed.backend": "vectorized"}
+        ta = full_width_trainer(vec)
+        tb = full_width_trainer({**vec, "fed.shard_clients": True})
+        check(tb._client_mesh() is None and tb._num_shards("vectorized")
+              == 1, "shard_clients on one card built a mesh")
+        ta.train_epoch(batches_per_client=BATCHES)
+        tb.train_epoch(batches_per_client=BATCHES)
+        sa, sb = ta.state, tb.state
+        pairs = list(zip(leaves(sa.g_params), leaves(sb.g_params))) + [
+            p for cid in sorted(sa.d_params)
+            for p in zip(leaves(sa.d_params[cid]), leaves(sb.d_params[cid]))]
+        check(all(torch.equal(a, b) for a, b in pairs),
+              "shard_clients on one card differs from the unsharded round")
+        print(f"full width, fed.shard_clients on one card: no mesh, 1 shard, "
+              f"{len(pairs)} leaves of G and the {CLIENTS} Ds equal to the "
+              f"unsharded vectorized round bit for bit (deterministic cuDNN, "
+              f"1 round x {BATCHES} batches)")
+        del ta, tb
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
     # the compressed-domain server reduce: the fedavg kernel does not run
     # on the flat paths; every client's wire folds in one launch over its
     # leaves, or the round's wires reduce in one launch
@@ -1412,7 +1685,7 @@ def phase_main_paths(dev):
             ("stream top-k path", {"fed.codec": "topk",
                                    "fed.server_reduce": "stream"},
              {"scatter_acc": folds})):
-        tr, hist, _ = drive_path(dev, label, over, parts, expect)
+        tr, hist, _ = drive_path(dev, label, over, expect)
         check(tr.engine.last_report.peak_live_trees == 1,
               f"{label}: peak_live_trees "
               f"{tr.engine.last_report.peak_live_trees}, expected 1")
@@ -1425,7 +1698,7 @@ def phase_main_paths(dev):
     tr, hist, _ = drive_path(
         dev, "hierarchy stream path",
         {**int8, "fed.server_reduce": "stream", "fed.hierarchy_cohorts": 2},
-        parts, {"dequant_acc": folds, "fedavg": reduce_round})
+        {"dequant_acc": folds, "fedavg": reduce_round})
     groups = tr.engine.hierarchy.group(tr.engine.roster)
     cohort_sizes = sorted(len(m) for m in groups.values())
     check(cohort_sizes == [2, 3], f"cohorts {groups}")
@@ -1446,7 +1719,7 @@ def phase_main_paths(dev):
     # its members' trees in one fedavg launch, the server averages the 2
     # aggregates in one more (3 a round)
     tr, hist, _ = drive_path(dev, "hierarchy decode path",
-                             {"fed.hierarchy_cohorts": 2}, parts,
+                             {"fed.hierarchy_cohorts": 2},
                              {"fedavg": 3 * ROUNDS})
     groups = tr.engine.hierarchy.group(tr.engine.roster)
     check(sorted(len(m) for m in groups.values()) == [2, 3],
@@ -1457,14 +1730,35 @@ def phase_main_paths(dev):
     return launches, by_path
 
 
+def adam_reach(beta1, beta2, steps):
+    """The most bias-corrected Adam can move one element in ``steps``
+    steps, in units of lr.  Step t moves it by |m_t / (1 - beta1^t)| /
+    (sqrt(v_t / (1 - beta2^t)) + eps); by Cauchy-Schwarz over the moments'
+    weights a_i, b_i of the gradients g_1..g_t that is at most
+    sqrt(sum a_i^2 / b_i), which exceeds 1 from the second step on when
+    beta1^2 < beta2: 1.054 at step 2 and 4.416 over 4 steps for (0.5,
+    0.999), not the 4 of lr x steps."""
+    reach = 0.0
+    for t in range(1, steps + 1):
+        a = [(1 - beta1) * beta1 ** (t - i) / (1 - beta1 ** t)
+             for i in range(1, t + 1)]
+        b = [(1 - beta2) * beta2 ** (t - i) / (1 - beta2 ** t)
+             for i in range(1, t + 1)]
+        reach += math.sqrt(sum(x * x / y for x, y in zip(a, b)))
+    return reach
+
+
 def compare_states(label, ta, tb, start):
     """G and client 0's D of two small trainers that took the same steps
     from the same ``start`` leaves: every leaf within 1e-4 absolute, except
-    the BN-fed biases, which must each stay within lr x Adam steps of their
-    start."""
+    the BN-fed biases, which must each stay within the most Adam can move
+    an element in that many steps (``adam_reach``) of their start.
+    Returns the other leaves' largest difference, and the BN-fed biases'
+    largest move and Adam's reach, both in units of lr."""
     from repro_torch.tree import leaves
-    drift = ta.cfg.optim.lr * ROUNDS * BATCHES
-    worst = 0.0
+    opt = ta.cfg.optim
+    drift = opt.lr * adam_reach(opt.beta1, opt.beta2, ROUNDS * BATCHES)
+    worst, moved_most = 0.0, 0.0
     start = list(start)
     for tree_a, tree_b in ((ta.state.g_params, tb.state.g_params),
                            (ta.state.d_params["c0"], tb.state.d_params["c0"])):
@@ -1472,24 +1766,26 @@ def compare_states(label, ta, tb, start):
             s = start.pop(0)
             if p[-2:] in BN_FED_BIASES:
                 for side in (a, b):
-                    check(float((side - s).abs().max()) <= drift,
-                          f"{label}: {p} drifted beyond lr x steps")
+                    moved = float((side - s).abs().max())
+                    moved_most = max(moved_most, moved / opt.lr)
+                    check(moved <= drift, f"{label}: {p} moved {moved:.4e}, "
+                          f"beyond Adam's reach {drift:.4e}")
             else:
                 d = float((a - b).abs().max())
                 worst = max(worst, d)
                 check(d <= 1e-4, f"{label}: {p} differs by {d}")
-    return worst
+    return worst, moved_most, drift / opt.lr
 
 
-def small_trainer(over):
+def small_trainer(over, clients=2):
     from repro_torch.configs.registry import get_config
     from repro_torch.core.gan import FSLGANTrainer
     from repro_torch.data import partition_dirichlet, synthetic_mnist
 
-    small = {"shape.global_batch": 8, "fsl.num_clients": 2,
+    small = {"shape.global_batch": 8, "fsl.num_clients": clients,
              "model.dcgan.base_filters": 8}
-    imgs, labels = synthetic_mnist(120, seed=0)
-    parts = partition_dirichlet(imgs, labels, 2, alpha=0.5, seed=0)
+    imgs, labels = synthetic_mnist(60 * clients, seed=0)
+    parts = partition_dirichlet(imgs, labels, clients, alpha=0.5, seed=0)
     return FSLGANTrainer(get_config("dcgan-mnist").override(
         {**small, **over}), parts, seed=0)
 
@@ -1514,9 +1810,10 @@ def phase_small_reference(dev):
             for k in ("d_loss", "g_loss"):
                 check(abs(ma[k] - mb[k]) <= 1e-4 * abs(mb[k]),
                       f"{label}: {k} {ma[k]} vs {mb[k]}")
-        worst = compare_states(label, ta, tb, start)
+        worst, moved, reach = compare_states(label, ta, tb, start)
         print(f"small input, {label}: losses within 1e-4 rel, params max "
-              f"abs diff {worst:.3e}")
+              f"abs diff {worst:.3e}; the BN-fed biases moved at most "
+              f"{moved:.4f} lr (Adam's reach {reach:.4f} lr)")
 
     pair("kernel round vs sequential host-FedAvg round",
          {"fed.kernel_aggregation": True}, {})
@@ -1621,6 +1918,7 @@ def phase_small_reference(dev):
     torch.backends.cudnn.deterministic = deterministic
 
 
+@fp32_convs
 def phase_small_split_reference(dev):
     """On the card at a small width (base_filters 8, batch 8, a plan of 3
     boundaries, the fused int8+dp stage through the kernel): the pipelined
@@ -1744,10 +2042,12 @@ def phase_small_split_reference(dev):
             check(abs(ma[k] - mb[k]) <= 1e-4 * abs(mb[k]),
                   f"dp-sgd identity split vs unsplit: {k} {ma[k]} vs "
                   f"{mb[k]}")
-    diff = compare_states("dp-sgd identity split vs unsplit", ta, tb, start)
+    diff, moved, reach = compare_states("dp-sgd identity split vs unsplit",
+                                        ta, tb, start)
     print(f"small input, dp-sgd round through the identity-stage split vs "
           f"without the split (noise on): losses within 1e-4 rel, params "
-          f"max abs diff {diff:.3e}")
+          f"max abs diff {diff:.3e}; the BN-fed biases moved at most "
+          f"{moved:.4f} lr (Adam's reach {reach:.4f} lr)")
     torch.backends.cudnn.deterministic = True
     try:
         over = {**DP_SGD, **SPLIT}
@@ -1769,6 +2069,104 @@ def phase_small_split_reference(dev):
     print("small input, dp-sgd split (int8+dp, both kernels, noise on) at "
           "K = 4 vs K = 1: every metric but the virtual round time and "
           "every parameter equal, bit for bit")
+
+
+def phase_small_vectorized_reference(dev):
+    """On the card at a small width, 3 clients (split signature groups of
+    2 and 1), kernels on: the vectorized round against the loop round for
+    plain, DP-SGD (noise on) and the int8+dp split, at the reference's
+    tolerances (d_loss 1e-5, each client's D 5e-5, the dead biases
+    skipped); then, with cuDNN's deterministic algorithms (two runs of one
+    computation equal): ``fed.shard_clients`` on one card (no mesh, 1
+    shard) against the unsharded vectorized round, and rounds with cuDNN's
+    TF32 flag on globally against the same rounds with it off, bit for
+    bit, the flag reading as set afterwards."""
+    from repro_torch.models.dcgan import disc_apply
+    from repro_torch.tree import leaves
+
+    def close(a, b, tol):
+        return abs(a - b) <= tol + tol * abs(b)
+
+    for label, over in (("plain", {}), ("dp-sgd", DP_SGD),
+                        ("split int8+dp", SPLIT)):
+        base = {"fed.kernel_aggregation": True, **over}
+        ta = small_trainer(base, clients=3)
+        tb = small_trainer({**base, "fed.backend": "vectorized"}, clients=3)
+        for _ in range(ROUNDS):
+            ma = ta.train_epoch(batches_per_client=BATCHES)
+            mb = tb.train_epoch(batches_per_client=BATCHES)
+            check(close(mb["d_loss"], ma["d_loss"], VEC_LOSS_TOL),
+                  f"vectorized {label}: d_loss {mb['d_loss']} vs loop "
+                  f"{ma['d_loss']}")
+        worst = 0.0
+        for cid in ta.state.d_params:
+            da, db = ta.state.d_params[cid], tb.state.d_params[cid]
+            for p, a, b in zip(paths(da), leaves(da), leaves(db)):
+                if p not in DEAD_BIASES:
+                    excess = float(((b - a).abs()
+                                    - VEC_PARAM_TOL * a.abs()).max())
+                    worst = max(worst, excess)
+                    check(excess <= VEC_PARAM_TOL, f"vectorized {label}: "
+                          f"{cid} {p} beyond 5e-5 by {excess}")
+        print(f"small input, vectorized {label} round vs loop (3 clients): "
+              f"d_loss within 1e-5, D within 5e-5 (largest excess over "
+              f"the relative part {worst:.3e})")
+
+    def state(tr):
+        return leaves(tr.state.g_params) + [
+            l for c in sorted(tr.state.d_params)
+            for l in leaves(tr.state.d_params[c])]
+
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.deterministic = True
+    try:
+        vec = {"fed.backend": "vectorized", "fed.kernel_aggregation": True}
+        ta = small_trainer(vec, clients=3)
+        tb = small_trainer({**vec, "fed.shard_clients": True}, clients=3)
+        check(tb._client_mesh() is None and tb._num_shards("vectorized")
+              == 1, "shard_clients on one card built a mesh")
+        for _ in range(ROUNDS):
+            ta.train_epoch(batches_per_client=BATCHES)
+            tb.train_epoch(batches_per_client=BATCHES)
+        check(all(torch.equal(a, b) for a, b in zip(state(ta), state(tb))),
+              "shard_clients on one card differs from the unsharded round")
+        print("small input, fed.shard_clients on one card: no mesh, 1 "
+              "shard, every leaf equal to the unsharded vectorized round")
+
+        # the flag matters on this card: one discriminator forward with
+        # TF32 on against off, outside the trainer's guard
+        tr = small_trainer({}, clients=3)
+        x = tr._sample_real("c0", 64)
+        outs = []
+        for flag in (True, False):
+            torch.backends.cudnn.allow_tf32 = flag
+            outs.append(disc_apply(tr.state.d_params["c0"], x, tr.c))
+        tf32_diff = float((outs[0] - outs[1]).abs().max())
+        for backend in ("loop", "vectorized"):
+            runs = []
+            for flag in (True, False):
+                torch.backends.cudnn.allow_tf32 = flag
+                t = small_trainer({"fed.backend": backend,
+                                   "fed.kernel_aggregation": True},
+                                  clients=3)
+                for _ in range(ROUNDS):
+                    t.train_epoch(batches_per_client=BATCHES)
+                t.generate(4)
+                check(torch.backends.cudnn.allow_tf32 is flag,
+                      f"the trainer left cudnn.allow_tf32 "
+                      f"{torch.backends.cudnn.allow_tf32}, was {flag}")
+                runs.append(state(t))
+            check(all(torch.equal(a, b) for a, b in zip(*runs)),
+                  f"{backend}: the round with TF32 on globally differs "
+                  f"from the round with it off")
+        print(f"small input, cuDNN TF32 on globally (PyTorch's default) vs "
+              f"off: loop and vectorized rounds equal in every leaf, the "
+              f"flag as set afterwards; the same discriminator forward "
+              f"outside the guard differs by {tf32_diff:.3e}")
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic) = saved
 
 
 # ---------------------------------------------------------------------------
@@ -2261,10 +2659,13 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip())
     dev = torch.device("cuda", 0)
-    torch.backends.cudnn.allow_tf32 = False
+    # cuDNN's TF32 flag stays at PyTorch's default: the trainer's entry
+    # points turn it off for their convolutions themselves.  The LM paths'
+    # fp32 matmuls need cuBLAS's TF32 off (PyTorch's default too)
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-          f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(dev)}")
+          f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(dev)}, "
+          f"cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}")
 
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -2291,6 +2692,7 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_small_reference(dev)
     phase_small_split_reference(dev)
+    phase_small_vectorized_reference(dev)
     phase_lm_small_reference(dev)
     print(f"small references: {time.perf_counter() - t0:.1f} s")
 

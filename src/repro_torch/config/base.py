@@ -379,12 +379,13 @@ class FedConfig:
     simulation bit-for-bit (pinned test).
     """
     mode: str = "sync"                 # sync | fedasync | fedbuff
-    # client-program backend (fed/programs.py): how the local round is
-    # compiled.  "loop" = per-client jitted steps (seed dispatch, bit-exact
-    # reference); "vectorized" = one jitted vmap-over-clients /
-    # scan-over-batches program per dispatch.  Orthogonal to scheduling
-    # and privacy — every mode x backend x privacy cell is supported.
-    backend: str = "loop"              # loop | vectorized
+    # client-program backend (fed/programs.py): how the local round runs.
+    # "loop" = per-client steps (the bit-exact reference); "vectorized" =
+    # one stacked step a batch for the clients of a split signature
+    # (torch.func.vmap over clients); "auto" = whichever a timed probe on
+    # the first round finds faster.  Orthogonal to scheduling and privacy
+    # — every mode x backend x privacy cell is supported.
+    backend: str = "loop"              # loop | vectorized | auto
     # per-client local-round schedules, keyed by client id; unlisted
     # clients use the defaults (lr_scale 1.0 / the round's
     # batches_per_client).  Threaded through both backends.
@@ -416,11 +417,10 @@ class FedConfig:
     # compressed domain (pinned vs "decode" at fma-level tolerance —
     # mean(base + d_c) reassociates vs base + mean(d_c) in float).
     server_reduce: str = "decode"
-    # population scale: map the vectorized backend's stacked client axis
-    # onto a `clients` device mesh (launch/mesh.make_client_mesh +
-    # sharding/specs.stacked_shardings).  Off (default) keeps every
-    # dispatch single-device — the bit-exact unsharded path.  Testable on
-    # CPU via XLA_FLAGS=--xla_force_host_platform_device_count=N.
+    # population scale: cut the vectorized backend's stacked client axis
+    # over a `clients` device mesh (launch/mesh.make_client_mesh +
+    # sharding/specs.client_chunks) when the host has more than one card.
+    # Off (default), or one card: every dispatch on the trainer's device.
     shard_clients: bool = False
     # two-tier aggregation: >= 2 groups sync-round clients into that many
     # edge cohorts, each pre-reducing its clients' updates (the fedavg

@@ -1,7 +1,7 @@
 """FedAvg aggregation (McMahan et al. 2017), as used by the paper for the
 discriminator parameters.  Port of ``repro/core/fedavg.py`` (the host form;
-the in-mesh collective forms wait for the sharded topology, ROADMAP Queue A
-item 7).
+the in-mesh collective forms wait for the LM's sharded runtime, ROADMAP
+Queue A item 16).
 """
 from __future__ import annotations
 

@@ -26,14 +26,22 @@ Losses: non-saturating DCGAN BCE.
 
 ``train_epoch`` runs one federation-engine round per epoch (sync barrier,
 flat or through the edge hierarchy, or the async FedAsync/FedBuff modes;
-loop backend; any uplink codec; the decode, stream or batched server
-reduce, which ``fed.kernel_aggregation`` sends through the fedavg and
-agg_fuse CUDA kernels).  Privacy (``cfg.privacy``) is
+any uplink codec; the decode, stream or batched server reduce, which
+``fed.kernel_aggregation`` sends through the fedavg and agg_fuse CUDA
+kernels).  The backend (``fed.backend``) runs the clients' local rounds as
+a per-client loop (``loop``), as one stacked step a batch for the clients
+of a split signature (``vectorized``, on the client mesh with
+``fed.shard_clients``), or as whichever a timed probe finds faster
+(``auto``).  Privacy (``cfg.privacy``) is
 DP-SGD inside the local step (the dp_clip CUDA kernel with
 ``privacy.use_kernel``) or the pre-codec uplink DP stage in the engine,
 with an RDP accountant either way.  ``train_epoch_sequential`` keeps the
 plain sequential loop; with the host FedAvg the two are bit-for-bit
 identical (pinned in the tests).
+
+The entry points (``train_epoch``, ``train_epoch_sequential``,
+``generate``) compute convolutions in float32 whatever the global cuDNN
+TF32 flag says (:func:`repro_torch.device.fp32_convolutions`).
 
 Options of the JAX trainer that need modules not ported yet raise
 ``NotImplementedError`` naming their ROADMAP item (:func:`check_ported`).
@@ -41,6 +49,7 @@ Options of the JAX trainer that need modules not ported yet raise
 from __future__ import annotations
 
 import functools
+import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
@@ -56,11 +65,13 @@ from repro_torch.core.selection import plan_all_clients
 from repro_torch.core.simulate import plan_epoch_time
 from repro_torch.core.split import (SplitExecution, SplitPlan,
                                     make_boundary_stage)
-from repro_torch.device import resolve_device
+from repro_torch.device import fp32_convolutions, resolve_device
 from repro_torch.fed.engine import ClientSpec, FederationEngine
 from repro_torch.fed.hierarchy import assign_cohorts
-from repro_torch.fed.programs import ClientHyper, LocalProgram, RoundExecutor
+from repro_torch.fed.programs import (BACKENDS, ClientHyper, LocalProgram,
+                                      RoundExecutor)
 from repro_torch.fed.transport import apply_delta, delta_tree, fake_batch_bytes
+from repro_torch.launch.mesh import make_client_mesh, mesh_chips
 from repro_torch.models.dcgan import (disc_apply, disc_apply_layer, disc_init,
                                       disc_layer_costs, disc_layer_names,
                                       gen_apply, gen_init)
@@ -88,12 +99,14 @@ def g_loss_fn(g_params, d_params, z, c) -> torch.Tensor:
     return bce_logits(disc_apply(d_params, fake, c), 1.0)
 
 
+# backend="auto": timed dispatches a backend after its warm-up; the probe
+# keeps each backend's fastest.  Host noise only adds time, and on the card
+# one sample let a spike flip a pick between backends 7-12% apart
+AUTO_PROBE_RUNS = 3
+
+
 # (is the option set?, what it is, the ROADMAP Queue A item that ports it)
 _UNPORTED = (
-    (lambda cfg: cfg.fed.backend != "loop", "fed.backend other than 'loop'",
-     "item 7 (vectorized backend)"),
-    (lambda cfg: cfg.fed.shard_clients, "fed.shard_clients",
-     "item 7 (client mesh)"),
     (lambda cfg: cfg.control.mode == "adaptive", "control.mode='adaptive'",
      "item 8 (control plane)"),
     (lambda cfg: cfg.obs.enabled, "obs.enabled", "item 8 (flight recorder)"),
@@ -189,6 +202,13 @@ class FSLGANTrainer:
         self.engine: Optional[FederationEngine] = None
         self._engine_batches: Optional[int] = None
         self._cohort_of: Optional[Callable[[str], int]] = None
+        # backend="auto": the probe's pick and its wall times (us), pinned
+        # for the trainer's life after the first round
+        self._auto_backend: Optional[str] = None
+        self.backend_probe_us: Dict[str, float] = {}
+        # the client mesh, resolved on first use (_client_mesh)
+        self._mesh = None
+        self._mesh_resolved = False
 
     # ------------------------------------------------------------------
     def _build_steps(self):
@@ -355,6 +375,10 @@ class FSLGANTrainer:
         self.engine = FederationEngine(
             self.cfg.fed, specs, weighted=self.cfg.fsl.weighted_average,
             uplink_stage=self._uplink_stage, cohort_of=self._cohort_of)
+        if self.cfg.fed.server_reduce == "batched":
+            # the batched reduce cuts the round's wires over the client
+            # mesh the vectorized backend trains on (None without one)
+            self.engine.set_mesh(self._client_mesh())
         self._engine_batches = batches_per_client
         return self.engine
 
@@ -371,21 +395,95 @@ class FSLGANTrainer:
             fs.append(self._gen(st.g_params, self._z(self.batch_size)))
         return torch.stack(rs), torch.stack(fs)
 
+    def _hyper(self) -> Dict[str, ClientHyper]:
+        """Per-client hyperparameter schedules, from the engine's
+        ``ClientSpec``s (built in ``_ensure_engine``)."""
+        return {cid: ClientHyper(lr_scale=spec.lr_scale,
+                                 local_steps=spec.local_steps)
+                for cid, spec in self.engine.specs.items()}
+
     def _bind_round(self, batches_per_client: int, backend: str
                     ) -> RoundExecutor:
         """Bind the client program to this round: data sampling, opt-state
-        lookup, per-client hyperparameter schedules (from the engine's
-        ``ClientSpec``s, built in ``_ensure_engine``) and the round's noise
-        key."""
-        hyper = {cid: ClientHyper(lr_scale=spec.lr_scale,
-                                  local_steps=spec.local_steps)
-                 for cid, spec in self.engine.specs.items()}
+        lookup, per-client hyperparameter schedules, the round's noise key
+        and, under the vectorized backend, the client mesh."""
         return RoundExecutor(
             self.program, backend=backend,
             sample=self._sample_round_batches,
             opt_lookup=lambda cid: self.state.d_opt[cid],
-            default_steps=batches_per_client, hyper=hyper,
-            round_key=self._round_key(), cohort_of=self._cohort_of)
+            default_steps=batches_per_client, hyper=self._hyper(),
+            round_key=self._round_key(),
+            mesh=self._client_mesh() if backend == "vectorized" else None,
+            cohort_of=self._cohort_of)
+
+    def _client_mesh(self):
+        """The ``clients`` mesh (``launch/mesh.make_client_mesh`` over the
+        trainer's device type) when ``fed.shard_clients`` is on and the
+        mesh has more than one device; None otherwise (one device: the
+        unsharded dispatch)."""
+        if not self.cfg.fed.shard_clients:
+            return None
+        if not self._mesh_resolved:
+            mesh = make_client_mesh(device_type=self.device.type)
+            self._mesh = mesh if mesh_chips(mesh) > 1 else None
+            self._mesh_resolved = True
+        return self._mesh
+
+    def _num_shards(self, backend: str) -> int:
+        """Mesh devices a round's stacked dispatch spans."""
+        mesh = self._client_mesh() if backend == "vectorized" else None
+        return 1 if mesh is None else mesh_chips(mesh)
+
+    def _resolve_auto_backend(self, batches_per_client: int
+                              ) -> Tuple[str, Dict[str, float]]:
+        """``backend="auto"``: a one-shot timed probe of both backends.
+
+        Runs each backend's full round dispatch over the active roster on
+        zero batches, once to warm up (on the card that absorbs the
+        kernels' first-use build and cuDNN's algorithm search) and then
+        ``AUTO_PROBE_RUNS`` times timed, the backends alternating, the
+        device synchronised before each clock read; each backend's time
+        is its fastest run, and the faster backend is pinned for the
+        trainer's life.  The probe draws no
+        host RNG and commits nothing (``ClientResult`` is pure and
+        dropped).  Returns ``(backend, probe_us)``; ``probe_us`` is empty
+        on every round after the probe ran."""
+        if self._auto_backend is not None:
+            return self._auto_backend, {}
+        cids = self._active_clients()
+        c = self.c
+        max_steps = max(self._client_steps(cid, batches_per_client)
+                        for cid in cids)
+        zeros = torch.zeros((max_steps, self.batch_size, c.image_size,
+                             c.image_size, c.channels), device=self.device)
+        key = keys.root(keys.DEFAULT, 0) if self.program.needs_key else None
+        hyper = self._hyper()
+        global_d = self.state.d_params[cids[0]]
+
+        def run_once(be):
+            RoundExecutor(
+                self.program, backend=be,
+                sample=lambda cid, steps: (zeros[:steps], zeros[:steps]),
+                opt_lookup=lambda cid: self.state.d_opt[cid],
+                default_steps=batches_per_client, hyper=hyper,
+                round_key=key,
+                mesh=self._client_mesh() if be == "vectorized" else None
+            ).run(list(cids), global_d)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
+        for be in BACKENDS:
+            run_once(be)
+        probe_us: Dict[str, float] = {be: float("inf") for be in BACKENDS}
+        for _ in range(AUTO_PROBE_RUNS):
+            for be in BACKENDS:
+                t0 = time.perf_counter()
+                run_once(be)
+                probe_us[be] = min(probe_us[be],
+                                   (time.perf_counter() - t0) * 1e6)
+        self._auto_backend = min(BACKENDS, key=lambda be: probe_us[be])
+        self.backend_probe_us = probe_us
+        return self._auto_backend, probe_us
 
     def _g_updates(self, d_avg, batches: int) -> List[float]:
         """Server G update against the averaged D (never touches real data)."""
@@ -403,19 +501,25 @@ class FSLGANTrainer:
         return metrics
 
     # ------------------------------------------------------------------
+    @fp32_convolutions()
     def train_epoch(self, batches_per_client: int = 24,
                     backend: Optional[str] = None) -> Dict[str, float]:
         """One FL round on the federation engine (``cfg.fed``: sync, flat
         or hierarchical, or async scheduling; the uplink codec; the server
-        reduce).  ``backend`` (default ``cfg.fed.backend``)
-        selects how the client program runs; ``"loop"`` (per-client steps)
-        is the one ported.  Privacy composes: DP-SGD inside the step, uplink
-        DP as the engine's pre-codec stage.  Optimizer state commits only
-        for clients whose update landed (``RoundReport.opt_states``) —
-        dropped stragglers leave no trace."""
+        reduce).  ``backend`` (default ``cfg.fed.backend``) selects how the
+        client program runs: ``"loop"`` (per-client steps), ``"vectorized"``
+        (one stacked step a batch per split signature) or ``"auto"`` (a
+        timed probe of both on the first round picks one for the trainer's
+        life, ``_resolve_auto_backend``).  Privacy composes: DP-SGD inside
+        the step, uplink DP as the engine's pre-codec stage.  Optimizer
+        state commits only for clients whose update landed
+        (``RoundReport.opt_states``) — dropped stragglers leave no
+        trace."""
         backend = backend or self.cfg.fed.backend
         st = self.state
         eng = self._ensure_engine(batches_per_client)
+        if backend == "auto":
+            backend, _ = self._resolve_auto_backend(batches_per_client)
         batch_b = fake_batch_bytes(
             self.batch_size,
             (self.c.image_size, self.c.image_size, self.c.channels))
@@ -483,6 +587,7 @@ class FSLGANTrainer:
         return self._record(metrics)
 
     # ------------------------------------------------------------------
+    @fp32_convolutions()
     def train_epoch_sequential(self, batches_per_client: int = 24
                                ) -> Dict[str, float]:
         """The sequential client loop, kept as the numeric reference: the
@@ -554,6 +659,7 @@ class FSLGANTrainer:
                     loads[dev] = loads.get(dev, 0.0) + load
         return loads or {"unsplit": 0.0}
 
+    @fp32_convolutions()
     def generate(self, n: int, seed: int = 0) -> np.ndarray:
         """``n`` images (n, H, W, C) from G, with z drawn from a
         ``torch.Generator`` seeded ``seed`` (not the JAX key stream)."""

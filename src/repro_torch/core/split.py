@@ -1,7 +1,9 @@
 """Model splitting (paper §3.2/§4): the SplitPlan as the *executed* local
 step.  Port of ``repro/core/split.py``: the sequential step, the
 pipelined (1F1B) step over micro-batches, and the per-example staged step
-DP-SGD trains through.
+DP-SGD trains through, each also over a stacked client axis for the
+vectorized backend (``run_clients``, ``clients_value_and_grad``,
+``clients_per_example_value_and_grad``).
 
 A :class:`SplitPlan` records which device trains which contiguous layer
 range of the discriminator.  :class:`SplitExecution` compiles a plan into a
@@ -467,6 +469,17 @@ class SplitExecution:
         return tuple(out)
 
     # ------------------------------------------------------------------
+    def _check_passes(self, batches) -> None:
+        if len(batches) != self.num_passes:
+            raise ValueError(f"{len(batches)} batches for "
+                             f"{self.num_passes} loss tails")
+
+    def _default_key(self, key):
+        # a stochastic stage never runs keyless-and-noiseless
+        if key is None and self.stochastic:
+            return keys.root(keys.DEFAULT, 0)
+        return key
+
     def run(self, params, batches: Sequence[torch.Tensor], key=None,
             collect: bool = False, cross=None):
         """One staged forward+backward over per-pass ``batches``.
@@ -477,16 +490,61 @@ class SplitExecution:
         given, replaces each crossing's stage call:
         ``cross(boundary, pass, direction, x) -> x``.
         """
-        if len(batches) != self.num_passes:
-            raise ValueError(f"{len(batches)} batches for "
-                             f"{self.num_passes} loss tails")
-        if key is None and self.stochastic:
-            # a stochastic stage never runs keyless-and-noiseless
-            key = keys.root(keys.DEFAULT, 0)
+        self._check_passes(batches)
+        key = self._default_key(key)
         if cross is None:
             def cross(si, p, direction, x):
                 return self.stages[si].apply(
                     x, self._key(key, si, p, direction))
+
+        def loss_of(zs):
+            loss = sum(tail(z) for tail, z in zip(self.tails, zs))
+            return loss, loss
+        return self._staged(params, batches, cross, self._segment, loss_of,
+                            collect)
+
+    def run_clients(self, params, batches: Sequence[torch.Tensor],
+                    client_keys: Optional[Sequence] = None):
+        """``run`` over a leading client axis: every parameter leaf and
+        batch ``(C, ...)``, one noise key a client.  Each segment's forward
+        is ``torch.func.vmap`` over clients; each crossing applies the
+        stage per client, on its row, with that client's key (an int8
+        amax belongs to one client's crossing: one stage call, one
+        boundary_fuse launch, a crossing a client, as the loop).  The
+        summed client losses are differentiated, so each client's rows of
+        the gradient are its own.  Returns ``(losses (C,), grads)``."""
+        self._check_passes(batches)
+        ks = self._client_keys(client_keys, int(batches[0].shape[0]))
+
+        def cross(si, p, direction, x):
+            stage = self.stages[si]
+            return torch.stack([stage.apply(
+                x[c], self._key(k, si, p, direction))
+                for c, k in enumerate(ks)])
+
+        vmap = torch.func.vmap
+
+        def segment(names, tree, xs):
+            return vmap(lambda q, ys: self._segment(names, q, ys))(tree, xs)
+
+        def loss_of(zs):
+            per = sum(vmap(tail)(z) for tail, z in zip(self.tails, zs))
+            return per.sum(), per
+        losses, grads, _ = self._staged(params, batches, cross, segment,
+                                        loss_of, False)
+        return losses, grads
+
+    def _client_keys(self, client_keys, c: int) -> List:
+        if client_keys is None:
+            return [self._default_key(None)] * c
+        return [self._default_key(k) for k in client_keys]
+
+    def _staged(self, params, batches, cross, segment, loss_of,
+                collect: bool):
+        """The staged step behind ``run`` and ``run_clients``:
+        ``segment(names, tree, xs)`` applies one device segment to every
+        pass, ``loss_of(last outputs) -> (loss to differentiate, loss to
+        report)``."""
         records = {"fwd": [None] * self.num_boundaries,
                    "bwd": [None] * self.num_boundaries}
         flat = leaves(params)
@@ -500,7 +558,7 @@ class SplitExecution:
                 if si > 0:
                     xs = tuple(x.detach().requires_grad_(True) for x in xs)
                 seg_in.append(xs)
-                outs = self._segment(names, tree, xs)
+                outs = segment(names, tree, xs)
                 seg_out.append(outs)
                 if si < last:
                     with torch.no_grad():
@@ -508,7 +566,7 @@ class SplitExecution:
                                    for p, x in enumerate(outs))
                     if collect:
                         records["fwd"][si] = xs
-            loss = sum(tail(z) for tail, z in zip(self.tails, seg_out[-1]))
+            loss, report = loss_of(seg_out[-1])
         grads: List[Optional[torch.Tensor]] = [None] * len(live)
         g_act = None
         for si in range(last, -1, -1):
@@ -533,7 +591,7 @@ class SplitExecution:
                     records["bwd"][si - 1] = g_act
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(flat, grads)]
-        return loss.detach(), unflatten_like(params, grads), records
+        return report.detach(), unflatten_like(params, grads), records
 
     def run_pipelined(self, params, batches: Sequence[torch.Tensor],
                       key=None, collect: bool = False,
@@ -552,31 +610,15 @@ class SplitExecution:
         Micro-batch ``m``'s stage key is ``fold_in(key, m)``.  With
         ``collect``, each boundary's records are concatenated back to the
         full-batch view."""
-        from repro_torch.core.pipeline import effective_microbatches
-        if len(batches) != self.num_passes:
-            raise ValueError(f"{len(batches)} batches for "
-                             f"{self.num_passes} loss tails")
-        req = self.pipeline_microbatches if num_microbatches is None \
-            else int(num_microbatches)
-        bsz = min(int(b.shape[0]) for b in batches)
-        k = effective_microbatches(bsz, req)
+        self._check_passes(batches)
+        k = self._microbatches(batches, 0, num_microbatches)
         if k == 1:
             return self.run(params, batches, key, collect)
-        if key is None and self.stochastic:
-            key = keys.root(keys.DEFAULT, 0)
-        mb = bsz // k
-        loss = grads = None
-        recs = []
-        for m in range(k):
-            chunk = tuple(b[m * mb:(m + 1) * mb] for b in batches)
-            mkey = None if key is None else keys.fold_in(key, m)
-            l, g, r = self.run(params, chunk, mkey, collect)
-            loss = l if loss is None else loss + l
-            grads = g if grads is None else tree_map(torch.add, grads, g)
-            recs.append(r)
-        inv = 1.0 / k
-        loss = loss * inv
-        grads = tree_map(lambda g: g * inv, grads)
+        key = self._default_key(key)
+        loss, grads, recs = self._pipelined(
+            batches, k, 0, lambda chunk, m: self.run(
+                params, chunk, None if key is None else keys.fold_in(key, m),
+                collect))
         records = {"fwd": [None] * self.num_boundaries,
                    "bwd": [None] * self.num_boundaries}
         if collect:
@@ -587,6 +629,31 @@ class SplitExecution:
                         for p in range(self.num_passes))
         return loss, grads, records
 
+    def _microbatches(self, batches, axis: int,
+                      num_microbatches: Optional[int] = None) -> int:
+        from repro_torch.core.pipeline import effective_microbatches
+        req = self.pipeline_microbatches if num_microbatches is None \
+            else int(num_microbatches)
+        return effective_microbatches(
+            min(int(b.shape[axis]) for b in batches), req)
+
+    @staticmethod
+    def _pipelined(batches, k: int, axis: int, run_one):
+        """``run_one(chunk, m) -> (loss, grads, records)`` over K equal
+        micro-batches of ``batches`` along ``axis``; the summed loss and
+        grads scaled by ``1/K``, and each micro-batch's records."""
+        mb = min(int(b.shape[axis]) for b in batches) // k
+        loss = grads = None
+        recs = []
+        for m in range(k):
+            chunk = tuple(b.narrow(axis, m * mb, mb) for b in batches)
+            l, g, r = run_one(chunk, m)
+            loss = l if loss is None else loss + l
+            grads = g if grads is None else tree_map(torch.add, grads, g)
+            recs.append(r)
+        inv = 1.0 / k
+        return loss * inv, tree_map(lambda g: g * inv, grads), recs
+
     def value_and_grad(self, params, real, fake, key=None):
         """The D-loss contract of ``fed/programs.make_local_step``:
         ``(params, real, fake, key) -> (loss, grads)`` through the staged
@@ -595,6 +662,24 @@ class SplitExecution:
             loss, grads, _ = self.run_pipelined(params, (real, fake), key)
         else:
             loss, grads, _ = self.run(params, (real, fake), key)
+        return loss, grads
+
+    def clients_value_and_grad(self, params, real, fake, client_keys=None):
+        """``value_and_grad`` over a leading client axis (the vectorized
+        backend's step): ``(losses (C,), stacked grads)`` from
+        ``run_clients``, pipelined as ``run_pipelined`` pipelines ``run``
+        (micro-batch ``m`` of client ``c`` keyed ``fold_in(key_c, m)``)."""
+        batches = (real, fake)
+        k = self._microbatches(batches, 1)
+        if k == 1:
+            return self.run_clients(params, batches, client_keys)
+        ks = self._client_keys(client_keys, int(real.shape[0]))
+
+        def run_one(chunk, m):
+            mkeys = [None if key is None else keys.fold_in(key, m)
+                     for key in ks]
+            return self.run_clients(params, chunk, mkeys) + (None,)
+        loss, grads, _ = self._pipelined(batches, k, 1, run_one)
         return loss, grads
 
     # ------------------------------------------------------------------
@@ -621,13 +706,59 @@ class SplitExecution:
         ``(B, ...)`` tensor (the fused stage: one boundary_fuse launch
         with a per-row amax), with the module's per-example noise
         contract.  K plays no part: a batch of one is never pipelined."""
+        key = self._default_key(key)
+
+        def cross(si, p, direction, x):
+            return self.stages[si].apply_per_example(
+                x, self._key(key, si, p, direction))
+
+        return self._per_example((real, fake), params, cross,
+                                 lambda fn, dims: torch.func.vmap(
+                                     fn, in_dims=dims), 1)
+
+    def clients_per_example_value_and_grad(self, params, real, fake,
+                                           client_keys=None):
+        """``per_example_value_and_grad`` over a leading client axis:
+        ``(losses (C, B), grads)`` with every gradient leaf ``(C, B,
+        ...)``.  The segment vmaps nest (clients outside, examples
+        inside); each crossing applies the stage's per-example form ONCE
+        to the group's ``(C·B, ...)`` rows (the fused stage: one
+        ``amax="row"`` boundary_fuse launch a crossing for the group), its
+        noise each client's ``(B, N)`` draw from that client's crossing
+        key, concatenated: the loop's noise row for row."""
+        c, b = int(real.shape[0]), int(real.shape[1])
+        ks = self._client_keys(client_keys, c)
+
+        def cross(si, p, direction, x):
+            stage, noise = self.stages[si], None
+            if stage.stochastic:
+                noise = self.group_noise(ks, si, p, direction, b,
+                                         x[0, 0].numel(), x.device)
+            y = stage.apply_per_example(
+                x.reshape((c * b,) + tuple(x.shape[2:])), noise=noise)
+            return y.reshape(x.shape)
+
         vmap = torch.func.vmap
-        batches = (real, fake)
-        if len(batches) != self.num_passes:
-            raise ValueError(f"{len(batches)} batches for "
-                             f"{self.num_passes} loss tails")
-        if key is None and self.stochastic:
-            key = keys.root(keys.DEFAULT, 0)
+        return self._per_example(
+            (real, fake), params, cross,
+            lambda fn, dims: vmap(vmap(fn, in_dims=dims)), 2)
+
+    def group_noise(self, client_keys, si: int, p: int, direction: int,
+                    b: int, n: int, device) -> torch.Tensor:
+        """The ``(C·B, n)`` noise of one per-example crossing over a
+        client group: each client's ``(b, n)`` draw from its crossing key,
+        concatenated in client order."""
+        return torch.cat([keys.normal(self._key(k, si, p, direction),
+                                      (b, n), device)
+                          for k in client_keys])
+
+    def _per_example(self, batches, params, cross, mapped, lead: int):
+        """The per-example staged step behind both forms: ``mapped(fn,
+        in_dims)`` maps a one-example function over the ``lead`` leading
+        data axes (params ``in_dims`` None over examples),
+        ``cross(boundary, pass, direction, x)`` applies a crossing's stage
+        to the whole mapped tensor."""
+        self._check_passes(batches)
         last = len(self.segments) - 1
         held = tree_map(torch.Tensor.detach, params)
         subs = [{n: held[n] for n in names if n in held}
@@ -637,10 +768,9 @@ class SplitExecution:
         with torch.no_grad():
             for si in range(last):
                 seg_in.append(xs)
-                outs = vmap(self._segment_one(self.segments[si][1]),
-                            in_dims=(None, 0))(subs[si], xs)
-                xs = tuple(self.stages[si].apply_per_example(
-                    o, self._key(key, si, p, 0)) for p, o in enumerate(outs))
+                outs = mapped(self._segment_one(self.segments[si][1]),
+                              (None, 0))(subs[si], xs)
+                xs = tuple(cross(si, p, 0, o) for p, o in enumerate(outs))
         tail_seg = self._segment_one(self.segments[last][1])
 
         def loss_one(p, xs):
@@ -649,37 +779,36 @@ class SplitExecution:
 
         per: List[Dict[str, Any]] = [None] * len(self.segments)
         with torch.enable_grad():
-            got, losses = vmap(torch.func.grad_and_value(
+            got, losses = mapped(torch.func.grad_and_value(
                 loss_one, argnums=(0, 1) if last else 0),
-                in_dims=(None, 0))(subs[last], xs)
+                (None, 0))(subs[last], xs)
             if last:
                 per[last], g_act = got
             else:
                 per[last] = got
             for si in range(last - 1, -1, -1):
                 with torch.no_grad():
-                    g_act = tuple(self.stages[si].apply_per_example(
-                        g, self._key(key, si, p, 1))
-                        for p, g in enumerate(g_act))
+                    g_act = tuple(cross(si, p, 1, g)
+                                  for p, g in enumerate(g_act))
                 seg = self._segment_one(self.segments[si][1])
                 if si:
                     def vjp_one(p, xs, gs, seg=seg):
                         return torch.func.vjp(seg, p, xs)[1](gs)
-                    per[si], g_act = vmap(vjp_one, in_dims=(None, 0, 0))(
+                    per[si], g_act = mapped(vjp_one, (None, 0, 0))(
                         subs[si], seg_in[si], g_act)
                 else:
                     def vjp_one(p, xs, gs, seg=seg):
                         return torch.func.vjp(
                             lambda q: seg(q, xs), p)[1](gs)[0]
-                    per[si] = vmap(vjp_one, in_dims=(None, 0, 0))(
+                    per[si] = mapped(vjp_one, (None, 0, 0))(
                         subs[si], seg_in[si], g_act)
         merged: Dict[str, Any] = {}
         for d in per:
             merged.update(d)
-        b = int(real.shape[0])
+        shape = tuple(batches[0].shape[:lead])
         grads = {n: merged[n] if n in merged else tree_map(
-            lambda l: l.new_zeros((b,) + tuple(l.shape)), held[n])
-            for n in held}
+            lambda l: l.new_zeros(shape + tuple(l.shape[lead - 1:])),
+            held[n]) for n in held}
         return losses.detach(), tree_map(torch.Tensor.detach, grads)
 
     def per_example_oracle(self, params, real, fake, key=None):
@@ -687,8 +816,7 @@ class SplitExecution:
         each example alone through ``run``, its crossings' stages taking
         its row of the per-crossing ``(B, N)`` draw.  A reference for the
         tests and the GPU smoke run; no training path calls it."""
-        if key is None and self.stochastic:
-            key = keys.root(keys.DEFAULT, 0)
+        key = self._default_key(key)
         b = int(real.shape[0])
         draws: Dict[Tuple[int, int, int], torch.Tensor] = {}
 
@@ -717,8 +845,7 @@ class SplitExecution:
                            upto: Optional[int] = None) -> List[torch.Tensor]:
         """The staged activations ONE forward pass ships, per boundary
         (post-codec, post-noise).  ``upto`` stops after that boundary."""
-        if key is None and self.stochastic:
-            key = keys.root(keys.DEFAULT, 0)
+        key = self._default_key(key)
         out = []
         with torch.no_grad():
             for si, (dev, names) in enumerate(self.segments[:-1]):

@@ -5,7 +5,7 @@
   policies    sync barrier FedAvg (host or fedavg CUDA kernel), FedAsync,
               FedBuff
   programs    the client-side local round as data (plain, DP-SGD, split),
-              run as a per-client loop
+              run as a per-client loop or stacked over clients
   aggregate   the compressed-domain server reduce over wire payloads
               (agg_fuse CUDA kernels)
   hierarchy   edge cohorts that pre-reduce before the WAN

@@ -1,6 +1,5 @@
 """Compressed-domain aggregation over encoded uplinks.  Port of
-``repro/fed/aggregate.py`` (single device: the client mesh for the batched
-reduce waits for ROADMAP Queue A item 7).
+``repro/fed/aggregate.py``.
 
 The decode-then-fedavg server reduce stages one decoded fp32 tree per
 client before averaging: O(C) server memory and an extra full
@@ -20,7 +19,8 @@ the ``kernels/agg_fuse`` ops:
   * :func:`batched_reduce` — a whole round's wires reduced in one
     ``dequant_reduce_leaves`` call, each client's wire read where it lies
     (dense codecs), or per leaf by one decode of the stacked client axis
-    (top-k, plain torch as the reference's is plain JAX).
+    (top-k, plain torch as the reference's is plain JAX); given a client
+    mesh, each device reduces its contiguous chunk of the round's clients.
 
 A weighted mean of rebased updates equals the base plus the weighted mean
 of the deltas exactly in real arithmetic but only to rounding in float, so
@@ -37,7 +37,7 @@ from repro_torch.fed.transport import apply_delta
 from repro_torch.kernels.agg_fuse.ops import (dequant_acc_leaves,
                                               dequant_reduce_leaves,
                                               scatter_acc_leaves)
-from repro_torch.tree import leaves, unflatten_like
+from repro_torch.tree import leaves, tree_map, unflatten_like
 
 __all__ = ["StreamingAggregator", "batched_reduce", "codec_rel_error",
            "decode_enc", "fused_decode_apply"]
@@ -198,15 +198,50 @@ def _topk_batched_mean(vals: torch.Tensor, idx: torch.Tensor,
     return torch.sum(dense * w[:, None], dim=0)
 
 
+def _to(x, dev):
+    """A wire, meta or wire tuple moved to ``dev``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, (tuple, list)):
+        return type(x)(_to(v, dev) for v in x)
+    return x
+
+
 def batched_reduce(codec_name: str, encs: Sequence[EncTree],
                    weights: Sequence[float], template, *,
-                   use_kernel: bool = False):
+                   use_kernel: bool = False, mesh=None):
     """Weighted mean over a whole round's encoded uplinks: dense wires go,
     at WIRE dtype and unstacked, into one ``dequant_reduce_leaves`` call
     for every leaf; top-k wires decode the stacked client axis, leaf by
-    leaf."""
+    leaf.
+
+    ``mesh`` (``launch/mesh.Mesh``): when its ``clients`` axis divides
+    the client count (``sharding/specs.client_chunks``), each device
+    reduces its contiguous chunk of clients and the chunk means, weighted
+    by their weight sums, add up on the template's device.  None, or a
+    count it does not divide: the one-device reduce."""
     if not encs:
         raise ValueError("batched_reduce over no uplinks")
+    chunks = None
+    if mesh is not None:
+        from repro_torch.sharding.specs import client_chunks
+        chunks = client_chunks(mesh, len(encs))
+    if chunks is not None:
+        home = leaves(template)[0].device
+        w = [float(x) for x in weights]
+        total = sum(w)
+        means = None
+        for dev, lo, hi in chunks:
+            part = batched_reduce(
+                codec_name, [_to(e, dev) for e in encs[lo:hi]], w[lo:hi],
+                tree_map(lambda t: t.to(dev), template),
+                use_kernel=use_kernel)
+            part = [sum(w[lo:hi]) / total * l.to(home, torch.float32)
+                    for l in leaves(part)]
+            means = part if means is None else [
+                a + b for a, b in zip(means, part)]
+        return unflatten_like(template, [
+            m.to(t.dtype) for m, t in zip(means, leaves(template))])
     name = _norm(codec_name)
     tleaves = leaves(template)
     dev = tleaves[0].device

@@ -1,6 +1,5 @@
 """Discrete-event federation round engine.  Port of ``repro/fed/engine.py``
-(span emission, codec and mesh swaps and digests wait for ROADMAP Queue A
-items 7-8).
+(span emission, codec swaps and digests wait for ROADMAP Queue A item 8).
 
 Each round, every available client
 
@@ -147,6 +146,15 @@ class FederationEngine:
         self.ledger = TrafficLedger()      # cumulative across rounds
         self._lan_by: Dict[str, int] = {}  # this round's LAN bytes/client
         self.last_report: Optional[RoundReport] = None
+        # client mesh of the "batched" reduce (set_mesh); None: one device
+        self.mesh = None
+
+    def set_mesh(self, mesh) -> None:
+        """Attach a client mesh (``launch/mesh.Mesh``) for the "batched"
+        server reduce: each device reduces its chunk of the round's wires
+        (``fed/aggregate.batched_reduce``).  None restores the one-device
+        reduce."""
+        self.mesh = mesh
 
     # ------------------------------------------------------------------
     def _codec_roundtrip(self, cid: str, base_tree, params
@@ -345,7 +353,7 @@ class FederationEngine:
                 mean = batched_reduce(
                     self.codec_name, [e for e, _ in staged],
                     [w for _, w in staged], global_tree,
-                    use_kernel=self.cfg.kernel_aggregation)
+                    use_kernel=self.cfg.kernel_aggregation, mesh=self.mesh)
             else:
                 mean = None
             if mean is None:

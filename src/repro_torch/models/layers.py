@@ -6,7 +6,8 @@ Pure functions over parameter trees, as in the reference:
 and leaf shapes: a dense ``w`` is ``(d_in, d_out)``, so ``dense_apply`` is
 ``x @ w``) and ``*_apply(params, x, ...) -> y``.  The reference's
 ``*_specs`` trees and ``constrain`` calls are sharding hints, the identity
-on one device; they wait for the sharded runtime (ROADMAP Queue A item 7).
+on one device; they wait for the LM's sharded runtime (ROADMAP Queue A
+item 16).
 
 ``*_init`` draws from a ``torch.Generator`` on the parameters' device, so a
 seed gives other numbers than the JAX key stream; the parity tests carry

@@ -474,8 +474,6 @@ def test_trainer_runs_on_the_gpu_unless_told_otherwise(parts, monkeypatch):
 
 
 @pytest.mark.parametrize("over", [
-    {"fed.backend": "vectorized"},
-    {"fed.backend": "auto"}, {"fed.shard_clients": True},
     {"privacy.enabled": True, "control.mode": "adaptive"},
     {"control.mode": "adaptive"}, {"obs.enabled": True},
     {"obs.health.enabled": True},
@@ -492,6 +490,8 @@ def test_unported_option_raises(parts, over):
     {"split.enabled": True, "split.pipeline_microbatches": 2},
     {"split.enabled": True, "privacy.enabled": True,
      "privacy.mode": "dp_sgd"},
+    {"fed.backend": "vectorized"}, {"fed.backend": "auto"},
+    {"fed.shard_clients": True},
 ])
 def test_ported_option_runs_one_round(parts, over):
     """Options ported since the first slice, which used to raise: one CPU
@@ -502,12 +502,6 @@ def test_ported_option_runs_one_round(parts, over):
     assert m["num_clients"] == 2
     assert ("edge_mbytes" in m) == ("fed.hierarchy_cohorts" in over)
     assert ("lan_mbytes" in m) == ("split.enabled" in over)
-
-
-def test_unported_backend_argument_raises(parts):
-    tr = _port_trainer(parts, SMALL)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.train_epoch(batches_per_client=1, backend="vectorized")
 
 
 def test_port_imports_neither_jax_nor_repro():
