@@ -61,9 +61,22 @@ non-zero exit, and no result line:
    greedy tokens, bf16 cache) on qwen3-14b (40 layers, bf16, 29.5 GB;
    B 2 x S 2048: 40 flash_attention launches) and on rwkv6-1.6b (24
    layers, fp32; B 4 x T 2048: 24 wkv6 launches); serving launches
-   neither, as in the reference.  Every launch count is set to 0 just
-   before a path and read just after it, and must be exactly what the path
-   runs;
+   neither, as in the reference.  And the adaptive path at full width
+   (``phase_adaptive_path``, 3 rounds x 2 batches): ``control.mode=
+   "adaptive"`` with the codec, sigma, split and deadline controllers,
+   DP-SGD through the split with the dp_clip and boundary_fuse kernels
+   (fused fp16+dp at every boundary, int8+dp where the split controller
+   finds a leak), the stream reduce through agg_fuse (scatter_acc on the
+   round the codec controller probes top-k, dequant_acc on int8), the
+   flight recorder with the kernel profile (fedavg, dp_clip,
+   boundary_fuse and dequant_reduce, each its first call and 3 timed
+   ones) and the health monitors under ``policy="record"``: each round's
+   knobs and the controllers that moved them printed, each round's
+   launches equal to what the knobs in force and the clients that ran and
+   landed give, the recording replayed to the same knobs bit for bit,
+   the trace checked as Chrome-trace JSON, profile.json printed beside the
+   H100 roofline terms.  Every launch count is set to 0 just before a
+   path and read just after it, and must be exactly what the path runs;
 5. the output — finite losses, every parameter on the card, generated
    images in range, epsilon finite and growing (DP-SGD, with and without
    the split), the LAN and edge bytes the split and the codec predict (the
@@ -86,7 +99,10 @@ non-zero exit, and no result line:
    against the loop round (plain, DP-SGD, split) at the reference's
    tolerances, ``fed.shard_clients`` on one card against the unsharded
    vectorized round, and rounds with cuDNN's TF32 flag on globally
-   against the same rounds with it off, both bit for bit.
+   against the same rounds with it off, both bit for bit; on the adaptive
+   path's configuration, ``control.mode="frozen"`` against no control,
+   obs on against obs off and the monitors under ``policy="record"``
+   against none, each bit for bit under deterministic cuDNN.
 
 Prints ``{"kernels": [...]}`` on a line of its own and, as the last line,
 ``{"ok": true, "device": {...}}``.
@@ -96,6 +112,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -1622,7 +1639,7 @@ def phase_main_paths(dev):
             dev, label, {**over, "fed.backend": "auto"},
             lambda tr, lr=loop_round, vr=vec_round: auto_launches(
                 lr(tr), vr(tr))(tr))
-        probe = tr.backend_probe_us
+        probe = tr.feedback[0].backend_probe_us
         pick = tr._auto_backend
         check(pick in probe and set(probe) == {"loop", "vectorized"}
               and all(v > 0 for v in probe.values()),
@@ -1728,6 +1745,255 @@ def phase_main_paths(dev):
     check(live == CLIENTS + 2, f"hierarchy decode: peak_live_trees {live}, "
           f"expected {CLIENTS + 2} (every member tree and the 2 aggregates)")
     return launches, by_path
+
+
+# the adaptive path: the control plane, the flight recorder and the health
+# monitors over DP-SGD through the executed split with the stream reduce
+ADAPTIVE_ROUNDS = 3
+ADAPTIVE = {
+    **DP_SGD, **SPLIT,
+    # the fused fp16+dp stage at every boundary, and the split controller's
+    # int8+dp at the ones it finds leaky: both through boundary_fuse
+    "split.boundary_stage": "fp16+dp",
+    # random_single plans are imbalanced, so the split controller replans
+    "fsl.selection": "random_single",
+    "fed.server_reduce": "stream", "fed.codec": "int8",
+    "control.mode": "adaptive",
+    "control.controllers": ["codec", "sigma", "split", "deadline"],
+    # codec: top-k's error (~0.9) is over the budget, int8's (~0.01) under
+    "control.error_budget": 0.05,
+    # sigma: 30 DP-SGD releases at q = 1 cost far more than 1.0 buys
+    "control.epsilon_budget": 20.0,
+    "control.horizon_rounds": ADAPTIVE_ROUNDS,
+    # split: any imbalance replans; a raw boundary's dCor (~0.9+) leaks
+    "control.imbalance_threshold": 1.01, "control.dcor_threshold": 0.3,
+    "control.leaky_stage": "int8+dp", "control.probe_batch": 64,
+    # deadline: the 0.9 quantile of the measured finishes, x 1.25
+    "control.deadline_quantile": 0.9, "control.deadline_slack": 1.25,
+    "obs.enabled": True, "obs.run_id": "adaptive",
+    "obs.out_dir": os.path.join(ROOT, "build", "obs_runs"),
+    "obs.health.enabled": True, "obs.health.policy": "record",
+    "obs.profile_kernels": True,
+}
+# the knob fields each controller owns
+CONTROLLER_KNOBS = {"codec": ("codec", "topk_frac"), "sigma": ("sigma",),
+                    "split": ("split_strategy", "stage_by_boundary"),
+                    "deadline": ("deadline_s",)}
+
+
+def fused_kernel_stage(name):
+    """Whether a boundary stage name runs through boundary_fuse."""
+    parts = name.split("+")
+    return len(parts) == 2 and parts[1] == "dp" \
+        and parts[0] in ("fp16", "int8")
+
+
+def adaptive_round_launches(tr, knobs, rep, profile):
+    """What one adaptive round launches, from the knobs in force and the
+    clients that ran and landed (``rep``): dp_clip once a DP-SGD step of
+    each client that ran; boundary_fuse 4 times a fused boundary a step
+    (the real and fake passes, forward and backward) on each such
+    client's plan under the knobs' strategy, each boundary's stage from
+    the knobs' map or the config's; one stream fold a landed client,
+    scatter_acc under top-k, dequant_acc under a dense codec; and the
+    profile's launches (its first call and each timed one, for every
+    kernel it ran) in the round that wrote ``profile.json``."""
+    from repro_torch.core.selection import plan_all_clients
+    from repro_torch.core.split import plan_segments
+    cfg = tr.cfg
+    plans = plan_all_clients(tr.pool, tr._layers, knobs.split_strategy,
+                             cfg.fsl.seed)
+    base = cfg.split.boundary_stage
+    ran = [cid for cid, _ in rep.client_infos]
+    want = {"dp_clip": len(ran) * BATCHES, "boundary_fuse": 0,
+            "scatter_acc": 0, "dequant_acc": 0}
+    for cid in ran:
+        nb = len(plan_segments(plans[cid])) - 1
+        fused = sum(fused_kernel_stage((knobs.stage_by_boundary or {}).get(
+            b, base)) for b in range(nb))
+        want["boundary_fuse"] += 4 * fused * BATCHES
+    fold = "scatter_acc" if knobs.codec == "topk" else "dequant_acc"
+    want[fold] += len(rep.participated)
+    kernel_of = {"fedavg": "fedavg", "dp": "dp_clip",
+                 "boundary": "boundary_fuse", "agg": "dequant_reduce"}
+    for name, p in (profile or {}).items():
+        check(p["kernel"], f"profile {name} did not run its kernel")
+        k = kernel_of[name.split("_")[0]]
+        want[k] = want.get(k, 0) + 1 + p["runs"]
+    return want
+
+
+def phase_adaptive_path(dev):
+    """The control plane, the flight recorder and the health monitors at
+    full width: ``FSLGANTrainer.train_epoch`` for ADAPTIVE_ROUNDS rounds x
+    BATCHES batches under ``control.mode="adaptive"`` (all four
+    controllers), DP-SGD through the executed split with the dp_clip and
+    boundary_fuse kernels, the stream reduce through agg_fuse, the
+    recorder with trace, digests and the kernel profile, and the monitors
+    under ``policy="record"``.  Checks each round's launches against the
+    knobs in force and the clients that ran and landed, that every
+    controller acted, that the recording replays to the same knobs, that
+    the trace is valid Chrome-trace JSON; prints profile.json beside the
+    H100 roofline terms.  Returns the launch counts."""
+    from repro_torch.control import knobs_from_config
+    from repro_torch.obs import (HealthMonitor, load_run, replay_run,
+                                 state_digest, validate_chrome_trace)
+
+    print("adaptive path settings: " + ", ".join(
+        f"{k}={v}" for k, v in sorted(ADAPTIVE.items())
+        if k.startswith(("control.", "privacy.", "split.", "fed.", "fsl.",
+                         "obs."))))
+    # the recorder appends to its logs: start from an empty run directory
+    shutil.rmtree(os.path.join(ADAPTIVE["obs.out_dir"], "adaptive"),
+                  ignore_errors=True)
+    tr = full_width_trainer(ADAPTIVE)
+    run_dir = tr.recorder.run_dir
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    total = {k: 0 for k in wrappers}
+    prev = knobs_from_config(tr.cfg)
+    acted = {name: [] for name in CONTROLLER_KNOBS}
+    walls = WALLS.setdefault("adaptive path", [])
+    profile = None
+    for r in range(ADAPTIVE_ROUNDS):
+        before = {k: w.launches for k, w in wrappers.items()}
+        t0 = time.perf_counter()
+        m = tr.train_epoch(batches_per_client=BATCHES)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        got = {k: w.launches - before[k] for k, w in wrappers.items()}
+        k, rep = tr.knobs, tr.engine.last_report
+        if r == 0:
+            with open(os.path.join(run_dir, "profile.json")) as f:
+                profile = json.load(f)
+        want = adaptive_round_launches(tr, k, rep,
+                                       profile if r == 0 else None)
+        want = {name: want.get(name, 0) for name in got}
+        check(got == want, f"adaptive round {r}: launches {got}, the knobs "
+              f"and clients give {want}")
+        for name, fields in CONTROLLER_KNOBS.items():
+            if any(getattr(k, f) != getattr(prev, f) for f in fields):
+                acted[name].append(r)
+        prev = k
+        for name, n in got.items():
+            total[name] += n
+        check(math.isfinite(m["d_loss"]) and math.isfinite(m["g_loss"]),
+              f"adaptive round {r}: non-finite loss {m}")
+        stages = dict(sorted((k.stage_by_boundary or {}).items()))
+        print(f"adaptive round {r}: wall {walls[-1]:.3f} s, knobs codec "
+              f"{k.codec}, sigma {k.sigma!r}, strategy {k.split_strategy}, "
+              f"stages {stages or tr.cfg.split.boundary_stage + ' (all)'}, "
+              f"deadline {k.deadline_s!r} s; ran {len(rep.client_infos)}, "
+              f"landed {len(rep.participated)}, stragglers "
+              f"{len(rep.stragglers)}; d_loss {m['d_loss']:.6f}, epsilon "
+              f"{m['dp_epsilon']:.6g}, codec_error {m['codec_error']:.4g}; "
+              f"launches {got} as the knobs give")
+    print(f"adaptive path: controllers acted in rounds {acted}")
+    for name, rounds in acted.items():
+        check(rounds, f"the {name} controller never changed its knob")
+    check(all(fb.dp_epsilon <= ADAPTIVE["control.epsilon_budget"]
+              for fb in tr.feedback), "the sigma controller overspent")
+    check(not [a for a in tr.health_alerts if a.severity == "fatal"],
+          f"fatal health alerts: {tr.health_alerts}")
+
+    res = replay_run(run_dir)
+    check(res.matches, f"replay differs from the live knobs: {res.diff()}")
+    rec = load_run(run_dir)
+    check(len(rec.knobs) == ADAPTIVE_ROUNDS, "recorded knobs incomplete")
+    with open(os.path.join(run_dir, "trace.json")) as f:
+        n_events = validate_chrome_trace(json.load(f))
+    cats = sorted({s.cat for s in tr.recorder.tracer.spans})
+    check({"round", "client", "batch", "boundary", "uplink",
+           "aggregate"} <= set(cats), f"trace categories {cats}")
+    print(f"adaptive path: replay of {len(rec.feedback)} recorded rounds "
+          f"gives the live knobs bit for bit; trace.json valid, {n_events} "
+          f"complete events ({', '.join(cats)}); {len(rec.digests)} digests, "
+          f"{len(rec.alerts)} alerts (policy record)")
+    # what the layers this path adds cost a round, each timed once on the
+    # final state, the device synchronised around it
+    st, fb = tr.state, tr.feedback[-1]
+    d0 = st.d_params[tr._active_clients()[0]]
+    costs = {
+        "state digest": lambda: state_digest(
+            d0, st.d_opt, st.g_params, st.g_opt, round_index=fb.round_index),
+        "dCor probe": tr._probe_boundary_dcor,
+        "health checks": lambda: HealthMonitor(tr.cfg.obs.health)
+        .check_round(fb, params=d0, update_base=d0),
+        "trace export": lambda: (tr.recorder.tracer.record(
+            "probe", cat="round", track="server", v_start=0.0, v_end=0.0),
+            tr.recorder.flush()),
+        # what a split knob change costs before its round: the split
+        # programs rebuilt (wire bytes measured a signature) and the
+        # engine repriced
+        "split regroup": lambda: (tr._build_split_programs(),
+                                  setattr(tr, "engine", None),
+                                  tr._ensure_engine(BATCHES)),
+    }
+    spent = {}
+    for name, fn in costs.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        spent[name] = 1e3 * (time.perf_counter() - t0)
+    print("adaptive path: a round's added host work, once each on the final "
+          "state: " + ", ".join(f"{k} {v:.1f} ms" for k, v in spent.items()))
+    for name, p in profile.items():
+        print(f"  profile {name}: run {1e3 * p['run_s']:.4f} ms (best of "
+              f"{p['runs']}, CUDA events), first call {p['compile_s']:.3f} s; "
+              f"H100 roofline: {p['bytes_accessed']:.0f} B, "
+              f"{p['flops']:.0f} flop, bound {1e3 * p['bound_s']:.4f} ms "
+              f"({p['bound_by']}), {p['bound_s'] / p['run_s']:.3f} of it")
+    print(f"adaptive path: {ADAPTIVE_ROUNDS} rounds x {BATCHES} batches x "
+          f"{CLIENTS} clients, launches {total}")
+    return total
+
+
+def phase_small_adaptive_reference(dev):
+    """On the card at a small width, each round equal bit for bit under
+    cuDNN's deterministic algorithms: ``control.mode="frozen"`` (every
+    controller named) against no control section, obs on (trace, digests,
+    the kernel profile) against obs off, and the monitors under
+    ``policy="record"`` against none — on the adaptive path's DP-SGD split
+    stream configuration, with its kernels."""
+    from repro_torch.tree import leaves
+    small_over = {k: v for k, v in ADAPTIVE.items()
+                  if not k.startswith(("control.", "obs."))}
+    frozen = {"control.mode": "frozen", "control.controllers":
+              ADAPTIVE["control.controllers"],
+              "control.epsilon_budget": 20.0, "control.horizon_rounds": 2}
+    obs = {"obs.enabled": True, "obs.run_id": "small-obs",
+           "obs.out_dir": ADAPTIVE["obs.out_dir"],
+           "obs.profile_kernels": True}
+    record = {"obs.health.enabled": True, "obs.health.policy": "record"}
+    shutil.rmtree(os.path.join(obs["obs.out_dir"], obs["obs.run_id"]),
+                  ignore_errors=True)
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for label, over in (("control frozen", frozen), ("obs on", obs),
+                            ("health record", record)):
+            ta = small_trainer(small_over)
+            tb = small_trainer({**small_over, **over})
+            for r in range(ROUNDS):
+                ma = ta.train_epoch(batches_per_client=BATCHES)
+                mb = tb.train_epoch(batches_per_client=BATCHES)
+                check(ma == mb, f"{label}: round {r} metrics differ: "
+                      f"{ma} != {mb}")
+            pairs = [p for a, b in ((ta.state.g_params, tb.state.g_params),
+                                    (ta.state.d_params, tb.state.d_params),
+                                    (ta.state.d_opt, tb.state.d_opt))
+                     for p in zip(leaves(a), leaves(b))]
+            check(all(torch.equal(a, b) for a, b in pairs),
+                  f"{label}: parameters differ from the plain run")
+            check(tb.knobs == ta.knobs, f"{label}: knobs moved")
+            print(f"small adaptive reference, {label}: {ROUNDS} rounds equal "
+                  f"to the run without it bit for bit ({len(pairs)} leaves "
+                  f"of G, the Ds and their optimizer states, and the "
+                  f"metrics; deterministic cuDNN)")
+    finally:
+        torch.backends.cudnn.deterministic = saved
 
 
 def adam_reach(beta1, beta2, steps):
@@ -2683,6 +2949,12 @@ def main() -> int:
     launches, by_path = phase_main_paths(dev)
     print(f"main paths: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    adaptive = phase_adaptive_path(dev)
+    for name, n in adaptive.items():
+        if n:
+            by_path.setdefault(name, {})["adaptive path"] = n
+    print(f"adaptive path: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     launches.update(phase_lm_paths(dev))
     print(f"LM paths: {time.perf_counter() - t0:.1f} s")
     for row in rows:
@@ -2693,6 +2965,7 @@ def main() -> int:
     phase_small_reference(dev)
     phase_small_split_reference(dev)
     phase_small_vectorized_reference(dev)
+    phase_small_adaptive_reference(dev)
     phase_lm_small_reference(dev)
     print(f"small references: {time.perf_counter() - t0:.1f} s")
 

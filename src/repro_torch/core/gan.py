@@ -39,17 +39,26 @@ with an RDP accountant either way.  ``train_epoch_sequential`` keeps the
 plain sequential loop; with the host FedAvg the two are bit-for-bit
 identical (pinned in the tests).
 
+The control plane (``cfg.control``) wraps each round: every round emits
+one :class:`~repro_torch.control.RoundFeedback` (``self.feedback``), and
+under ``mode='adaptive'`` the controller suite turns that history into
+knob decisions before the next round (codec swap, sigma rebind, split
+replan and per-boundary stages, deadline).  The flight recorder
+(``cfg.obs``) traces the engine's rounds, persists feedback, knobs,
+metrics, alerts and state digests, and profiles the round's kernels; the
+health monitors (``cfg.obs.health``) check each round and act per policy.
+Neither steers training: obs-on and ``policy='record'`` are bit-exact with
+them off, and ``mode='frozen'`` with the uncontrolled build.
+
 The entry points (``train_epoch``, ``train_epoch_sequential``,
 ``generate``) compute convolutions in float32 whatever the global cuDNN
 TF32 flag says (:func:`repro_torch.device.fp32_convolutions`).
-
-Options of the JAX trainer that need modules not ported yet raise
-``NotImplementedError`` naming their ROADMAP item (:func:`check_ported`).
 """
 from __future__ import annotations
 
 import functools
 import time
+import warnings
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
@@ -58,13 +67,15 @@ import torch
 
 from repro_torch import keys
 from repro_torch.config import RunConfig
+from repro_torch.control import (ControllerSuite, ControlKnobs, RoundFeedback,
+                                 knobs_from_config, make_controllers)
 from repro_torch.core.devices import make_pool
 from repro_torch.core.fedavg import fedavg
 from repro_torch.core.pipeline import effective_microbatches
 from repro_torch.core.selection import plan_all_clients
 from repro_torch.core.simulate import plan_epoch_time
 from repro_torch.core.split import (SplitExecution, SplitPlan,
-                                    make_boundary_stage)
+                                    make_boundary_stage, plan_segments)
 from repro_torch.device import fp32_convolutions, resolve_device
 from repro_torch.fed.engine import ClientSpec, FederationEngine
 from repro_torch.fed.hierarchy import assign_cohorts
@@ -75,10 +86,15 @@ from repro_torch.launch.mesh import make_client_mesh, mesh_chips
 from repro_torch.models.dcgan import (disc_apply, disc_apply_layer, disc_init,
                                       disc_layer_costs, disc_layer_names,
                                       gen_apply, gen_init)
+from repro_torch.obs import FlightRecorder, profile_engine_kernels
+from repro_torch.obs.digest import RoundDigest, state_digest, tree_digest
+from repro_torch.obs.health import (SEV_FATAL, HealthAbort, HealthAlert,
+                                    HealthMonitor)
 from repro_torch.optim import make_optimizer
 from repro_torch.privacy.defenses import (RDPAccountant, make_dp_d_step,
                                           make_uplink_stage)
-from repro_torch.tree import tree_map, value_and_grad
+from repro_torch.privacy.metrics import distance_correlation
+from repro_torch.tree import leaves, tree_map, value_and_grad
 
 
 def bce_logits(logits: torch.Tensor, target: float) -> torch.Tensor:
@@ -105,26 +121,6 @@ def g_loss_fn(g_params, d_params, z, c) -> torch.Tensor:
 AUTO_PROBE_RUNS = 3
 
 
-# (is the option set?, what it is, the ROADMAP Queue A item that ports it)
-_UNPORTED = (
-    (lambda cfg: cfg.control.mode == "adaptive", "control.mode='adaptive'",
-     "item 8 (control plane)"),
-    (lambda cfg: cfg.obs.enabled, "obs.enabled", "item 8 (flight recorder)"),
-    (lambda cfg: cfg.obs.health.enabled, "obs.health.enabled",
-     "item 8 (health monitors)"),
-)
-
-
-def check_ported(cfg: RunConfig) -> None:
-    """Raise ``NotImplementedError`` for the first option ``cfg`` sets that
-    needs a module not ported yet."""
-    for is_set, what, item in _UNPORTED:
-        if is_set(cfg):
-            raise NotImplementedError(
-                f"{what} is not ported to repro_torch yet "
-                f"(ROADMAP Queue A {item})")
-
-
 @dataclass
 class GANState:
     g_params: Any
@@ -143,7 +139,6 @@ class FSLGANTrainer:
     def __init__(self, cfg: RunConfig, client_data: Dict[str, np.ndarray],
                  seed: int = 0,
                  device: Optional[Union[str, torch.device]] = None):
-        check_ported(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.c = cfg.model.dcgan
@@ -162,6 +157,13 @@ class FSLGANTrainer:
                       for cid in self.client_ids},
             d_opt={cid: self.d_optimizer.init(d0) for cid in self.client_ids},
         )
+        # control plane (cfg.control): knobs seed from the static config;
+        # 'frozen' (default) never changes them — bit-exact with the
+        # uncontrolled build — while 'adaptive' consults the controller
+        # suite between rounds.  RoundFeedback is emitted either way.
+        self.knobs: ControlKnobs = knobs_from_config(cfg)
+        self.feedback: List[RoundFeedback] = []
+        self._suite: Optional[ControllerSuite] = None
         # split planning.  cfg.split.enabled compiles each plan into the
         # executed local step (core/split.SplitExecution); otherwise the
         # plan only prices the round and training runs the monolithic D.
@@ -170,8 +172,7 @@ class FSLGANTrainer:
         costs = disc_layer_costs(self.c)
         self._layers = [(n, costs[n]) for n in disc_layer_names(self.c)]
         self.plans: Dict[str, SplitPlan] = plan_all_clients(
-            self.pool, self._layers, cfg.split.strategy or cfg.fsl.selection,
-            cfg.fsl.seed)
+            self.pool, self._layers, self.knobs.split_strategy, cfg.fsl.seed)
         # the host stream for data sampling and z, as in the JAX trainer
         self._rng = np.random.default_rng(seed)
         self._build_steps()
@@ -202,13 +203,36 @@ class FSLGANTrainer:
         self.engine: Optional[FederationEngine] = None
         self._engine_batches: Optional[int] = None
         self._cohort_of: Optional[Callable[[str], int]] = None
-        # backend="auto": the probe's pick and its wall times (us), pinned
-        # for the trainer's life after the first round
+        # backend="auto": the probe's pick, pinned for the trainer's life
+        # after the first round (its wall times go into that round's
+        # RoundFeedback)
         self._auto_backend: Optional[str] = None
-        self.backend_probe_us: Dict[str, float] = {}
         # the client mesh, resolved on first use (_client_mesh)
         self._mesh = None
         self._mesh_resolved = False
+        # mean analytic sequential/pipelined per-batch ratio across split
+        # clients (1.0 unsplit or K == 1); set by _ensure_engine, carried
+        # into RoundFeedback for the deadline controller's rescaling
+        self._pipeline_speedup: float = 1.0
+        # flight recorder (cfg.obs): traces, metrics, feedback persistence.
+        # Disabled (default) => None everywhere — the engine emits no spans
+        # and every training path is untouched (pinned bit-exact).
+        self.recorder: Optional[FlightRecorder] = None
+        self._trace_timelines: Dict[str, Any] = {}
+        self._manifest_written = False
+        self._profiled = False
+        if cfg.obs.enabled:
+            self.recorder = FlightRecorder.from_config(cfg)
+        # watchtower (cfg.obs.health): read-only per-round monitors.
+        # Orthogonal to the recorder — monitors run without persistence
+        # (alerts stay on self.health_alerts), and policy='record' is
+        # bit-exact with monitors off because checks never write training
+        # state.  Rollback keeps one snapshot of the last healthy state.
+        self.monitor: Optional[HealthMonitor] = None
+        self.health_alerts: List[HealthAlert] = []
+        self._healthy_snapshot: Optional[Tuple[Any, Any, Any, Any]] = None
+        if cfg.obs.health.enabled:
+            self.monitor = HealthMonitor(cfg.obs.health)
 
     # ------------------------------------------------------------------
     def _build_steps(self):
@@ -235,11 +259,25 @@ class FSLGANTrainer:
         self._d_step, self._g_step, self._gen = d_step, g_step, gen_batch
         self._build_split_programs()
 
+    def _boundary_stages(self, plan: SplitPlan) -> Optional[List[Any]]:
+        """Per-boundary stage list for one plan under the current knobs, or
+        None for the uniform config stage (the static path)."""
+        stage_map = self.knobs.stage_by_boundary
+        if stage_map is None:
+            return None
+        nb = len(plan_segments(plan)) - 1
+        base = self.cfg.split.boundary_stage or "identity"
+        return [make_boundary_stage(self.cfg.split, stage_map.get(b, base))
+                for b in range(nb)]
+
     def _build_split_programs(self):
-        """Build the split executions and the client program from the
-        plans.  Each feasible plan becomes a staged local step whose
-        boundary tensors pass the configured stage; its measured per-step
-        LAN bytes are kept for pricing."""
+        """(Re)build the split executions and the client program from the
+        current plans and knobs.  Called at construction and again by the
+        split controller after a replan or a per-boundary stage
+        reassignment (a *split-signature regroup*: new signatures, new
+        step caches).  Each feasible plan becomes a staged local step
+        whose boundary tensors pass their stage; its measured per-step LAN
+        bytes are kept for pricing."""
         c, lr = self.c, self.cfg.optim.lr
         self.split_execs: Dict[str, SplitExecution] = {}
         self._split_step_bytes: Dict[str, int] = {}
@@ -257,6 +295,7 @@ class FSLGANTrainer:
             pipeline_k = self._pipeline_k()
             for cid, plan in self.plans.items():
                 ex = SplitExecution(plan, apply_layer, tails, stage=stage,
+                                    stages=self._boundary_stages(plan),
                                     pipeline_microbatches=pipeline_k)
                 self.split_execs[cid] = ex
                 if ex.signature not in bytes_by_sig:
@@ -272,6 +311,11 @@ class FSLGANTrainer:
         self.program = LocalProgram(
             self.d_optimizer, functools.partial(d_loss_fn, c=c), lr,
             privacy=self.cfg.privacy, split=self.split_execs or None)
+        # a controller-retuned sigma survives split regroups: the program
+        # is rebuilt from the static config, so rebind the live knob
+        if self.program.is_dp \
+                and self.knobs.sigma != self.cfg.privacy.noise_multiplier:
+            self.program.rebind_sigma(self.knobs.sigma)
 
     def _d_update(self, dp, do, real, fake, key):
         """One reference D step for ``train_epoch_sequential``: DP-SGD when
@@ -343,6 +387,7 @@ class FSLGANTrainer:
         by_id = {cl.client_id: cl for cl in self.pool}
         specs = []
         pipeline_k = self._pipeline_k()
+        speedups: List[float] = []
         for cid in self._active_clients():
             steps = self._client_steps(cid, batches_per_client)
             if cid in self.plans and cid in by_id:
@@ -350,18 +395,23 @@ class FSLGANTrainer:
                 # per-boundary bytes their step ships; unsplit training
                 # keeps the analytic hop constant.  A pipelined step is
                 # priced by the 1F1B schedule's makespan
-                ct = plan_epoch_time(
+                price = functools.partial(
+                    plan_epoch_time,
                     self.plans[cid], by_id[cid], batches_per_epoch=steps,
                     lan_latency_s=self._lan_latency_s(),
                     boundary_bytes=self._split_hop_events.get(cid),
-                    lan_bandwidth_bps=self.cfg.split.lan_bandwidth_bps,
-                    pipeline_microbatches=pipeline_k)
+                    lan_bandwidth_bps=self.cfg.split.lan_bandwidth_bps)
+                ct = price(pipeline_microbatches=pipeline_k)
+                if pipeline_k > 1 and cid in self.split_execs and ct > 0.0:
+                    speedups.append(price(pipeline_microbatches=1) / ct)
             else:
                 ct = 0.0
             specs.append(ClientSpec(
                 cid, float(len(self.client_data[cid])), ct,
                 lr_scale=float(self.cfg.fed.client_lr_scales.get(cid, 1.0)),
                 local_steps=steps))
+        self._pipeline_speedup = float(np.mean(speedups)) if speedups \
+            else 1.0
         # static cohort map of the edge hierarchy: roster order cut into
         # contiguous cohorts, shared by the engine's pre-reduce and the
         # executor's (round, cohort, client) key chain, so grouping and
@@ -380,7 +430,59 @@ class FSLGANTrainer:
             # mesh the vectorized backend trains on (None without one)
             self.engine.set_mesh(self._client_mesh())
         self._engine_batches = batches_per_client
+        if self.recorder is not None:
+            self._attach_recorder(by_id)
         return self.engine
+
+    def _attach_recorder(self, by_id) -> None:
+        """Hook the flight recorder into a (re)built engine: the tracer with
+        a virtual-clock offset (a fresh engine's clock restarts at 0, the
+        recording's timeline must stay monotone), the digester, the
+        ledger's wire observers, and one split timeline per client for
+        span subdivision."""
+        rec = self.recorder
+        if rec.wants("trace"):
+            tr = rec.tracer
+            tr.set_virtual_offset(tr.last_virtual_end())
+            self.engine.set_tracer(tr, batch_cap=self.cfg.obs.trace_batches)
+        if rec.wants("digests"):
+            # stamp RoundReport.global_digest on the as-aggregated tree —
+            # before any health action, so digests.jsonl shows what a
+            # rolled-back round actually aggregated
+            self.engine.set_digester(tree_digest)
+        self.engine.ledger.observer = self._observe_wire
+        self.engine.ledger.edge_observer = self._observe_edge
+        self._trace_timelines = {}
+        for cid, ex in self.split_execs.items():
+            cl = by_id.get(cid)
+            if cl is None:
+                continue
+            tf = {d.device_id: d.time_factor for d in cl.devices}
+            # round_timeline emits overlapping 1F1B spans when the
+            # executor is pipelined (K from ex.pipeline_microbatches)
+            self._trace_timelines[cid] = ex.round_timeline(
+                tf, lan_latency_s=self._lan_latency_s(),
+                hop_bytes=self._split_hop_events.get(cid),
+                lan_bandwidth_bps=self.cfg.split.lan_bandwidth_bps)
+
+    def _observe_wire(self, cid: str, up: int, down: int, lan: int) -> None:
+        """TrafficLedger observer -> per-client cumulative wire counters
+        (the per-round totals come from RoundFeedback via observe_round;
+        distinct namespaces, no double counting)."""
+        reg = self.recorder.registry
+        if up:
+            reg.counter(f"wire.client.{cid}.up_bytes").inc(up)
+        if down:
+            reg.counter(f"wire.client.{cid}.down_bytes").inc(down)
+        if lan:
+            reg.counter(f"wire.client.{cid}.lan_bytes").inc(lan)
+
+    def _observe_edge(self, cid: str, nbytes: int) -> None:
+        """TrafficLedger edge observer -> per-client client->edge wire
+        counter (the two-tier pre-reduce hop)."""
+        if nbytes:
+            self.recorder.registry.counter(
+                f"wire.client.{cid}.edge_bytes").inc(nbytes)
 
     def _sample_round_batches(self, cid: str, steps: int
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -482,8 +584,142 @@ class FSLGANTrainer:
                 probe_us[be] = min(probe_us[be],
                                    (time.perf_counter() - t0) * 1e6)
         self._auto_backend = min(BACKENDS, key=lambda be: probe_us[be])
-        self.backend_probe_us = probe_us
         return self._auto_backend, probe_us
+
+    # ------------------------------------------------------------------
+    # control plane (cfg.control)
+    # ------------------------------------------------------------------
+    def _adaptive(self) -> bool:
+        return (self.cfg.control.mode == "adaptive"
+                and bool(self.cfg.control.controllers))
+
+    def _controller_inputs(self, batches_per_client: int
+                           ) -> Tuple[List[int], int]:
+        """The non-config inputs ``make_controllers`` needs: uplink-tree
+        leaf sizes (codec byte prediction) and the expected DP releases per
+        round.  Shared between the live suite build and the recorder's
+        manifest — replay must rebuild the exact same suite."""
+        leaf_sizes = [int(l.numel()) for l in leaves(
+            self.state.d_params[self.client_ids[0]])]
+        if self.cfg.privacy.mode == "dp_sgd":
+            hint = sum(self._client_steps(cid, batches_per_client)
+                       for cid in self._active_clients())
+        else:                              # uplink: one release per client
+            hint = len(self._active_clients())
+        return leaf_sizes, hint
+
+    def _ensure_controllers(self, batches_per_client: int) -> ControllerSuite:
+        """Build the controller suite on first use (the DP steps-per-round
+        hint depends on the round length)."""
+        if self._suite is None:
+            leaf_sizes, hint = self._controller_inputs(batches_per_client)
+            self._suite = make_controllers(
+                self.cfg, leaf_sizes=leaf_sizes, steps_per_round_hint=hint)
+        return self._suite
+
+    def _apply_knobs(self, new: ControlKnobs) -> None:
+        """Apply a knob diff to the layers that own each knob.  Codec and
+        deadline land on the engine (after ``_ensure_engine``, in
+        ``train_epoch``); sigma rebinds the uplink stage in place and the
+        DP-SGD program via ``LocalProgram.rebind_sigma``; split knobs
+        replan and regroup the split programs (new signatures reprice the
+        engine's client compute times)."""
+        old, self.knobs = self.knobs, new
+        if new.split_strategy != old.split_strategy:
+            self.plans = plan_all_clients(self.pool, self._layers,
+                                          new.split_strategy,
+                                          self.cfg.fsl.seed)
+            self.engine = None             # client times need repricing
+        if (new.split_strategy != old.split_strategy
+                or new.stage_by_boundary != old.stage_by_boundary) \
+                and self.cfg.split.enabled:
+            self._build_split_programs()   # split-signature regroup
+            self.engine = None
+        if new.sigma != old.sigma:
+            if self._uplink_stage is not None:
+                self._uplink_stage.noise_multiplier = float(new.sigma)
+            self.program.rebind_sigma(new.sigma)
+
+    def _probe_boundary_dcor(self) -> Dict[str, Tuple[float, ...]]:
+        """Measured input-vs-activation distance correlation per boundary
+        per split client, on a fixed data prefix — deterministic and
+        host-RNG-free, so probing never perturbs training.
+
+        Probes the RAW (pre-stage) boundary activation: the controller
+        needs each boundary's *intrinsic* leak to decide protection.
+        Probing post-stage would measure the noise it just assigned,
+        suppress the signal, strip the stage next round, and oscillate.
+        The deployed post-stage leakage is the attack suite's job, not the
+        control signal's."""
+        out: Dict[str, Tuple[float, ...]] = {}
+        n = int(self.cfg.control.probe_batch)
+        for cid in self._active_clients():
+            ex = self.split_execs.get(cid)
+            if ex is None or ex.num_boundaries == 0:
+                continue
+            data = self.client_data[cid]
+            x0 = torch.from_numpy(data[:min(n, len(data))]).to(self.device)
+            params, x, dcors = self.state.d_params[cid], x0, []
+            with torch.no_grad():
+                for dev, names in ex.segments[:-1]:
+                    for name in names:
+                        x = ex.apply_layer(name, params, x)
+                    dcors.append(distance_correlation(x0, x))
+            out[cid] = tuple(dcors)
+        return out
+
+    # ------------------------------------------------------------------
+    # watchtower (cfg.obs.health)
+    # ------------------------------------------------------------------
+    def _snapshot_state(self) -> Tuple[Any, Any, Any, Any]:
+        """Copy of the committed training state (all D replicas + opts, G
+        params + opt) — what ``policy='rollback'`` restores.  Host RNG and
+        the engine's clock and codec residuals are deliberately NOT
+        captured: rollback restarts from healthy *parameters* with fresh
+        data, it does not rewind time."""
+        st = self.state
+        return tuple(tree_map(torch.clone, t)
+                     for t in (st.d_params, st.d_opt, st.g_params, st.g_opt))
+
+    def _restore_snapshot(self) -> None:
+        st = self.state
+        # copies, so a later snapshot refresh never aliases live state
+        st.d_params, st.d_opt, st.g_params, st.g_opt = (
+            tree_map(torch.clone, t) for t in self._healthy_snapshot)
+
+    def _apply_health_policy(self, alerts: List[HealthAlert]
+                             ) -> Tuple[bool, bool, Optional[HealthAlert]]:
+        """Turn this round's alerts into the configured action.  Returns
+        ``(rolled_back, state_healthy, abort_alert)``; the caller records
+        everything first and raises ``abort_alert`` last, so an aborting
+        run still leaves a complete ``alerts.jsonl``.
+
+        ``state_healthy`` is False only when a non-finite fatal fired and
+        was NOT repaired — the caller must not refresh the rollback
+        snapshot from poisoned state."""
+        pol = self.cfg.obs.health.policy
+        fatal = [a for a in alerts if a.severity == SEV_FATAL]
+        poisoned = any(a.check in ("nonfinite_params", "nonfinite_loss")
+                       for a in fatal)
+        rolled, abort_alert = False, None
+        if pol == "record":
+            return rolled, not poisoned, abort_alert
+        to_warn = list(alerts)
+        if pol == "abort" and fatal:
+            abort_alert = fatal[0]
+            to_warn = [a for a in alerts if a is not abort_alert]
+        elif pol == "rollback" and fatal:
+            recoverable = [a for a in fatal if a.recoverable]
+            if recoverable and self._healthy_snapshot is not None:
+                self._restore_snapshot()
+                rolled, poisoned = True, False
+            # non-recoverable fatals (epsilon overspend) and a poisoned
+            # round 0 with nothing to restore degrade to warnings below
+        for a in to_warn:
+            warnings.warn(
+                f"[health] round {a.round_index} {a.check} "
+                f"({a.severity}): {a.message}", RuntimeWarning)
+        return rolled, not poisoned, abort_alert
 
     def _g_updates(self, d_avg, batches: int) -> List[float]:
         """Server G update against the averaged D (never touches real data)."""
@@ -514,12 +750,47 @@ class FSLGANTrainer:
         the step, uplink DP as the engine's pre-codec stage.  Optimizer
         state commits only for clients whose update landed
         (``RoundReport.opt_states``) — dropped stragglers leave no
-        trace."""
+        trace.
+
+        The control plane wraps the round: under ``mode='adaptive'`` the
+        controller suite turns the ``RoundFeedback`` history into knob
+        decisions BEFORE the round; a new ``RoundFeedback`` is appended
+        AFTER it either way (``self.feedback``).  The watchtower closes
+        the round: monitors scan the aggregated state and the feedback,
+        and the policy acts — ``record``/``warn`` observe, ``abort``
+        raises :class:`~repro_torch.obs.health.HealthAbort`, ``rollback``
+        restores the last healthy state.  With the recorder's ``digests``
+        sink on, the round also commits a digest of the post-action global
+        state (``digests.jsonl``)."""
         backend = backend or self.cfg.fed.backend
         st = self.state
+        if self.monitor is not None \
+                and self.cfg.obs.health.policy == "rollback" \
+                and self._healthy_snapshot is None:
+            # round-start state = the last known-healthy state a poisoned
+            # round 0 can fall back to
+            self._healthy_snapshot = self._snapshot_state()
+        if self.recorder is not None and not self._manifest_written:
+            leaf_sizes, hint = self._controller_inputs(batches_per_client)
+            self.recorder.set_manifest(self.cfg, leaf_sizes=leaf_sizes,
+                                       steps_per_round_hint=hint)
+            self._manifest_written = True
+            if self.cfg.obs.profile_kernels and not self._profiled:
+                self.recorder.write_profile(
+                    profile_engine_kernels(self.cfg, device=self.device))
+                self._profiled = True
+        if self._adaptive():
+            self._apply_knobs(self._ensure_controllers(batches_per_client)(
+                self.feedback, self.knobs))
         eng = self._ensure_engine(batches_per_client)
+        probe_us: Dict[str, float] = {}
         if backend == "auto":
-            backend, _ = self._resolve_auto_backend(batches_per_client)
+            backend, probe_us = self._resolve_auto_backend(
+                batches_per_client)
+        if self._adaptive():
+            eng.set_codec(self.knobs.codec, self.knobs.topk_frac)
+            eng.set_deadline(self.knobs.deadline_s)
+        acct_steps_before = self.accountant.steps if self.accountant else 0
         batch_b = fake_batch_bytes(
             self.batch_size,
             (self.c.image_size, self.c.image_size, self.c.channels))
@@ -537,7 +808,8 @@ class FSLGANTrainer:
                             self._bind_round(batches_per_client, backend),
                             down_bytes=batches_per_client * batch_b,
                             down_bytes_by_client=down_by_client,
-                            lan_bytes_by_client=lan_by_client)
+                            lan_bytes_by_client=lan_by_client,
+                            timeline_by_client=self._trace_timelines or None)
         d_avg = rep.global_params
         for cid, opt in rep.opt_states.items():
             st.d_opt[cid] = opt
@@ -549,14 +821,19 @@ class FSLGANTrainer:
         g_losses = self._g_updates(d_avg, batches_per_client)
         st.step += 1
         if self.accountant is not None:
+            # adaptive runs account each round at the sigma the controller
+            # bound; frozen runs use the constructor's
+            sigma_arg = self.knobs.sigma if self._adaptive() else None
             if self.cfg.privacy.mode == "dp_sgd":
                 # one Gaussian-mechanism release per EXECUTED DP batch,
                 # late-but-executed straggler work included
                 self.accountant.step(sum(info.get("steps", 0)
-                                         for _, info in rep.client_infos))
+                                         for _, info in rep.client_infos),
+                                     noise_multiplier=sigma_arg)
             else:
                 # one release per executed uplink
-                self.accountant.step(len(rep.client_infos))
+                self.accountant.step(len(rep.client_infos),
+                                     noise_multiplier=sigma_arg)
         metrics = {
             "d_loss": float(np.mean(d_losses)) if d_losses else float("nan"),
             "g_loss": float(np.mean(g_losses)),
@@ -570,6 +847,7 @@ class FSLGANTrainer:
         }
         if rep.traffic.total_edge:
             metrics["edge_mbytes"] = rep.traffic.total_edge / 1e6
+        loads: Dict[str, float] = {}
         if self.split_execs:
             # executed split: measured boundary bytes that crossed the LAN
             # this round, and the compute load each device carried
@@ -584,6 +862,83 @@ class FSLGANTrainer:
         cerrs = list(rep.codec_error.values())
         if cerrs:
             metrics["codec_error"] = float(np.mean(cerrs))
+        # the round's measurements as ONE typed record — what the
+        # controllers consume next round (and what frozen runs still log)
+        probe: Dict[str, Tuple[float, ...]] = {}
+        if self._adaptive() and "split" in self.cfg.control.controllers \
+                and self.split_execs:
+            probe = self._probe_boundary_dcor()
+        fb = RoundFeedback(
+            round_index=st.step - 1,
+            backend=backend,
+            codec=eng.codec_name,
+            sigma=self.knobs.sigma,
+            deadline_s=eng.deadline_s,
+            split_strategy=self.knobs.split_strategy,
+            up_bytes=int(rep.traffic.total_up),
+            down_bytes=int(rep.traffic.total_down),
+            lan_bytes=int(rep.traffic.total_lan),
+            codec_error=float(np.mean(cerrs)) if cerrs else float("nan"),
+            uplink_bps=float(self.cfg.fed.uplink_bps),
+            round_time_s=float(rep.round_time_s),
+            clock_s=float(rep.clock_s),
+            client_finish_s=dict(rep.finish_s),
+            num_clients=len(rep.participated),
+            stragglers=len(rep.stragglers),
+            d_loss=metrics["d_loss"],
+            g_loss=metrics["g_loss"],
+            dp_epsilon=metrics.get("dp_epsilon", float("nan")),
+            dp_steps=(self.accountant.steps - acct_steps_before
+                      if self.accountant else 0),
+            device_loads=loads,
+            boundary_dcor=probe,
+            pipeline_microbatches=self._pipeline_k(),
+            pipeline_speedup=self._pipeline_speedup,
+            backend_probe_us=probe_us,
+            edge_bytes=int(rep.traffic.total_edge),
+            cohorts=int(self.cfg.fed.hierarchy_cohorts),
+            shards=self._num_shards(backend))
+        self.feedback.append(fb)
+
+        # watchtower: check the round, act per policy, THEN digest the
+        # committed state — so a rolled-back round's committed digest
+        # equals the last healthy one while RoundReport.global_digest
+        # (stamped before any action by the engine's digester) keeps what
+        # the poisoned aggregate actually was
+        alerts: List[HealthAlert] = []
+        rolled_back, state_healthy, abort_alert = False, True, None
+        if self.monitor is not None:
+            alerts = self.monitor.check_round(fb, params=d_avg,
+                                              update_base=global_d)
+            self.health_alerts.extend(alerts)
+            if alerts:
+                rolled_back, state_healthy, abort_alert = \
+                    self._apply_health_policy(alerts)
+        digest: Optional[RoundDigest] = None
+        if self.recorder is not None and self.recorder.wants("digests"):
+            digest = state_digest(
+                st.d_params[self._active_clients()[0]], st.d_opt,
+                st.g_params, st.g_opt, round_index=fb.round_index,
+                aggregated=rep.global_digest or "",
+                rolled_back=rolled_back)
+        if self.recorder is not None:
+            # feedback + the knobs in force during this round (the
+            # decision the offline replay must reproduce), then re-export
+            # the trace so a killed run still leaves a loadable file
+            self.recorder.on_round(fb, self.knobs)
+            for a in alerts:
+                self.recorder.on_alert(a)
+            if digest is not None:
+                self.recorder.on_digest(digest)
+            self.recorder.flush()
+        if self.monitor is not None \
+                and self.cfg.obs.health.policy == "rollback" \
+                and state_healthy:
+            # refresh the rollback point: the state now committed is
+            # healthy (genuinely, or because it was just restored)
+            self._healthy_snapshot = self._snapshot_state()
+        if abort_alert is not None:
+            raise HealthAbort(abort_alert)
         return self._record(metrics)
 
     # ------------------------------------------------------------------

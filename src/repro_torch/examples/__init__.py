@@ -1,0 +1,13 @@
+"""Example scripts of the port (twins of the JAX package's ``examples/``):
+each runs as ``python -m repro_torch.examples.<name>`` from the repository
+root, on the GPU unless given ``--device cpu``, and writes its artifacts
+under ``experiments/gan_torch/`` (``--out``).
+
+  fsl_gan_mnist         — the paper's experiment: FSL-GAN on synthetic MNIST
+  fed_async_demo        — sync vs async scheduling, codecs, stragglers
+  device_selection_demo — the four selection strategies' plans and prices
+  serve_demo            — batched prefill + greedy decode on an LM config
+  quickstart            — split planning, then a two-client FSL-GAN round
+  adaptive_control_demo — the four controllers, recorded and replayed
+  trace_viewer_demo     — a traced split round, health alerts and digests
+"""

@@ -1,5 +1,4 @@
-"""Discrete-event federation round engine.  Port of ``repro/fed/engine.py``
-(span emission, codec swaps and digests wait for ROADMAP Queue A item 8).
+"""Discrete-event federation round engine.  Port of ``repro/fed/engine.py``.
 
 Each round, every available client
 
@@ -39,6 +38,15 @@ Only updates that land commit their optimizer state
 (``RoundReport.opt_states``).  The clock the engine advances is *virtual*
 (the paper's Fig-2 time model extended with WAN transfers); the tensor math
 runs on whatever device holds the parameters.
+
+The control plane retunes the engine between rounds (:meth:`set_codec`,
+:meth:`set_deadline`).  Observability hooks in without touching the
+numbers: an attached tracer (:meth:`set_tracer`) receives virtual-clock
+spans of each round (round -> download -> client execution -> split
+batch/segment/boundary -> uplink -> aggregate), a digester
+(:meth:`set_digester`) stamps ``RoundReport.global_digest``, and the
+ledger's observers see every byte it records.  With none attached,
+scheduling and numerics are the same.
 """
 from __future__ import annotations
 
@@ -91,6 +99,11 @@ class RoundReport:
     # relative L2 error the codec cost each executed client's (possibly
     # privatized) delta (0.0 under the identity codec)
     codec_error: Dict[str, float] = field(default_factory=dict)
+    # content digest of the as-aggregated global_params, stamped by the
+    # engine's digester hook (set_digester) the moment aggregation lands —
+    # BEFORE any health action touches the tree, so a rolled-back round
+    # still records what the aggregate actually was
+    global_digest: Optional[str] = None
     # peak count of decoded fp32 update trees live at the server during
     # aggregation: the decode reduce stages one per landed client (O(C)),
     # the compressed-domain reduce only its accumulator (O(1))
@@ -121,10 +134,13 @@ class FederationEngine:
         # server only ever see the privatized delta.  None: no transform.
         self.uplink_stage = uplink_stage
         self.codec_name = fed_cfg.codec
+        self.topk_frac = fed_cfg.topk_frac
         self.codecs = {cid: make_codec(fed_cfg.codec,
                                        topk_frac=fed_cfg.topk_frac,
                                        error_feedback=fed_cfg.error_feedback)
                        for cid in self.roster}
+        # the live straggler deadline: seeded from config, retuned between
+        # rounds by the control plane (set_deadline) without touching cfg
         self.deadline_s = float(fed_cfg.deadline_s)
         self.uplink = LinkModel(fed_cfg.wan_latency_s, fed_cfg.uplink_bps)
         self.downlink = LinkModel(fed_cfg.wan_latency_s, fed_cfg.downlink_bps)
@@ -148,6 +164,45 @@ class FederationEngine:
         self.last_report: Optional[RoundReport] = None
         # client mesh of the "batched" reduce (set_mesh); None: one device
         self.mesh = None
+        # observability: an optional tracer and per-client split
+        # timelines; None/empty emits no spans
+        self.tracer = None
+        self._trace_batch_cap = 0
+        self._timelines: Dict[str, Any] = {}
+        # optional content-digest hook (obs.digest.tree_digest): stamps
+        # RoundReport.global_digest on the as-aggregated tree
+        self._digester = None
+
+    def set_codec(self, name: str, topk_frac: Optional[float] = None) -> None:
+        """Swap the uplink codec for subsequent rounds (codec controller).
+        Rebuilds the per-client codecs, which clears any top-k error-
+        feedback residual: the residual belongs to the OLD codec's lossy
+        stream and must not be replayed into the new one."""
+        frac = self.topk_frac if topk_frac is None else float(topk_frac)
+        if name == self.codec_name and frac == self.topk_frac:
+            return
+        self.codec_name, self.topk_frac = name, frac
+        self.codecs = {cid: make_codec(name, topk_frac=frac,
+                                       error_feedback=self.cfg.error_feedback)
+                       for cid in self.roster}
+
+    def set_deadline(self, deadline_s: float) -> None:
+        """Retune the sync straggler deadline (deadline controller)."""
+        self.deadline_s = float(deadline_s)
+
+    def set_tracer(self, tracer, *, batch_cap: int = 0) -> None:
+        """Attach a :class:`repro_torch.obs.Tracer`; subsequent rounds emit
+        virtual-clock spans.  ``batch_cap`` bounds how many batches per
+        client get per-phase split spans (0 = all).  None detaches."""
+        self.tracer = tracer
+        self._trace_batch_cap = int(batch_cap)
+
+    def set_digester(self, fn) -> None:
+        """Attach a content-digest function ``tree -> str``
+        (:func:`repro_torch.obs.digest.tree_digest`); each subsequent round
+        stamps ``RoundReport.global_digest`` with the digest of the
+        as-aggregated global tree.  None detaches."""
+        self._digester = fn
 
     def set_mesh(self, mesh) -> None:
         """Attach a client mesh (``launch/mesh.Mesh``) for the "batched"
@@ -209,18 +264,23 @@ class FederationEngine:
     # ------------------------------------------------------------------
     def run_round(self, global_tree, program, *, down_bytes: int = 0,
                   down_bytes_by_client: Optional[Dict[str, int]] = None,
-                  lan_bytes_by_client: Optional[Dict[str, int]] = None
+                  lan_bytes_by_client: Optional[Dict[str, int]] = None,
+                  timeline_by_client: Optional[Dict[str, Any]] = None
                   ) -> RoundReport:
         """One FL round.  ``program``: a client program (``fed/programs``)
         or a bare callable.  ``down_bytes``: server->client fake payload;
         ``down_bytes_by_client`` overrides it per client (clients on a
         longer ``local_steps`` schedule download more fake batches).
         ``lan_bytes_by_client``: split-boundary bytes of one local round,
-        recorded per *execution*, straggler or not."""
+        recorded per *execution*, straggler or not.
+        ``timeline_by_client``: one batch's ordered split phases per client
+        (``core/split.SplitExecution.round_timeline``), read only when a
+        tracer is attached, to subdivide client-execution spans."""
         program = as_program(program)
         down_by = dict(down_bytes_by_client or {})
         db = lambda cid: down_by.get(cid, down_bytes)  # noqa: E731
         self._lan_by = dict(lan_bytes_by_client or {})
+        self._timelines = dict(timeline_by_client or {})
         if self.cfg.mode != "sync":
             rep = self._run_async(global_tree, program, db)
         elif self.hierarchy is not None:
@@ -228,6 +288,8 @@ class FederationEngine:
         else:
             rep = self._run_sync(global_tree, program, db)
         self.round_idx += 1
+        if self._digester is not None:
+            rep.global_digest = self._digester(rep.global_params)
         for cid in rep.traffic.up_bytes:
             self.ledger.record(cid, up=rep.traffic.up_bytes[cid])
         for cid in rep.traffic.down_bytes:
@@ -282,9 +344,164 @@ class FederationEngine:
         return rep
 
     # ------------------------------------------------------------------
+    # span emission (repro_torch.obs).  Spans are recorded retroactively from
+    # the round's priced times once they are all known — the discrete-
+    # event engine schedules whole client windows, it never "waits".
+    # ------------------------------------------------------------------
+    def _emit_exec_span(self, tr, parent, cid: str, start: float,
+                        compute_dur: float, args: Dict[str, Any]) -> int:
+        """Client-execution span [start, start+compute_dur], subdivided
+        into per-batch split-segment / boundary-crossing phases when a
+        timeline is known for this client."""
+        sid = tr.record(f"exec {cid}", cat="client", track=cid,
+                        v_start=start, v_end=start + compute_dur,
+                        parent=parent, args=args)
+        tl = self._timelines.get(cid)
+        if not tl:
+            return sid
+        phases, batch_time = tl
+        if batch_time <= 0.0 or not phases:
+            return sid
+        steps = self.specs[cid].local_steps \
+            or max(1, int(round(compute_dur / batch_time)))
+        n = steps if self._trace_batch_cap <= 0 \
+            else min(steps, self._trace_batch_cap)
+        for b in range(n):
+            off = start + b * batch_time
+            bid = tr.record(f"batch {b}", cat="batch", track=cid,
+                            v_start=off, v_end=off + batch_time, parent=sid)
+            for ph in phases:
+                tr.record(ph["name"], cat=ph["cat"], track=ph["track"],
+                          v_start=off + ph["t0"], v_end=off + ph["t1"],
+                          parent=bid, args=ph["args"])
+        return sid
+
+    def _emit_sync_spans(self, rep: RoundReport, t0: float,
+                         down_t: Dict[str, float]) -> None:
+        tr = self.tracer
+        rnd = tr.record(
+            f"round {self.round_idx}", cat="round", track="server",
+            v_start=t0, v_end=t0 + rep.round_time_s,
+            args={"mode": "sync", "participated": len(rep.participated),
+                  "stragglers": len(rep.stragglers),
+                  "codec": self.codec_name, "deadline_s": self.deadline_s})
+        for cid, dt in down_t.items():
+            spec = self.specs[cid]
+            tr.record(f"down {cid}", cat="downlink", track=cid,
+                      v_start=t0, v_end=t0 + dt, parent=rnd,
+                      args={"bytes": rep.traffic.down_bytes.get(cid, 0)})
+            args: Dict[str, Any] = {}
+            if cid in rep.stragglers:
+                args["dropped"] = True
+            # ran iff the codec round-tripped its update this round
+            if cid not in rep.codec_error:
+                args["executed"] = False   # provably-late lower bound
+                self._emit_exec_span(tr, rnd, cid, t0 + dt,
+                                     spec.compute_time_s, args)
+                continue
+            self._emit_exec_span(tr, rnd, cid, t0 + dt,
+                                 spec.compute_time_s, args)
+            fin = rep.finish_s[cid]
+            up_dur = max(0.0, fin - dt - spec.compute_time_s)
+            tr.record(f"up {cid}", cat="uplink", track=cid,
+                      v_start=t0 + fin - up_dur, v_end=t0 + fin, parent=rnd,
+                      args={"bytes": rep.traffic.up_bytes.get(cid, 0),
+                            "codec": self.codec_name,
+                            "landed": cid in rep.participated})
+        tr.record("aggregate", cat="aggregate", track="server",
+                  v_start=t0 + rep.round_time_s, v_end=t0 + rep.round_time_s,
+                  parent=rnd,
+                  args={"num_updates": len(rep.participated),
+                        "version": rep.version})
+
+    def _emit_async_spans(self, rep: RoundReport, t0: float, last_t: float,
+                          events: List[Dict[str, Any]]) -> None:
+        tr = self.tracer
+        rnd = tr.record(
+            f"round {self.round_idx}", cat="round", track="server",
+            v_start=t0, v_end=last_t,
+            args={"mode": self.cfg.mode,
+                  "participated": len(rep.participated),
+                  "stragglers": len(rep.stragglers),
+                  "codec": self.codec_name})
+        for ev in events:
+            cid = ev.get("cid", "")
+            if ev["kind"] == "down":
+                tr.record(f"down {cid}", cat="downlink", track=cid,
+                          v_start=ev["t0"], v_end=ev["t1"], parent=rnd,
+                          args={"bytes": ev["bytes"],
+                                "cycle": ev["cycle"]})
+            elif ev["kind"] == "exec":
+                self._emit_exec_span(tr, rnd, cid, ev["t0"],
+                                     ev["t1"] - ev["t0"],
+                                     {"cycle": ev["cycle"]})
+            elif ev["kind"] == "up":
+                tr.record(f"up {cid}", cat="uplink", track=cid,
+                          v_start=ev["t0"], v_end=ev["t1"], parent=rnd,
+                          args={"bytes": ev["bytes"],
+                                "codec": self.codec_name})
+            else:                          # arrive -> server-side apply
+                tr.record(f"aggregate {cid}", cat="aggregate",
+                          track="server", v_start=ev["t"], v_end=ev["t"],
+                          parent=rnd,
+                          args={"staleness": ev["staleness"],
+                                "landed": ev["landed"]})
+
+    def _emit_hier_spans(self, rep: RoundReport, t0: float,
+                         down_t: Dict[str, float],
+                         cohort_trace: List[Dict[str, Any]]) -> None:
+        """Round span -> per-client down/exec/edge-up spans -> one cohort
+        span per edge (cat="cohort": pre-reduce ready time to WAN
+        arrival) -> aggregate."""
+        tr = self.tracer
+        rnd = tr.record(
+            f"round {self.round_idx}", cat="round", track="server",
+            v_start=t0, v_end=t0 + rep.round_time_s,
+            args={"mode": "sync", "hierarchy": True,
+                  "cohorts": len(cohort_trace),
+                  "participated": len(rep.participated),
+                  "stragglers": len(rep.stragglers),
+                  "codec": self.codec_name, "deadline_s": self.deadline_s})
+        for cid, dt in down_t.items():
+            spec = self.specs[cid]
+            tr.record(f"down {cid}", cat="downlink", track=cid,
+                      v_start=t0, v_end=t0 + dt, parent=rnd,
+                      args={"bytes": rep.traffic.down_bytes.get(cid, 0)})
+            args: Dict[str, Any] = {}
+            if cid in rep.stragglers:
+                args["dropped"] = True
+            if cid not in rep.codec_error:
+                args["executed"] = False
+                self._emit_exec_span(tr, rnd, cid, t0 + dt,
+                                     spec.compute_time_s, args)
+                continue
+            self._emit_exec_span(tr, rnd, cid, t0 + dt,
+                                 spec.compute_time_s, args)
+            fin = rep.finish_s[cid]
+            up_dur = max(0.0, fin - dt - spec.compute_time_s)
+            tr.record(f"edge-up {cid}", cat="uplink", track=cid,
+                      v_start=t0 + fin - up_dur, v_end=t0 + fin, parent=rnd,
+                      args={"bytes": rep.traffic.edge_bytes.get(cid, 0),
+                            "tier": "edge", "codec": self.codec_name,
+                            "landed": cid in rep.participated})
+        for ct in cohort_trace:
+            tr.record(f"cohort {ct['cohort']}", cat="cohort",
+                      track=f"edge{ct['cohort']}",
+                      v_start=t0 + ct["ready"], v_end=t0 + ct["finish"],
+                      parent=rnd,
+                      args={"members": len(ct["members"]),
+                            "wan_bytes": ct["bytes"]})
+        tr.record("aggregate", cat="aggregate", track="server",
+                  v_start=t0 + rep.round_time_s, v_end=t0 + rep.round_time_s,
+                  parent=rnd,
+                  args={"num_updates": len(cohort_trace),
+                        "version": rep.version})
+
+    # ------------------------------------------------------------------
     def _run_sync(self, global_tree, program, db) -> RoundReport:
         rep = RoundReport(global_params=global_tree)
         participants, rep.unavailable = self._split_roster()
+        t0 = self.clock
         deadline = self.deadline_s
         down_t = {cid: self.downlink.transfer_time(db(cid))
                   for cid in participants}
@@ -362,7 +579,10 @@ class FederationEngine:
                 new_global = apply_delta(global_tree, mean) if is_delta \
                     else mean
             rep.peak_live_trees = 1 if rep.participated else 0
-        return self._close_round(rep, new_global, finishes)
+        self._close_round(rep, new_global, finishes)
+        if self.tracer is not None:
+            self._emit_sync_spans(rep, t0, down_t)
+        return rep
 
     # ------------------------------------------------------------------
     def _run_sync_hier(self, global_tree, program, db) -> RoundReport:
@@ -377,6 +597,7 @@ class FederationEngine:
         the slowest cohort's WAN arrival."""
         rep = RoundReport(global_params=global_tree)
         participants, rep.unavailable = self._split_roster()
+        t0 = self.clock
         deadline = self.deadline_s
         down_t = {cid: self.downlink.transfer_time(db(cid))
                   for cid in participants}
@@ -421,6 +642,7 @@ class FederationEngine:
             reductions = self.hierarchy.reduce_all_streaming(
                 landed, global_tree, codec_name=self.codec_name)
         cohort_finishes: List[float] = []
+        cohort_trace: List[Dict[str, Any]] = []
         for red in reductions:
             aggregate = red.aggregate
             if reduce_mode != "decode" and is_delta:
@@ -429,11 +651,14 @@ class FederationEngine:
                 # ships
                 aggregate = apply_delta(global_tree, aggregate)
             wan_b = tree_bytes(aggregate)
-            finish = max(edge_finish[m] for m in red.members) \
-                + self.uplink.transfer_time(wan_b)
+            ready = max(edge_finish[m] for m in red.members)
+            finish = ready + self.uplink.transfer_time(wan_b)
             ckey = f"cohort{red.cohort}"
             rep.traffic.record(ckey, up=wan_b)
             cohort_finishes.append(finish)
+            cohort_trace.append({"cohort": red.cohort, "ready": ready,
+                                 "finish": finish, "bytes": wan_b,
+                                 "members": list(red.members)})
             self.policy.on_update(
                 global_tree, ClientUpdate(ckey, aggregate, red.weight,
                                           0, self.clock + finish))
@@ -445,7 +670,10 @@ class FederationEngine:
         else:
             rep.peak_live_trees = len(reductions) + 1 if reductions else 0
         new_global = self.policy.on_round_end(global_tree)
-        return self._close_round(rep, new_global, cohort_finishes)
+        self._close_round(rep, new_global, cohort_finishes)
+        if self.tracer is not None:
+            self._emit_hier_spans(rep, t0, down_t, cohort_trace)
+        return rep
 
     # ------------------------------------------------------------------
     def _run_async(self, global_tree, program, db) -> RoundReport:
@@ -458,11 +686,16 @@ class FederationEngine:
         queue = EventQueue()
         # (snapshot tree, version at download) per in-flight client
         snapshots: Dict[str, Tuple[Any, int]] = {}
+        tev: List[Dict[str, Any]] = []     # trace records (tracer attached)
         for cid in participants:
             snapshots[cid] = (global_tree, self.version)
             rep.traffic.record(cid, down=db(cid))
             queue.push(t0 + down_t[cid] + self.specs[cid].compute_time_s,
                        FINISH, cid, payload={"cycle": 1})
+            if self.tracer is not None:
+                tev.append({"kind": "down", "cid": cid, "t0": t0,
+                            "t1": t0 + down_t[cid], "bytes": db(cid),
+                            "cycle": 1})
 
         # under the compressed-domain reduce, in-flight ARRIVE payloads
         # carry WIRE encodings, decoded at arrival: one live decoded tree
@@ -501,17 +734,28 @@ class FederationEngine:
                 payload.update({"snap_ver": snap_ver,
                                 "cycle": ev.payload["cycle"],
                                 "opt_state": res.opt_state})
-                queue.push(ev.time + self.uplink.transfer_time(up_b),
-                           ARRIVE, cid, payload=payload)
+                up_t = self.uplink.transfer_time(up_b)
+                queue.push(ev.time + up_t, ARRIVE, cid, payload=payload)
+                if self.tracer is not None:
+                    tev.append({"kind": "exec", "cid": cid,
+                                "t0": ev.time - spec.compute_time_s,
+                                "t1": ev.time,
+                                "cycle": ev.payload["cycle"]})
+                    tev.append({"kind": "up", "cid": cid, "t0": ev.time,
+                                "t1": ev.time + up_t, "bytes": up_b})
                 continue
             # ARRIVE
             if not stream:
                 live_payloads -= 1
             rep.finish_s[cid] = ev.time - t0      # last arrival per client
-            if deadline and ev.time - t0 > deadline:
+            staleness = self.version - ev.payload["snap_ver"]
+            late = bool(deadline and ev.time - t0 > deadline)
+            if self.tracer is not None:
+                tev.append({"kind": "arrive", "cid": cid, "t": ev.time,
+                            "staleness": staleness, "landed": not late})
+            if late:
                 rep.stragglers.append(cid)
                 continue
-            staleness = self.version - ev.payload["snap_ver"]
             rep.staleness[cid] = staleness
             rep.staleness_events.append(staleness)
             if not stream:
@@ -539,6 +783,10 @@ class FederationEngine:
                 rep.traffic.record(cid, down=db(cid))
                 queue.push(ev.time + down_t[cid] + spec.compute_time_s,
                            FINISH, cid, payload={"cycle": cycle + 1})
+                if self.tracer is not None:
+                    tev.append({"kind": "down", "cid": cid, "t0": ev.time,
+                                "t1": ev.time + down_t[cid],
+                                "bytes": db(cid), "cycle": cycle + 1})
 
         global_tree = self.policy.on_round_end(global_tree)
         self.version += 1 if rep.participated else 0
@@ -549,4 +797,6 @@ class FederationEngine:
         rep.clock_s = self.clock
         rep.global_params = global_tree
         rep.version = self.version
+        if self.tracer is not None:
+            self._emit_async_spans(rep, t0, last_t, tev)
         return rep

@@ -32,6 +32,7 @@ the vectorized round is held against.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -298,10 +299,21 @@ class LocalProgram:
         self.step = self._step(None)
 
     def rebind_sigma(self, noise_multiplier: float) -> None:
-        """The sigma controller's lever on the DP-SGD noise multiplier."""
-        raise NotImplementedError(
-            "LocalProgram.rebind_sigma is not ported to repro_torch yet "
-            "(ROADMAP Queue A item 14: sigma control)")
+        """Rebind the DP-SGD noise multiplier between rounds (the sigma
+        controller's lever).  The noise scale is a constant of each built
+        step, so both step caches (loop and vectorized) are dropped and
+        the next dispatch builds its steps at the new scale; the
+        (round, cohort, client, exec, batch) noise keys are untouched, so
+        a rebound run stays deterministic per schedule.  A no-op without
+        DP-SGD or at the bound sigma."""
+        if not self.is_dp or \
+                float(noise_multiplier) == self.privacy.noise_multiplier:
+            return
+        self.privacy = dataclasses.replace(
+            self.privacy, noise_multiplier=float(noise_multiplier))
+        self._step_cache.clear()
+        self._vstep_cache.clear()
+        self.step = self._step(None)
 
     def signature_for(self, cid: str):
         """Step key for one client: its plan's boundary-depth/stage

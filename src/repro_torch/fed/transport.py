@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -104,6 +104,14 @@ class TrafficLedger:
     down_bytes: Dict[str, int] = field(default_factory=dict)
     lan_bytes: Dict[str, int] = field(default_factory=dict)
     edge_bytes: Dict[str, int] = field(default_factory=dict)
+    # observability hooks (repro_torch.obs feeds per-client wire counters
+    # from them): observer(client_id, up, down, lan) on every record,
+    # edge_observer(client_id, nbytes) on every edge record; None keeps
+    # the ledger a plain accumulator
+    observer: Optional[Callable[[str, int, int, int], None]] = \
+        field(default=None, repr=False, compare=False)
+    edge_observer: Optional[Callable[[str, int], None]] = \
+        field(default=None, repr=False, compare=False)
 
     def record(self, client_id: str, *, up: int = 0, down: int = 0,
                lan: int = 0) -> None:
@@ -113,11 +121,15 @@ class TrafficLedger:
         if lan:
             self.lan_bytes[client_id] = (self.lan_bytes.get(client_id, 0)
                                          + int(lan))
+        if self.observer is not None:
+            self.observer(client_id, int(up), int(down), int(lan))
 
     def record_edge(self, client_id: str, nbytes: int) -> None:
         """Client->edge uplink bytes (the pre-reduce hop)."""
         self.edge_bytes[client_id] = (self.edge_bytes.get(client_id, 0)
                                       + int(nbytes))
+        if self.edge_observer is not None:
+            self.edge_observer(client_id, int(nbytes))
 
     @property
     def total_up(self) -> int:

@@ -686,8 +686,67 @@ def test_dense_kernels_match_plain_versions_on_gpu(cuda, wire, n):
     assert out is acc and torch.equal(out, want)
 
 
+def scatter_sum_bound(acc, vals, idx, weight):
+    """``(want, bound)`` for ``acc[idx] += weight * vals``: ``want`` the
+    scatter on float64 copies, ``bound`` per element the worst-case error
+    of a float32 result, to first order: ``k_i`` float32 products summed
+    with ``acc_i`` in any order (``k_i`` the values that land on ``i``)
+    err by at most ``(k_i + 1) * 2**-24 * (|acc_i| + sum |w v|)``.  The
+    kernel's atomics add in launch order, so only a bound holds it where
+    indices collide."""
+    n = acc.shape[0]
+    ok = (idx >= 0) & (idx < n)
+    i = idx[ok].long()
+    wv = float(weight) * vals[ok].double()
+    want = acc.double().index_add(0, i, wv)
+    k = torch.zeros_like(want).index_add(0, i, torch.ones_like(wv))
+    mag = acc.double().abs().index_add(0, i, wv.abs())
+    return want, (k + 1) * 2.0 ** -24 * mag
+
+
+def _colliding_scatter(rng, dev, n, k):
+    idx = torch.tensor(np.r_[rng.integers(0, 64, k), -1, n],
+                       dtype=torch.int32, device=dev)
+    vals = torch.tensor(rng.standard_normal(k + 2), dtype=torch.float32,
+                        device=dev)
+    return vals, idx
+
+
+def _within_scatter_bound(scatter, acc, vals, idx, weight):
+    """Whether ``scatter`` holds the bound on the colliding inputs, and
+    whether it still does with the colliding value of largest magnitude
+    dropped (it must not: the bound would not catch a wrong sum)."""
+    want, bound = scatter_sum_bound(acc, vals, idx, weight)
+    got = scatter(acc.clone(), vals, idx, weight)
+    n = acc.shape[0]
+    ok = (idx >= 0) & (idx < n)
+    hits = torch.bincount(idx[ok].long(), minlength=n)
+    colliding = ok & (hits[idx.clamp(0, n - 1).long()] > 1)
+    j = int(torch.argmax(torch.where(colliding, vals.abs(), -1.0)))
+    dropped = vals.clone()
+    dropped[j] = 0.0
+    bad = scatter(acc.clone(), dropped, idx, weight)
+    return (bool(((got.double() - want).abs() <= bound).all()),
+            bool(((bad.double() - want).abs() <= bound).all()))
+
+
+def test_scatter_bound_holds_plain_fold_and_catches_a_dropped_summand():
+    """The bound the GPU test holds the kernel to, on the plain version:
+    8,192 values into 64 indices pass, one value dropped does not."""
+    n, k = 819_200, 8192
+    rng = np.random.default_rng(1)
+    acc = torch.tensor(rng.standard_normal(n), dtype=torch.float32)
+    vals, idx = _colliding_scatter(rng, "cpu", n, k)
+    assert _within_scatter_bound(scatter_acc_ref, acc, vals, idx, 0.25) \
+        == (True, False)
+
+
 @pytest.mark.gpu
 def test_scatter_kernel_matches_index_add_on_gpu(cuda):
+    """Distinct indices: equal to ``index_add`` bit for bit.  Colliding
+    indices (8,192 values into 64): within ``scatter_sum_bound`` of the
+    float64 scatter, and the same inputs with one colliding value dropped
+    outside it."""
     n, k = 819_200, 8192
     rng = np.random.default_rng(0)
     acc = torch.tensor(rng.standard_normal(n), dtype=torch.float32,
@@ -699,14 +758,12 @@ def test_scatter_kernel_matches_index_add_on_gpu(cuda):
     want = scatter_acc_ref(acc, vals, idx, 0.25)
     assert torch.equal(scatter_acc_kernel(acc.clone(), vals, idx, 0.25),
                        want)
-    idx = torch.tensor(np.r_[rng.integers(0, 64, k), -1, n],
-                       dtype=torch.int32, device=cuda)
-    vals = torch.tensor(rng.standard_normal(k + 2), dtype=torch.float32,
-                        device=cuda)
-    got = scatter_acc_kernel(acc.clone(), vals, idx, 0.25)
+    vals, idx = _colliding_scatter(rng, cuda, n, k)
+    before = scatter_acc_leaves_kernel.launches
+    held = _within_scatter_bound(scatter_acc_kernel, acc, vals, idx, 0.25)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, scatter_acc_ref(acc, vals, idx, 0.25),
-                               **TOL)
+    assert scatter_acc_leaves_kernel.launches == before + 2
+    assert held == (True, False)
 
 
 def _d_leaf_sizes():

@@ -1,0 +1,96 @@
+"""The port's example scripts (``repro_torch/examples``) on the CPU at their
+smallest arguments: one round, batch 8, base_filters 8.  Each returns and
+writes its artifacts under ``tmp_path``."""
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.examples import (adaptive_control_demo,
+                                  device_selection_demo, fed_async_demo,
+                                  fsl_gan_mnist, quickstart, serve_demo,
+                                  trace_viewer_demo)
+from repro_torch.obs import load_run
+
+SMALL = ["--batch-size", "8", "--base-filters", "8", "--device", "cpu"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the tensors are small and the suite's workers
+    share the cores (see tests/test_torch_vectorized.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _out(tmp_path):
+    return ["--out", str(tmp_path)]
+
+
+def test_fsl_gan_mnist(tmp_path):
+    res = fsl_gan_mnist.main(["--epochs", "1", "--clients", "2",
+                              "--batches-per-client", "1", "--examples",
+                              "200", *SMALL, *_out(tmp_path)])
+    assert res["total_disc_steps"] == 2 and res["device"] == "cpu"
+    assert np.isfinite(res["history"][0]["d_loss"])
+    gen = np.load(tmp_path / "generated.npy")
+    assert gen.shape == (64, 28, 28, 1) and np.abs(gen).max() <= 1.0
+    with open(tmp_path / "history.json") as f:
+        assert json.load(f)["mean_image_mse"] == res["mean_image_mse"]
+
+
+def test_fed_async_demo(tmp_path):
+    totals = fed_async_demo.main(["--epochs", "1", "--clients", "2",
+                                  "--batches-per-client", "1", *SMALL,
+                                  *_out(tmp_path)])
+    assert set(totals) == set(fed_async_demo.SCENARIOS)
+    # the int8 and top-k uplinks ship fewer bytes than the fp32 one
+    assert totals["fedasync+int8"]["up_mbytes"] \
+        < totals["sync"]["up_mbytes"]
+    with open(tmp_path / "fed_async.json") as f:
+        assert json.load(f) == totals
+
+
+def test_device_selection_demo(tmp_path):
+    plans = device_selection_demo.main(_out(tmp_path))
+    assert set(plans) == {"random_single", "random_multi", "sorted_single",
+                          "sorted_multi"}
+    assert all(p["epoch_s"] > 0 for p in plans.values())
+    assert os.path.exists(tmp_path / "device_selection.json")
+
+
+def test_serve_demo(tmp_path):
+    tokens = serve_demo.main(["--requests", "2", "--gen-tokens", "2",
+                              "--device", "cpu", *_out(tmp_path)])
+    assert sorted(tokens) == [0, 1]
+    assert all(len(t) == 2 for t in tokens.values())
+    assert os.path.exists(tmp_path / "serve.json")
+
+
+def test_quickstart(tmp_path):
+    res = quickstart.main(["--rounds", "1", *SMALL, *_out(tmp_path)])
+    assert len(res["strategy_sweep"]) == 4
+    assert len(res["fsl_gan"]) == 1
+    assert np.isfinite(res["fsl_gan"][0]["g_loss"])
+    assert os.path.exists(tmp_path / "quickstart.json")
+
+
+def test_adaptive_control_demo(tmp_path):
+    res = adaptive_control_demo.main(["--rounds", "1", *SMALL,
+                                      *_out(tmp_path)])
+    assert res.matches and len(res.decisions) == 1
+    rec = load_run(os.path.join(str(tmp_path), "obs_runs", "adaptive-demo"))
+    assert rec.num_rounds == 1
+    assert rec.knobs[0].codec == "topk"       # the cheapest probe first
+
+
+def test_trace_viewer_demo(tmp_path):
+    counts = trace_viewer_demo.main(["--rounds", "1", *SMALL,
+                                     *_out(tmp_path)])
+    assert counts["events"] > 0 and counts["boundary"] > 0
+    assert os.path.exists(os.path.join(str(tmp_path), "obs_runs",
+                                       "trace-demo", "trace.json"))

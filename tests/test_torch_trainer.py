@@ -474,17 +474,6 @@ def test_trainer_runs_on_the_gpu_unless_told_otherwise(parts, monkeypatch):
 
 
 @pytest.mark.parametrize("over", [
-    {"privacy.enabled": True, "control.mode": "adaptive"},
-    {"control.mode": "adaptive"}, {"obs.enabled": True},
-    {"obs.health.enabled": True},
-])
-def test_unported_option_raises(parts, over):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FSLGANTrainer(get_config("dcgan-mnist").override({**SMALL, **over}),
-                      parts, device="cpu")
-
-
-@pytest.mark.parametrize("over", [
     {"fed.mode": "fedasync"}, {"fed.mode": "fedbuff"},
     {"fed.server_reduce": "stream"}, {"fed.hierarchy_cohorts": 2},
     {"split.enabled": True, "split.pipeline_microbatches": 2},
@@ -492,10 +481,15 @@ def test_unported_option_raises(parts, over):
      "privacy.mode": "dp_sgd"},
     {"fed.backend": "vectorized"}, {"fed.backend": "auto"},
     {"fed.shard_clients": True},
+    {"privacy.enabled": True, "control.mode": "adaptive"},
+    {"control.mode": "adaptive"}, {"obs.enabled": True},
+    {"obs.health.enabled": True},
 ])
-def test_ported_option_runs_one_round(parts, over):
+def test_ported_option_runs_one_round(parts, over, tmp_path):
     """Options ported since the first slice, which used to raise: one CPU
     round each, with finite losses and both clients' updates landed."""
+    if over.get("obs.enabled"):
+        over = {**over, "obs.out_dir": str(tmp_path)}
     tr = _port_trainer(parts, {**SMALL, **over})
     m = tr.train_epoch(batches_per_client=1)
     assert np.isfinite(m["d_loss"]) and np.isfinite(m["g_loss"])

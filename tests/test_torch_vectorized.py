@@ -405,27 +405,29 @@ def test_vectorized_round_matches_jax_vectorized(parts, case):
 # ---------------------------------------------------------------------------
 
 def test_auto_backend_probes_once_and_pins_its_pick(parts):
-    """Twin of test_trainer_auto_backend_and_pipeline_feedback without the
-    feedback fields (they come with the control plane): the first round
-    probes both backends once and picks one; later rounds reuse it without
-    probing; the probe draws no host RNG and commits nothing, so the round
-    equals the picked backend's round from the same start."""
+    """Twin of test_trainer_auto_backend_and_pipeline_feedback: the first
+    round probes both backends once and picks one, its feedback carrying
+    the probe times and the pipeline fields; later rounds reuse the pick
+    without probing; the probe draws no host RNG and commits nothing, so
+    the round equals the picked backend's round from the same start."""
     over = {"split.enabled": True, "split.pipeline_microbatches": 2,
             "fed.backend": "auto"}
     tr = _trainer(parts, over)
     m = tr.train_epoch(batches_per_client=1)
     pick = tr._auto_backend
-    assert pick in BACKENDS
-    assert set(tr.backend_probe_us) == set(BACKENDS)
-    assert all(v > 0 for v in tr.backend_probe_us.values())
+    fb = tr.feedback[-1]
+    assert pick in BACKENDS and fb.backend == pick
+    assert set(fb.backend_probe_us) == set(BACKENDS)
+    assert all(v > 0 for v in fb.backend_probe_us.values())
+    assert fb.pipeline_microbatches == 2 and fb.pipeline_speedup >= 1.0
     ref = _trainer(parts, over)
     mr = ref.train_epoch(batches_per_client=1, backend=pick)
     np.testing.assert_allclose(m["d_loss"], mr["d_loss"], **LOSS_TOL)
     assert _rng_state(tr) == _rng_state(ref)
     assert int(tr.state.d_opt["c0"]["step"]) == 1
-    probes = tr.backend_probe_us
     tr.train_epoch(batches_per_client=1)
-    assert tr._auto_backend == pick and tr.backend_probe_us is probes
+    assert tr._auto_backend == pick == tr.feedback[-1].backend
+    assert not tr.feedback[-1].backend_probe_us
     assert tr._resolve_auto_backend(1) == (pick, {})
 
 
