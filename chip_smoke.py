@@ -75,8 +75,18 @@ non-zero exit, and no result line:
    launches equal to what the knobs in force and the clients that ran and
    landed give, the recording replayed to the same knobs bit for bit,
    the trace checked as Chrome-trace JSON, profile.json printed beside the
-   H100 roofline terms.  Every launch count is set to 0 just before a
-   path and read just after it, and must be exactly what the path runs;
+   H100 roofline terms.  And the attack path at full width
+   (``phase_attack_path``): gradient inversion of the plain path's
+   trained D (200 steps on a (1, 28, 28, 1) victim), the defended
+   re-attack through the dp_clip kernel (1 launch, held against the plain
+   version), activation inversion of the tensors an int8+dp split ships
+   through the boundary_fuse kernel at each boundary of the client with
+   the most (4 x (b + 1) launches at boundary b) beside the clean depth
+   sweep, membership inference, the trainer's state through a checkpoint
+   onto the card bit for bit, and a roster round's two-tier reduce
+   through the fedavg kernel (5 launches) against the flat FedAvg.  Every
+   launch count is set to 0 just before a path and read just after it,
+   and must be exactly what the path runs;
 5. the output — finite losses, every parameter on the card, generated
    images in range, epsilon finite and growing (DP-SGD, with and without
    the split), the LAN and edge bytes the split and the codec predict (the
@@ -102,7 +112,10 @@ non-zero exit, and no result line:
    against the same rounds with it off, both bit for bit; on the adaptive
    path's configuration, ``control.mode="frozen"`` against no control,
    obs on against obs off and the monitors under ``policy="record"``
-   against none, each bit for bit under deterministic cuDNN.
+   against none, each bit for bit under deterministic cuDNN; the shipped
+   prefix through the kernel against the plain stage within one int8
+   quantum, 5 gradient-inversion steps on the card against the CPU, and
+   ``split_forward`` against the unsplit forward bit for bit.
 
 Prints ``{"kernels": [...]}`` on a line of its own and, as the last line,
 ``{"ok": true, "device": {...}}``.
@@ -1321,18 +1334,15 @@ def drive_path(dev, label, over, expect):
     return tr, hist, counts
 
 
-def profile_round(tr, label, expect_fuse, top=0):
-    """One more warm round of ``tr`` under ``torch.profiler``: the
-    boundary_fuse launches in it (held to ``expect_fuse`` when the trace
-    has kernels) and their device time, the time of all its kernels
-    against the round's wall time (profiler on), and with ``top`` the
-    kernels that took the most device time, summed by name."""
+def traced_kernels(fn):
+    """``fn()`` under ``torch.profiler``: its kernels (the trace's events
+    of category "kernel") and its wall time in seconds (profiler on)."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        tr.train_epoch(batches_per_client=BATCHES)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as tmp:
@@ -1340,27 +1350,20 @@ def profile_round(tr, label, expect_fuse, top=0):
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
-    kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
-    if not kernels:
-        print(f"{label}: the profiler traced no kernel; boundary_fuse device "
-              f"time not measured")
-        return None
-    fuse = [k["dur"] for k in kernels if re.search(r"\bfuse<", k["name"])]
-    check(len(fuse) == expect_fuse, f"{label}: {len(fuse)} boundary_fuse "
-          f"kernels in the profiled round, expected {expect_fuse}")
-    ms = sum(fuse) / 1e3
-    # busy: the union of the kernels' intervals (cuDNN overlaps some)
+    return [e for e in events if e.get("cat") == "kernel" and "dur" in e], wall
+
+
+def busy_ms(kernels):
+    """Device busy time: the union of the kernels' intervals (cuDNN
+    overlaps some)."""
     busy, end = 0.0, float("-inf")
     for k in sorted(kernels, key=lambda k: k["ts"]):
         busy += max(0.0, k["ts"] + k["dur"] - max(k["ts"], end))
         end = max(end, k["ts"] + k["dur"])
-    busy /= 1e3
-    print(f"{label}: profiled round: boundary_fuse {len(fuse)} launches, "
-          f"{ms:.4f} ms on the device ({ms / max(len(fuse), 1):.4f} ms a "
-          f"launch); all {len(kernels)} kernels "
-          f"{sum(k['dur'] for k in kernels) / 1e3:.3f} ms, busy {busy:.3f} "
-          f"ms of a {wall * 1e3:.1f} ms round (busy share "
-          f"{busy / wall / 1e3:.3f})")
+    return busy / 1e3
+
+
+def print_top_kernels(label, kernels, top):
     by_name = {}
     for k in kernels:
         n, t = by_name.get(k["name"], (0, 0.0))
@@ -1369,6 +1372,32 @@ def profile_round(tr, label, expect_fuse, top=0):
             :top]:
         print(f"{label}:   {t:8.3f} ms in {n:5d} launches of "
               f"{name[:90]}")
+
+
+def profile_round(tr, label, expect_fuse, top=0):
+    """One more warm round of ``tr`` under ``torch.profiler``: the
+    boundary_fuse launches in it (held to ``expect_fuse`` when the trace
+    has kernels) and their device time, the time of all its kernels
+    against the round's wall time (profiler on), and with ``top`` the
+    kernels that took the most device time, summed by name."""
+    kernels, wall = traced_kernels(
+        lambda: tr.train_epoch(batches_per_client=BATCHES))
+    if not kernels:
+        print(f"{label}: the profiler traced no kernel; boundary_fuse device "
+              f"time not measured")
+        return None
+    fuse = [k["dur"] for k in kernels if re.search(r"\bfuse<", k["name"])]
+    check(len(fuse) == expect_fuse, f"{label}: {len(fuse)} boundary_fuse "
+          f"kernels in the profiled round, expected {expect_fuse}")
+    ms = sum(fuse) / 1e3
+    busy = busy_ms(kernels)
+    print(f"{label}: profiled round: boundary_fuse {len(fuse)} launches, "
+          f"{ms:.4f} ms on the device ({ms / max(len(fuse), 1):.4f} ms a "
+          f"launch); all {len(kernels)} kernels "
+          f"{sum(k['dur'] for k in kernels) / 1e3:.3f} ms, busy {busy:.3f} "
+          f"ms of a {wall * 1e3:.1f} ms round (busy share "
+          f"{busy / wall / 1e3:.3f})")
+    print_top_kernels(label, kernels, top)
     return ms
 
 
@@ -1994,6 +2023,375 @@ def phase_small_adaptive_reference(dev):
                   f"metrics; deterministic cuDNN)")
     finally:
         torch.backends.cudnn.deterministic = saved
+
+
+ATTACK_STEPS = 200              # gradient-inversion steps, clean and defended
+PROFILED_STEPS = 10             # of them, again under torch.profiler
+DECODER = dict(width=32, steps=150, batch=32)
+SHADOW, VICTIMS = 1024, 256     # the decoder's shadow images, its victims
+ROSTER = dict(population=1_000_000, participants=16, cohorts=4)
+CKPT_DIR = os.path.join(ROOT, "build", "ckpt")
+
+
+def bits_equal(a, b):
+    """Equal bit for bit (also -0.0 against 0.0, and NaN payloads)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        a, b = (t.reshape(-1).view(ints[t.element_size()]) for t in (a, b))
+    return torch.equal(a, b)
+
+
+def phase_attack_path(dev):
+    """The privacy attacks, checkpoints and the lazy roster at full width
+    (dcgan-mnist, 5 clients, batch 256, base_filters 64: a D of 1,030,913
+    parameters) on the repo's synthetic MNIST: gradient inversion of the
+    plain path's trained D (ATTACK_STEPS steps on the victim shape (1, 28,
+    28, 1)); the defended re-attack through the dp_clip kernel (1 launch,
+    held against the plain version); activation inversion of the tensors
+    an int8+dp split ships through the boundary_fuse kernel after one
+    round, at every boundary of the client with the most (4 x (b + 1)
+    launches at boundary b), beside the clean depth sweep; membership
+    inference; the trainer's whole state saved and restored onto the card
+    bit for bit; and a roster round's two-tier reduce through the fedavg
+    kernel (4 cohorts + the WAN average: 5 launches) against the flat
+    weighted FedAvg.  Every step's launches are set to 0 just before it
+    and checked just after.  Returns the launch counts."""
+    import functools
+    from repro_torch import keys
+    from repro_torch.checkpoint import load_pytree, save_pytree
+    from repro_torch.core.gan import d_loss_fn
+    from repro_torch.data import synthetic_mnist
+    from repro_torch.device import fp32_convolutions
+    from repro_torch.examples.privacy_frontier_demo import per_example_grads
+    from repro_torch.fed.hierarchy import HierarchicalAggregator
+    from repro_torch.fed.roster import Roster
+    from repro_torch.kernels.dp_clip.ops import (dp_clip_noise_tree,
+                                                 flatten_per_example)
+    from repro_torch.kernels.dp_clip.ref import dp_clip_noise_ref
+    from repro_torch.kernels.fedavg.ops import fedavg_trees
+    from repro_torch.kernels.fedavg.ref import fedavg_leaves_ref
+    from repro_torch.privacy import (ActivationInversionAttack,
+                                     best_match_psnr, distance_correlation,
+                                     invert_gradients, make_prefix_fn,
+                                     make_shipped_prefix_fn,
+                                     membership_inference, psnr, ssim)
+    from repro_torch.tree import leaves, tree_map, unflatten_like
+
+    wrappers = kernel_wrappers()
+    total = {k: 0 for k in wrappers}
+
+    def counted(label, fn, expect):
+        """``fn()`` with every launch count set to 0 just before and read
+        just after: each must be ``expect``'s (0 where it names none)."""
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: w.launches for k, w in wrappers.items()}
+        want = {k: expect.get(k, 0) for k in got}
+        check(got == want, f"attack path, {label}: launches {got}, expected "
+              f"{want}")
+        for k, n in got.items():
+            total[k] += n
+        return out, wall
+
+    # the victim's D: the plain main path's configuration, trained the
+    # same way (ROUNDS x BATCHES)
+    tr = full_width_trainer({})
+    for _ in range(ROUNDS):
+        tr.train_epoch(batches_per_client=BATCHES)
+    c, params = tr.c, tr.state.d_params["c0"]
+    n_params = sum(l.numel() for l in leaves(params))
+    check(n_params == 1_030_913, f"the D has {n_params} parameters")
+    loss_fn = functools.partial(d_loss_fn, c=c)
+
+    # 1. gradient inversion of the victim's D gradient
+    victim = torch.as_tensor(tr.client_data["c0"][:1], device=dev)
+    fake = 0.3 * keys.normal(keys.root(keys.DEFAULT, 3), victim.shape, dev)
+    with fp32_convolutions(), torch.enable_grad():
+        grad = torch.func.grad(loss_fn)(params, victim, fake)
+    (rec, hist), wall = counted("gradient inversion", lambda: invert_gradients(
+        loss_fn, params, grad, fake, victim.shape, steps=ATTACK_STEPS,
+        key=keys.root(keys.DEFAULT, 7)), {})
+    check(rec.shape == victim.shape and bool(torch.isfinite(rec).all())
+          and float(rec.abs().max()) <= 1.0, "gradient inversion: the "
+          "reconstruction is not finite images in [-1, 1]")
+    check(all(math.isfinite(h) for h in hist), "non-finite matching loss")
+    clean_psnr = best_match_psnr(rec, victim)
+    print(f"attack path, gradient inversion (D of {n_params} parameters, "
+          f"victim {tuple(victim.shape)}): {ATTACK_STEPS} steps in "
+          f"{wall:.3f} s, {1e3 * wall / ATTACK_STEPS:.3f} ms a step, "
+          f"matching loss {hist[0]:.4f} -> {hist[-1]:.4f}, PSNR "
+          f"{clean_psnr:.3f} dB, SSIM {ssim(rec, victim):.4f}; launches 0")
+    kernels, pwall = traced_kernels(lambda: invert_gradients(
+        loss_fn, params, grad, fake, victim.shape, steps=PROFILED_STEPS,
+        x0=rec))
+    if kernels:
+        busy = busy_ms(kernels)
+        print(f"attack path, {PROFILED_STEPS} profiled inversion steps: "
+              f"{len(kernels) / PROFILED_STEPS:.1f} kernels a step, busy "
+              f"{busy / PROFILED_STEPS:.3f} ms of "
+              f"{1e3 * pwall / PROFILED_STEPS:.3f} ms a step (busy share "
+              f"{busy / pwall / 1e3:.3f}, profiler on)")
+        print_top_kernels("attack path", kernels, 5)
+    else:
+        print("attack path: the profiler traced no kernel; the inversion "
+              "step's device time not measured")
+
+    # 2. the defended re-attack: the per-example gradient through dp_clip
+    per_ex = per_example_grads(loss_fn, params, victim, fake)
+    flat, _ = flatten_per_example(per_ex)
+    check(tuple(flat.shape) == (1, n_params), f"per-example stack "
+          f"{tuple(flat.shape)}")
+    dp_key = keys.root(keys.DEFAULT, 11)
+    g_dp, wall = counted("dp_clip", lambda: dp_clip_noise_tree(
+        per_ex, 1.0, 1.0, dp_key, use_kernel=True), {"dp_clip": 1})
+    want = dp_clip_noise_ref(flat, 1.0, 1.0, keys.normal(
+        dp_key, (n_params,), dev))
+    got = torch.cat([l.reshape(-1) for l in leaves(g_dp)])
+    torch.testing.assert_close(got, want, **KERNEL_TOL)
+    err = float((got - want).abs().max())
+    (rec_dp, hist_dp), wall = counted("defended inversion", lambda:
+                                      invert_gradients(
+        loss_fn, params, g_dp, fake, victim.shape, steps=ATTACK_STEPS,
+        key=keys.root(keys.DEFAULT, 7)), {})
+    check(all(math.isfinite(h) for h in hist_dp), "non-finite matching loss")
+    print(f"attack path, defended re-attack: dp_clip over (1, {n_params}) "
+          f"(1 launch) vs plain max abs err {err:.3e} (tolerance "
+          f"{KERNEL_TOL}); {ATTACK_STEPS} steps in {wall:.3f} s, matching "
+          f"loss {hist_dp[-1]:.4f}, PSNR {best_match_psnr(rec_dp, victim):.3f}"
+          f" dB (undefended {clean_psnr:.3f} dB)")
+
+    # 3. activation inversion of what an executed split ships
+    trs = full_width_trainer(SPLIT)
+    trs.train_epoch(batches_per_client=BATCHES)
+    cid = max(trs._active_clients(),
+              key=lambda k: trs.split_execs[k].num_boundaries)
+    ex, dparams = trs.split_execs[cid], trs.state.d_params[cid]
+    aux = torch.as_tensor(synthetic_mnist(SHADOW, seed=5)[0], device=dev)
+    victims = torch.as_tensor(synthetic_mnist(VICTIMS, seed=9)[0],
+                              device=dev)
+
+    def attack(prefix):
+        atk = ActivationInversionAttack(prefix, (28, 28, 1),
+                                        width=DECODER["width"], device=dev)
+        h = atk.train(aux, steps=DECODER["steps"], batch=DECODER["batch"])
+        recon = atk.reconstruct(victims)
+        check(bool(torch.isfinite(recon).all()) and all(
+            math.isfinite(v) for v in h), "non-finite decoder")
+        return (h, psnr(recon, victims),
+                distance_correlation(victims, prefix(victims)))
+
+    for b in range(ex.num_boundaries):
+        prefix = make_shipped_prefix_fn(ex, dparams, b,
+                                        key=keys.root(keys.STAGE, 13))
+        (h, p, dcor), wall = counted(
+            f"shipped boundary {b}", lambda: attack(prefix),
+            {"boundary_fuse": 4 * (b + 1)})
+        print(f"attack path, activation inversion of {cid}'s shipped "
+              f"boundary {b} (depth {ex.boundaries[b].depth}, "
+              f"{trs.cfg.split.boundary_stage} through the kernel): decoder "
+              f"loss {h[0]:.4f} -> {h[-1]:.4f}, PSNR {p:.3f} dB, dCor "
+              f"{dcor:.4f} over {VICTIMS} victims; boundary_fuse "
+              f"{4 * (b + 1)} launches; {wall:.3f} s")
+    for depth in (1, 2, 3):
+        (h, p, dcor), wall = counted(
+            f"clean depth {depth}",
+            lambda: attack(make_prefix_fn(dparams, c, depth)), {})
+        print(f"attack path, activation inversion of the clean prefix at "
+              f"depth {depth}: decoder loss {h[-1]:.4f}, PSNR {p:.3f} dB, "
+              f"dCor {dcor:.4f}; {wall:.3f} s")
+
+    # 4. membership inference on the trained D
+    nonmembers = synthetic_mnist(256, seed=99)[0]
+    mi, _ = counted("membership", lambda: membership_inference(
+        params, c, tr.client_data["c0"][:256], nonmembers), {})
+    check(0.0 <= mi["auc"] <= 1.0 and 0.0 <= mi["advantage"] <= 1.0,
+          f"membership {mi}")
+    print(f"attack path, membership inference (256 of c0's training images "
+          f"vs 256 fresh): AUC {mi['auc']:.4f}, advantage "
+          f"{mi['advantage']:.4f}")
+
+    # 5. the trainer's state through a checkpoint, onto the card
+    st = tr.state
+    state = {"d_params": st.d_params, "d_opt": st.d_opt,
+             "g_params": st.g_params, "g_opt": st.g_opt}
+    os.makedirs(CKPT_DIR, exist_ok=True)
+    path = os.path.join(CKPT_DIR, "state.npz")
+    _, save_s = counted("checkpoint save",
+                        lambda: save_pytree(path, state, {"step": st.step}),
+                        {})
+    (back, extra), load_s = counted("checkpoint load",
+                                    lambda: load_pytree(path, like=state), {})
+    pairs = list(zip(leaves(state), leaves(back)))
+    check(extra == {"step": st.step} and all(
+        b.device == a.device and bits_equal(a, b) for a, b in pairs),
+          "the restored state differs from the saved one")
+    nbytes = os.path.getsize(path)
+    print(f"attack path, checkpoint of the trainer's state ({len(pairs)} "
+          f"leaves: {CLIENTS} Ds and their Adam states, G and its): "
+          f"{nbytes} bytes, save {save_s:.3f} s, load onto {dev} "
+          f"{load_s:.3f} s, equal bit for bit")
+
+    # 6. a roster round's two-tier reduce through the fedavg kernel
+    roster = Roster(ROSTER["population"],
+                    participants=ROSTER["participants"],
+                    cohorts=ROSTER["cohorts"], seed=0)
+    ids = roster.sample_round(0).client_ids
+    updates = {}
+    for i, cid_ in enumerate(ids):
+        rng = np.random.default_rng(i)
+        updates[f"v{cid_}"] = (tree_map(lambda p: p + torch.from_numpy(
+            (1e-2 * rng.standard_normal(tuple(p.shape))).astype(
+                np.float32)).to(dev), params), float(1 + i % 3))
+    agg = HierarchicalAggregator(ROSTER["cohorts"], use_kernel=True,
+                                 cohort_of=roster.cohort_of_cid)
+
+    def two_tier():
+        reds = agg.reduce_all(updates)
+        return reds, fedavg_trees([r.aggregate for r in reds],
+                                  [r.weight for r in reds])
+
+    (reds, out), wall = counted("roster reduce", two_tier, {"fedavg": 5})
+    w = torch.tensor([u[1] for u in updates.values()], device=dev)
+    flat_avg = unflatten_like(params, fedavg_leaves_ref(
+        [leaves(u[0]) for u in updates.values()], w / w.sum()))
+    diff = max(float((a - b).abs().max())
+               for a, b in zip(leaves(out), leaves(flat_avg)))
+    for a, b in zip(leaves(out), leaves(flat_avg)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    big = Roster(10**9, participants=64, cohorts=8, seed=0)
+    t0 = time.perf_counter()
+    big.sample_round(0)
+    sample_ms = 1e3 * (time.perf_counter() - t0)
+    print(f"attack path, roster ({roster.population} clients, "
+          f"{roster.participants} a round in {roster.cohorts} cohorts of "
+          f"{[len(r.members) for r in reds]}): the two-tier reduce of "
+          f"{len(updates)} full-width Ds (fedavg 5 launches, {wall:.3f} s) "
+          f"vs the flat weighted FedAvg (plain): max abs diff {diff:.3e} "
+          f"(rtol 1e-5, atol 1e-6); sampling a round of 10**9 clients "
+          f"{sample_ms:.3f} ms")
+    print(f"attack path: launches {total}")
+    return total
+
+
+def phase_small_attack_reference(dev):
+    """On the card at a small width (base_filters 8, a plan of 3
+    boundaries): the shipped prefix through the boundary_fuse kernel
+    against ``split.use_kernel`` off at each boundary, within one int8
+    quantum (b + 1 launches at boundary b); 5 gradient-inversion steps on
+    the card against the same 5 on the CPU, within 1e-4 (the port's
+    fp32-convolution guard on); and ``split_forward`` with its boundary
+    hook against the unsplit forward, bit for bit under deterministic
+    cuDNN."""
+    import functools
+    from repro_torch import keys
+    from repro_torch.config import DCGANConfig
+    from repro_torch.core import split as ts
+    from repro_torch.core.devices import Client, Device
+    from repro_torch.core.gan import bce_logits, d_loss_fn
+    from repro_torch.core.selection import make_plan
+    from repro_torch.device import fp32_convolutions
+    from repro_torch.kernels.boundary_fuse.kernel import boundary_fuse_kernel
+    from repro_torch.models.dcgan import (disc_apply, disc_apply_layer,
+                                          disc_init, disc_layer_costs,
+                                          disc_layer_names)
+    from repro_torch.privacy import (invert_gradients, make_prefix_fn,
+                                     make_shipped_prefix_fn)
+    from repro_torch.tree import tree_map
+
+    c = DCGANConfig(base_filters=8)
+    costs = disc_layer_costs(c)
+    plan = make_plan(Client("c0", [Device("d0", 1.0, 2),
+                                   Device("d1", 2.0, 2)]),
+                     [(n, costs[n]) for n in disc_layer_names(c)],
+                     "sorted_single", 3)
+    tails = (functools.partial(bce_logits, target=1.0),
+             functools.partial(bce_logits, target=0.0))
+
+    def execution(use_kernel):
+        return ts.SplitExecution(
+            plan, functools.partial(disc_apply_layer, c=c), tails,
+            stage=ts.FusedBoundaryStage("int8", 1.0, 0.5,
+                                        use_kernel=use_kernel))
+
+    params = disc_init(torch.Generator().manual_seed(0), c, dev)
+    rng = np.random.default_rng(17)
+    x = torch.tensor(np.tanh(2 * rng.standard_normal((8, 28, 28, 1))),
+                     dtype=torch.float32, device=dev)
+    kern, plain = execution(True), execution(False)
+    check(kern.num_boundaries == 3, "the plan is not 3 boundaries")
+    key = keys.root(keys.STAGE, 3)
+    worst = []
+    for b in range(kern.num_boundaries):
+        before = boundary_fuse_kernel.launches
+        got = make_shipped_prefix_fn(kern, params, b, key=key)(x)
+        torch.cuda.synchronize()
+        check(boundary_fuse_kernel.launches - before == b + 1,
+              f"shipped prefix at boundary {b}: "
+              f"{boundary_fuse_kernel.launches - before} launches")
+        want = make_shipped_prefix_fn(plain, params, b, key=key)(x)
+        # the pre-stage tensor of the plain path's crossing, for its quantum
+        pre = x if b == 0 else plain.forward_boundaries(
+            params, x, key=keys.fold_in(key, 0), upto=b - 1)[b - 1]
+        for n in plain.segments[b][1]:
+            pre = plain.apply_layer(n, params, pre)
+        quantum = float(pre.abs().max()) / 127
+        diff = float((got - want).abs().max())
+        check(diff <= quantum + 1e-5, f"shipped prefix at boundary {b}: "
+              f"kernel vs plain {diff} > one int8 quantum {quantum}")
+        worst.append((diff, quantum))
+    print("small attack reference, shipped prefix (int8+dp) through the "
+          "kernel vs plain, b + 1 launches at boundary b: max abs diff / "
+          "int8 quantum " + ", ".join(f"b{b} {d:.3e} / {q:.3e}"
+                                      for b, (d, q) in enumerate(worst)))
+
+    cpu = torch.device("cpu")
+    loss_fn = functools.partial(d_loss_fn, c=c)
+    p_cpu = disc_init(torch.Generator().manual_seed(0), c, cpu)
+    real = np.tanh(rng.standard_normal((1, 28, 28, 1))).astype(np.float32)
+    fake = (0.3 * rng.standard_normal((1, 28, 28, 1))).astype(np.float32)
+    x0 = (0.1 * rng.standard_normal((1, 28, 28, 1))).astype(np.float32)
+    target = torch.func.grad(loss_fn)(p_cpu, torch.tensor(real),
+                                      torch.tensor(fake))
+    (xc, hc), (xg, hg) = (invert_gradients(
+        loss_fn, p, tree_map(lambda t: t.to(d), target), fake,
+        (1, 28, 28, 1), steps=5, x0=x0) for d, p in ((cpu, p_cpu),
+                                                     (dev, params)))
+    hdiff = max(abs(a - b) / abs(b) for a, b in zip(hg, hc))
+    xdiff = float((xg.cpu() - xc).abs().max())
+    check(hdiff <= 1e-4 and xdiff <= 1e-4, f"5 inversion steps on the card "
+          f"vs the CPU: history {hdiff}, images {xdiff}")
+    print(f"small attack reference, 5 gradient-inversion steps on the card "
+          f"vs the CPU: history max rel diff {hdiff:.3e}, images max abs "
+          f"diff {xdiff:.3e} (tolerance 1e-4)")
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with torch.no_grad(), fp32_convolutions():
+            apply_layer = lambda n, a: disc_apply_layer(  # noqa: E731
+                n, params, a, c)
+            seen = ts.boundary_activations(x, plan, apply_layer)
+            out = ts.split_forward(x, plan, apply_layer,
+                                   boundary_hook=lambda *a: None)
+            check(torch.equal(out, disc_apply(params, x, c)),
+                  "split_forward differs from the unsplit forward")
+            for i, _, _, act in seen:
+                check(torch.equal(act, make_prefix_fn(
+                    params, c, kern.boundaries[i].depth)(x)),
+                      f"boundary {i}'s hook activation differs from the "
+                      f"prefix")
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    print(f"small attack reference, split_forward with its hook vs the "
+          f"unsplit forward: equal bit for bit, and the {len(seen)} hook "
+          f"activations equal to the clean prefixes (deterministic cuDNN)")
 
 
 def adam_reach(beta1, beta2, steps):
@@ -2955,6 +3353,11 @@ def main() -> int:
             by_path.setdefault(name, {})["adaptive path"] = n
     print(f"adaptive path: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    for name, n in phase_attack_path(dev).items():
+        if n:
+            by_path.setdefault(name, {})["attack path"] = n
+    print(f"attack path: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     launches.update(phase_lm_paths(dev))
     print(f"LM paths: {time.perf_counter() - t0:.1f} s")
     for row in rows:
@@ -2966,6 +3369,7 @@ def main() -> int:
     phase_small_split_reference(dev)
     phase_small_vectorized_reference(dev)
     phase_small_adaptive_reference(dev)
+    phase_small_attack_reference(dev)
     phase_lm_small_reference(dev)
     print(f"small references: {time.perf_counter() - t0:.1f} s")
 

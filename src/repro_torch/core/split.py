@@ -6,7 +6,9 @@ vectorized backend (``run_clients``, ``clients_value_and_grad``,
 ``clients_per_example_value_and_grad``).
 
 A :class:`SplitPlan` records which device trains which contiguous layer
-range of the discriminator.  :class:`SplitExecution` compiles a plan into a
+range of the discriminator.  :func:`split_forward` runs a forward portion
+by portion with a hook at each device hand-off (what a LAN observer sees,
+:func:`boundary_activations`).  :class:`SplitExecution` compiles a plan into a
 staged ``value_and_grad``: the forward runs device segment by device
 segment, the backward walks the same segments in reverse, and EVERY tensor
 that crosses a segment boundary — the smashed activation on the way
@@ -32,7 +34,7 @@ example, per crossing, per step — is the same.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -81,6 +83,47 @@ class SplitPlan:
 
 class InfeasibleSplit(Exception):
     """Client lacks capacity to host the model (paper: client is dropped)."""
+
+
+# ---------------------------------------------------------------------------
+# split execution — numerically identical to the unsplit forward
+# ---------------------------------------------------------------------------
+
+def split_forward(x, plan: SplitPlan,
+                  apply_layer: Callable[[str, Any], Any],
+                  boundary_hook: Optional[Callable[[int, str, str, Any],
+                                                   None]] = None):
+    """Run a forward pass portion by portion, as the devices would.
+
+    ``apply_layer(name, x) -> x`` applies one named layer.  The boundary is
+    a list hop, so the result is the monolithic forward bit for bit.
+    ``boundary_hook(boundary_idx, from_device, to_device, activation)`` is
+    called at every device-to-device hand-off with the activation that
+    would cross the LAN: the observation point of the activation-inversion
+    attack (``privacy/attacks.py``)."""
+    n_boundary = 0
+    for pi, portion in enumerate(plan.portions):
+        for name in portion.layer_names:
+            x = apply_layer(name, x)
+        if boundary_hook is not None and pi + 1 < len(plan.portions):
+            nxt = plan.portions[pi + 1]
+            if nxt.device_id != portion.device_id:
+                boundary_hook(n_boundary, portion.device_id,
+                              nxt.device_id, x)
+                n_boundary += 1
+    return x
+
+
+def boundary_activations(x, plan: SplitPlan,
+                         apply_layer: Callable[[str, Any], Any]
+                         ) -> List[Tuple[int, str, str, Any]]:
+    """All (boundary_idx, from_device, to_device, activation) tuples a LAN
+    observer sees during one split forward pass."""
+    seen: List[Tuple[int, str, str, Any]] = []
+    split_forward(x, plan, apply_layer,
+                  boundary_hook=lambda i, a, b, act: seen.append(
+                      (i, a, b, act)))
+    return seen
 
 
 def plan_segments(plan: SplitPlan) -> List[Tuple[str, Tuple[str, ...]]]:

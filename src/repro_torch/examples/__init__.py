@@ -10,4 +10,12 @@ under ``experiments/gan_torch/`` (``--out``).
   quickstart            — split planning, then a two-client FSL-GAN round
   adaptive_control_demo — the four controllers, recorded and replayed
   trace_viewer_demo     — a traced split round, health alerts and digests
+  privacy_frontier_demo — gradient / activation inversion and membership
+                          inference, then the DP-SGD defense re-attacked
+  split_training_demo   — a round trained through the split, its cost,
+                          and the leakage of the tensors it shipped
+
+``examples/federated_lm.py`` and the third demo of ``quickstart`` (the LM
+train step) wait for the port's LM training runtime (ROADMAP Queue A item
+16).
 """

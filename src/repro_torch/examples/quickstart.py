@@ -1,6 +1,7 @@
 """Quickstart: the paper's core and the FSL-GAN round in well under a
-minute.  Twin of the first two demos of ``examples/quickstart.py`` (its
-third, the LM train step, waits for the port's LM training runtime).
+minute.  Twin of the first two demos of ``examples/quickstart.py``: its
+third, the LM train step, waits for the port's LM training runtime
+(ROADMAP Queue A item 16).
 
 1. paper core — split a discriminator across heterogeneous devices and
                 price the four selection strategies (Fig 2 machinery)

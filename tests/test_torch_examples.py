@@ -10,8 +10,9 @@ import torch
 
 from repro_torch.examples import (adaptive_control_demo,
                                   device_selection_demo, fed_async_demo,
-                                  fsl_gan_mnist, quickstart, serve_demo,
-                                  trace_viewer_demo)
+                                  fsl_gan_mnist, privacy_frontier_demo,
+                                  quickstart, serve_demo,
+                                  split_training_demo, trace_viewer_demo)
 from repro_torch.obs import load_run
 
 SMALL = ["--batch-size", "8", "--base-filters", "8", "--device", "cpu"]
@@ -94,3 +95,32 @@ def test_trace_viewer_demo(tmp_path):
     assert counts["events"] > 0 and counts["boundary"] > 0
     assert os.path.exists(os.path.join(str(tmp_path), "obs_runs",
                                        "trace-demo", "trace.json"))
+
+
+def test_privacy_frontier_demo(tmp_path):
+    res = privacy_frontier_demo.main(
+        ["--epochs", "1", "--batches-per-client", "1", "--examples", "200",
+         "--inversion-steps", "3", "--decoder-steps", "3", *SMALL,
+         *_out(tmp_path)])
+    assert res["device"] == "cpu"
+    assert np.isfinite(res["gradient_inversion"]["psnr"])
+    assert res["activation_inversion"]
+    assert 0.0 <= res["membership"]["auc"] <= 1.0
+    assert np.isfinite(res["defended"]["epsilon"])
+    with open(tmp_path / "privacy_frontier.json") as f:
+        assert json.load(f)["membership"]["auc"] == res["membership"]["auc"]
+
+
+def test_split_training_demo(tmp_path):
+    res = split_training_demo.main(["--batches", "1", "--decoder-steps", "2",
+                                    *SMALL, *_out(tmp_path)])
+    assert res["device"] == "cpu" and res["lan_bytes"] > 0
+    stages = {row["stage"] for row in res["leakage"]}
+    assert stages == set(split_training_demo.STAGES)
+    # the int8 wire is a quarter of the fp32 one, plus its scale
+    wire = {(row["stage"], row["boundary"]): row["wire_bytes"]
+            for row in res["leakage"]}
+    assert all(wire["int8", b] < wire["identity", b] for s, b in wire
+               if s == "identity")
+    assert os.path.exists(os.path.join(str(tmp_path), "obs_runs",
+                                       "split-demo-identity", "trace.json"))
