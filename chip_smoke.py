@@ -56,12 +56,17 @@ non-zero exit, and no result line:
    two times and its pick beside the loop and vectorized warm rounds; and
    ``fed.shard_clients`` on one card (no mesh) against the unsharded
    vectorized round, bit for bit.  Then the LM substrate at
-   full width: ``lm_loss`` forward (``torch.no_grad``,
-   ``parallel.use_flash_kernel``) and ``serve_batch`` (4 requests, 16
-   greedy tokens, bf16 cache) on qwen3-14b (40 layers, bf16, 29.5 GB;
-   B 2 x S 2048: 40 flash_attention launches) and on rwkv6-1.6b (24
-   layers, fp32; B 4 x T 2048: 24 wkv6 launches); serving launches
-   neither, as in the reference.  And the adaptive path at full width
+   full width, every arch of ``LM_PATHS``: ``lm_loss`` forward
+   (``torch.no_grad``, ``parallel.use_flash_kernel``; B 2 x S 2048,
+   rwkv6-1.6b B 4 x T 2048, whisper-base B 2 x S 448 with its frame
+   embeddings, chameleon-34b on interleaved image tokens) and
+   ``serve_batch`` (4 requests, 16 greedy tokens, bf16 cache) on
+   qwen3-14b, rwkv6-1.6b, olmoe-1b-7b, deepseek-v2-lite-16b,
+   recurrentgemma-9b, whisper-base, chameleon-34b, granite-20b,
+   qwen2-72b (32 of its 80 layers) and llama3-405b (8 of 126): one
+   flash_attention launch an ``attn`` / ``moe`` layer and one wkv6
+   launch an ``rwkv`` layer a forward, two forwards equal bit for bit;
+   serving launches neither, as in the reference.  And the adaptive path at full width
    (``phase_adaptive_path``, 3 rounds x 2 batches): ``control.mode=
    "adaptive"`` with the codec, sigma, split and deadline controllers,
    DP-SGD through the split with the dp_clip and boundary_fuse kernels
@@ -91,8 +96,9 @@ non-zero exit, and no result line:
    images in range, epsilon finite and growing (DP-SGD, with and without
    the split), the LAN and edge bytes the split and the codec predict (the
    same on the three split paths), the server's peak of live trees,
-   generated tokens in the vocabulary, the rwkv6-1.6b loss through the
-   wkv6 kernel against the plain scan's at full depth; and on small inputs the kernel
+   generated tokens in the vocabulary, the rwkv6-1.6b, recurrentgemma-9b
+   and granite-20b losses through the kernels against the plain path's
+   at full depth; and on small inputs the kernel
    round against the sequential round with the host FedAvg, the DP-SGD
    engine round against the sequential one, the identity-stage split round
    against the unsplit one (and, under deterministic cuDNN, bit for bit in
@@ -103,9 +109,10 @@ non-zero exit, and no result line:
    gradients, the batched per-example
    staged step against its loop oracle, DP-SGD through the identity split
    against DP-SGD unsplit, and through the int8+dp split at K = 4 against
-   K = 1 (bit for bit), the LM forward through the kernels against the
-   plain path, and prefill + decode against the teacher-forced forward
-   (full and sliding-window caches); over 3 clients the vectorized round
+   K = 1 (bit for bit), each LM's forward through the kernels against the
+   plain path, prefill + decode against the teacher-forced forward
+   (full and sliding-window caches), a whisper decode past its cache
+   against the CPU; over 3 clients the vectorized round
    against the loop round (plain, DP-SGD, split) at the reference's
    tolerances, ``fed.shard_clients`` on one card against the unsharded
    vectorized round, and rounds with cuDNN's TF32 flag on globally
@@ -2846,13 +2853,74 @@ FLASH_CASES = [(2, 128, 128, 4, 4, 64, True, 0), (1, 256, 256, 4, 2, 64, True, 0
 WKV_CASES = [(2, 64, 2, 32), (1, 100, 4, 64), (2, 17, 1, 16), (1, 128, 2, 8)]
 QWEN_FWD = (2, 2048)            # lm_loss batch x sequence on qwen3-14b
 RWKV_FWD = (4, 2048)            # and on rwkv6-1.6b
+LM_FWD = (2, 2048)              # and on the other decoders
 SERVE_REQUESTS, SERVE_TOKENS = 4, 16
-# |rwkv6-1.6b loss through the wkv6 kernel - through the plain scan| at
-# full depth: the two sum in different orders, and 24 layers of bf16
-# compute carry that into the loss.  Measured on an H100 80GB HBM3 at
-# 700 W (PERF.md §6): 9.6e-04 for this kernel, 2.1e-03 for the design
-# it replaced; the limit holds both with room.
-RWKV_PLAIN_LOSS_TOL = 4e-3
+# |loss through the kernel - through the plain path| at full depth: the
+# two sum in different orders, and every layer's bf16 compute carries that
+# into the loss.  rwkv6-1.6b measured on an H100 80GB HBM3 at 700 W
+# (PERF.md §6): 9.6e-04 for the wkv6 kernel, 2.1e-03 for the design it
+# replaced; the limit holds both with room, and holds the flash paths of
+# recurrentgemma-9b (D = 256, window) and granite-20b (48 heads on 1).
+PLAIN_LOSS_TOL = 4e-3
+# the LM paths at full width: arch -> the config's widths (checked before
+# any depth cut), the forward's batch x sequence, the layers run where one
+# card cannot hold them all (with why), the serve prompts' token range,
+# and whether the forward also runs on the plain path
+LM_PATHS = {
+    "qwen3-14b": dict(
+        widths=dict(num_layers=40, d_model=5120, num_heads=40,
+                    num_kv_heads=8, head_dim=128, d_ff=17408,
+                    vocab_size=151936), fwd=QWEN_FWD),
+    "rwkv6-1.6b": dict(
+        widths=dict(num_layers=24, d_model=2048, num_heads=32, head_dim=64,
+                    d_ff=7168, vocab_size=65536), fwd=RWKV_FWD, plain=True),
+    "olmoe-1b-7b": dict(
+        widths={"num_layers": 16, "d_model": 2048, "num_heads": 16,
+                "num_kv_heads": 16, "head_dim": 128, "vocab_size": 50304,
+                "moe.num_experts": 64, "moe.top_k": 8,
+                "moe.d_ff_expert": 1024}),
+    "deepseek-v2-lite-16b": dict(
+        widths={"num_layers": 27, "d_model": 2048, "num_heads": 16,
+                "head_dim": 128, "vocab_size": 102400,
+                "moe.num_experts": 64, "moe.num_shared_experts": 2,
+                "moe.top_k": 6, "moe.d_ff_expert": 1408,
+                "mla.kv_lora_rank": 512, "mla.rope_head_dim": 64,
+                "mla.v_head_dim": 128}),
+    "recurrentgemma-9b": dict(
+        widths={"num_layers": 38, "d_model": 4096, "num_heads": 16,
+                "num_kv_heads": 1, "head_dim": 256, "d_ff": 12288,
+                "vocab_size": 256000, "sliding_window": 2048,
+                "rglru.lru_width": 4096, "rglru.conv_width": 4},
+        plain=True),
+    # the decoder's 448 positions bound its sequence and its prompts
+    "whisper-base": dict(
+        widths={"num_layers": 6, "d_model": 512, "num_heads": 8,
+                "head_dim": 64, "d_ff": 2048, "vocab_size": 51865,
+                "encdec.encoder_layers": 6, "encdec.encoder_seq": 1500,
+                "encdec.max_target_positions": 448},
+        fwd=(2, 448), prompts=(32, 401)),
+    "chameleon-34b": dict(
+        widths=dict(num_layers=48, d_model=8192, num_heads=64,
+                    num_kv_heads=8, head_dim=128, d_ff=22016,
+                    vocab_size=65536)),
+    "granite-20b": dict(
+        widths=dict(num_layers=52, d_model=6144, num_heads=48,
+                    num_kv_heads=1, head_dim=128, d_ff=24576,
+                    vocab_size=49152), plain=True),
+    "qwen2-72b": dict(
+        widths=dict(num_layers=80, d_model=8192, num_heads=64,
+                    num_kv_heads=8, head_dim=128, d_ff=29568,
+                    vocab_size=152064),
+        layers=32, cut="80 layers are 145.4 GB of bf16 parameters; 32 are "
+        "~61 GB, which leave room on one 80 GB card for the forward"),
+    "llama3-405b": dict(
+        widths=dict(num_layers=126, d_model=16384, num_heads=128,
+                    num_kv_heads=8, head_dim=128, d_ff=53248,
+                    vocab_size=128256),
+        layers=8, cut="126 layers are 811.7 GB of bf16 parameters; 8 are "
+        "~59 GB, which leave room on one 80 GB card for the forward and "
+        "its fp32 head (8.4 GB)"),
+}
 # the bf16 tensor-core peak (NVIDIA data sheet, H100 SXM, dense)
 BF16_FLOPS = 989e12
 # flash kernel vs plain: fp32 sums of up to 2048 terms in another order;
@@ -2920,8 +2988,18 @@ def phase_flash_attention(dev):
 
     main_shape = (QWEN_FWD[0], QWEN_FWD[1], QWEN_FWD[1], 40, 8, 128)
     d256_shape = (QWEN_FWD[0], QWEN_FWD[1], QWEN_FWD[1], 8, 8, 256)
+    b, s = LM_FWD
+    # the LM paths' other attention layers: recurrentgemma-9b (16 heads on
+    # 1 kv head of 256, window 2048), granite-20b (48 on 1), llama3-405b
+    # (128 on 8); qwen2-72b's and chameleon-34b's 64/8 and olmoe-1b-7b's
+    # 16/16 lie between these and qwen3-14b's 40/8
+    lm_shapes = {"16/1 D 256 window 2048": ((b, s, s, 16, 1, 256), 2048),
+                 "48/1": ((b, s, s, 48, 1, 128), 0),
+                 "128/8": ((b, s, s, 128, 8, 128), 0)}
     cases = []
     for dt in (torch.bfloat16, torch.float32):
+        cases += [(label, shape, dict(causal=True, window=window), dt)
+                  for label, (shape, window) in lm_shapes.items()]
         cases += [("main", main_shape, dict(causal=True), dt),
                   ("main window 512", main_shape,
                    dict(causal=True, window=512), dt),
@@ -2942,6 +3020,7 @@ def phase_flash_attention(dev):
                   ("(B, H, S, D) layout", (2, 200, 200, 8, 2, 128),
                    dict(causal=True, bshd=False), dt)]
     err = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    lm_err = {}
     for label, shape, kw, dt in cases:
         kw = dict(kw)
         q, k, v = qkv(*shape, dt, bshd=kw.pop("bshd", True))
@@ -2954,7 +3033,15 @@ def phase_flash_attention(dev):
             torch.testing.assert_close(got, want, **FLASH_TOL[dt])
         except AssertionError as e:
             raise RuntimeError(f"flash_attention {label} {dt}: {e}") from None
-        err[dt] = max(err[dt], float((got.float() - want.float()).abs().max()))
+        e = float((got.float() - want.float()).abs().max())
+        err[dt] = max(err[dt], e)
+        if label in lm_shapes:
+            lm_err[(label, dt)] = e
+        del q, k, v, got, want
+    for (label, dt), e in lm_err.items():
+        print(f"flash_attention vs plain at {label} "
+              f"{lm_shapes[label][0]} {dt}: max abs err {e:.3e} (tolerance "
+              f"{FLASH_TOL[dt]})")
     print(f"flash_attention vs plain: {len(cases)} cases, max abs err "
           f"bf16 {err[torch.bfloat16]:.3e} (tolerance "
           f"{FLASH_TOL[torch.bfloat16]}), fp32 {err[torch.float32]:.3e} "
@@ -3023,14 +3110,17 @@ def phase_flash_attention(dev):
             ("bf16 window 512", torch.bfloat16, 512, main_shape),
             ("fp32 causal", torch.float32, 0, main_shape),
             ("bf16 D 256 causal", torch.bfloat16, 0, d256_shape),
-            ("fp32 D 256 causal", torch.float32, 0, d256_shape)):
+            ("fp32 D 256 causal", torch.float32, 0, d256_shape),
+            *((f"bf16 {label}", torch.bfloat16, window, shape)
+              for label, (shape, window) in lm_shapes.items())):
         q, k, v = qkv(*shape, dt)
         variants = {
             "kernel": lambda: flash_attention_kernel(q, k, v, causal=True,
                                                      window=window),
             "plain": lambda: attention_ref(q, k, v, causal=True,
                                            window=window)}
-        if not window:
+        if not window or window >= shape[2]:
+            # a window of at least Sk masks nothing more than causality
             variants["library"] = lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True)
         t = time_variants(variants, iters=10, reps=3)
@@ -3147,40 +3237,77 @@ def phase_wkv6(dev):
             "bound_by": by, "library_ms": None}
 
 
-def drive_lm(dev, arch, fwd_shape, kernel, full_width, plain_tol=None):
-    """One LM at full width: ``lm_loss`` forward under ``torch.no_grad``
-    with ``parallel.use_flash_kernel`` on a synthetic batch, then
-    ``serve_batch`` (4 requests of 128-1024 prompt tokens, 16 greedy
+def lm_forward_batch(dev, m, b, s):
+    """The forward's batch: synthetic tokens and next-token labels; for
+    the VLM the tokens come from ``vlm_interleave`` (one 256-token image
+    span a sequence), for whisper the batch also carries the stub
+    frontend's frame embeddings."""
+    from repro_torch.data import synthetic_lm_batch
+    from repro_torch.models.frontends import (audio_frame_embeddings,
+                                              vlm_interleave)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if m.family == "vlm":
+        toks, mask = vlm_interleave(gen, b, s + 1, m)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        print(f"{m.name}: tokens from vlm_interleave, "
+              f"{int(mask[:, :-1].sum())} of {b * s} image tokens")
+    else:
+        batch = {k: torch.as_tensor(a, device=dev) for k, a in
+                 synthetic_lm_batch(b, s, m.vocab_size, seed=0).items()}
+    if m.encdec.enabled:
+        batch["enc_embeds"] = audio_frame_embeddings(gen, b, m)
+    return batch
+
+
+def drive_lm(dev, arch, path):
+    """One LM at full width (``path``: its entry of ``LM_PATHS``):
+    ``lm_loss`` forward under ``torch.no_grad`` with
+    ``parallel.use_flash_kernel`` on a synthetic batch, then
+    ``serve_batch`` (4 requests of the path's prompt lengths, 16 greedy
     tokens, bf16 cache).  Every kernel's launch count is set to 0 just
     before each of the two and read just after: the forward must launch
-    ``kernel`` once a layer and nothing else, serving nothing at all.
-    With ``plain_tol``, the forward also runs once on the plain path, and
-    the two losses must agree within it.  Returns the forward's launches
-    of ``kernel``."""
+    flash_attention once an ``attn`` / ``moe`` layer and wkv6 once an
+    ``rwkv`` layer at the depth run and nothing else, serving nothing at
+    all.  With ``path["plain"]``, the forward also runs once on the plain
+    path, and the two losses must agree within ``PLAIN_LOSS_TOL``.
+    Returns the forward's launches of each kernel."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.data import synthetic_lm_batch, synthetic_tokens
+    from repro_torch.data import synthetic_tokens
     from repro_torch.launch.serve import Request, serve_batch
+    from repro_torch.models.blocks import layer_kinds
     from repro_torch.models.transformer import lm_init, lm_loss
     from repro_torch.runtime.serve import _dtype
     from repro_torch.tree import leaves
 
+    def width(m, name):
+        for part in name.split("."):
+            m = getattr(m, part)
+        return m
+
     cfg = get_config(arch).override({"parallel.use_flash_kernel": True})
+    full_width = path["widths"]
+    got = {k: width(cfg.model, k) for k in full_width}
+    check(got == full_width, f"{arch} is not at full width: {got}")
+    full_depth = cfg.model.num_layers
+    if path.get("layers"):
+        cfg = cfg.override({"model.num_layers": path["layers"]})
     m = cfg.model
-    check({k: getattr(m, k) for k in full_width} == full_width,
-          f"{arch} is not at full width: {m}")
+    kinds = layer_kinds(m)
     wrappers = kernel_wrappers()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     params = lm_init(0, m, _dtype(cfg.parallel.param_dtype), dev)
     torch.cuda.synchronize()
     pbytes = sum(l.numel() * l.element_size() for l in leaves(params))
-    print(f"{arch}: {m.num_layers} layers, d_model {m.d_model}, "
-          f"{len(leaves(params))} leaves, {pbytes / 1e9:.3f} GB of "
-          f"{cfg.parallel.param_dtype} parameters, init "
+    depth = (f"{m.num_layers} of {full_depth} layers (cut: {path['cut']})"
+             if path.get("layers") else f"{m.num_layers} layers (full depth)")
+    print(f"{arch}: {depth}, kinds "
+          f"{ {k: kinds.count(k) for k in sorted(set(kinds))} }, d_model "
+          f"{m.d_model}, {len(leaves(params))} leaves, {pbytes / 1e9:.3f} "
+          f"GB of {cfg.parallel.param_dtype} parameters, init "
           f"{time.perf_counter() - t0:.2f} s")
-    b, s = fwd_shape
-    batch = {k: torch.as_tensor(a, device=dev) for k, a in
-             synthetic_lm_batch(b, s, m.vocab_size, seed=0).items()}
+    b, s = path.get("fwd", LM_FWD)
+    batch = lm_forward_batch(dev, m, b, s)
     cd = _dtype(cfg.parallel.compute_dtype)
 
     def forward(use_kernel=cfg.parallel.use_flash_kernel):
@@ -3188,6 +3315,9 @@ def drive_lm(dev, arch, fwd_shape, kernel, full_width, plain_tol=None):
             return lm_loss(params, batch, m, cd, cfg.parallel.remat,
                            use_kernel=use_kernel)
 
+    want = {k: 0 for k in wrappers}
+    want["flash_attention"] = sum(k in ("attn", "moe") for k in kinds)
+    want["wkv6"] = kinds.count("rwkv")
     for w in wrappers.values():
         w.launches = 0
     t0 = time.perf_counter()
@@ -3195,45 +3325,52 @@ def drive_lm(dev, arch, fwd_shape, kernel, full_width, plain_tol=None):
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
     counts = {k: w.launches for k, w in wrappers.items()}
-    want = {k: (m.num_layers if k == kernel else 0) for k in counts}
     check(counts == want, f"{arch} forward: launches {counts}, expected "
           f"{want}")
-    fwd_launches = counts[kernel]
-    check(math.isfinite(float(loss)) and float(met["tokens"]) == b * s,
-          f"{arch} forward: loss {float(loss)}, tokens {met['tokens']}")
+    check(math.isfinite(float(loss)) and float(met["tokens"]) == b * s
+          and math.isfinite(float(met["aux_loss"])),
+          f"{arch} forward: loss {float(loss)}, aux {met['aux_loss']}, "
+          f"tokens {met['tokens']}")
     t0 = time.perf_counter()
     loss2, _ = forward()
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
     check(torch.equal(loss, loss2), f"{arch}: two forwards differ")
+    launched = {k: n for k, n in counts.items() if n}
     print(f"{arch} lm_loss forward, B {b} x S {s}, use_flash_kernel: loss "
-          f"{float(loss):.6f} (ln vocab {math.log(m.vocab_size):.3f}), wall "
-          f"{cold:.3f} s cold, {warm:.3f} s warm, launches {counts} as "
-          f"expected, peak memory "
+          f"{float(loss):.6f} (ln vocab {math.log(m.vocab_size):.3f}, aux "
+          f"{float(met['aux_loss']):.6f}), wall {cold:.3f} s cold, "
+          f"{warm:.3f} s warm, the two equal bit for bit; launches "
+          f"{launched or 'none'} as expected; peak memory "
           f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
-    if plain_tol is not None:
+    if path.get("plain"):
         t0 = time.perf_counter()
         plain, _ = forward(use_kernel=False)
         torch.cuda.synchronize()
         gap = abs(float(loss) - float(plain))
-        check(gap <= plain_tol, f"{arch} forward: loss through the kernel "
-              f"{float(loss)}, plain {float(plain)}: {gap} > {plain_tol}")
+        check(gap <= PLAIN_LOSS_TOL, f"{arch} forward: loss through the "
+              f"kernel {float(loss)}, plain {float(plain)}: {gap} > "
+              f"{PLAIN_LOSS_TOL}")
         print(f"{arch} lm_loss forward on the plain path: loss "
               f"{float(plain):.6f}, wall {time.perf_counter() - t0:.3f} s; "
-              f"|kernel - plain| {gap:.3e} (limit {plain_tol})")
+              f"|kernel - plain| {gap:.3e} (limit {PLAIN_LOSS_TOL})")
         del plain
     del batch, loss, loss2, met
 
-    scfg = get_config(arch, "decode_32k")
+    scfg = get_config(arch, "decode_32k").override(
+        {"model.num_layers": m.num_layers})
     check(scfg.parallel.cache_dtype == "bfloat16", "cache is not bf16")
     rng = np.random.default_rng(0)
-    lens = [int(n) for n in rng.integers(128, 1025, SERVE_REQUESTS)]
+    lo, hi = path.get("prompts", (128, 1025))
+    lens = [int(n) for n in rng.integers(lo, hi, SERVE_REQUESTS)]
     reqs = [Request(i, synthetic_tokens(1, n, m.vocab_size, seed=i)[0])
             for i, n in enumerate(lens)]
+    torch.cuda.reset_peak_memory_stats(dev)
     for w in wrappers.values():
         w.launches = 0
     t0 = time.perf_counter()
-    serve_batch(scfg, reqs, SERVE_TOKENS, device=dev, params=params)
+    serve_batch(scfg, reqs, SERVE_TOKENS, device=dev, params=params,
+                verbose=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {k: w.launches for k, w in wrappers.items()}
@@ -3243,73 +3380,108 @@ def drive_lm(dev, arch, fwd_shape, kernel, full_width, plain_tol=None):
             0 <= t < m.vocab_size for t in r.generated),
               f"{arch} serve: request {r.rid} generated {r.generated}")
     print(f"{arch} serve_batch: prompts {lens}, {SERVE_TOKENS} tokens each, "
-          f"wall {wall:.3f} s, no kernel launched (prefill and decode take "
-          f"the plain attention / scan, as in the reference)")
+          f"wall {wall:.3f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB, no kernel "
+          f"launched (prefill and decode take the plain attention / scan, "
+          f"as in the reference)")
     del params
     torch.cuda.empty_cache()
-    return fwd_launches
+    return {k: n for k, n in want.items() if n}
 
 
 def phase_lm_paths(dev):
-    launches = {}
-    launches["flash_attention"] = drive_lm(
-        dev, "qwen3-14b", QWEN_FWD, "flash_attention",
-        dict(num_layers=40, d_model=5120, num_heads=40, num_kv_heads=8,
-             head_dim=128, d_ff=17408, vocab_size=151936))
-    launches["wkv6"] = drive_lm(
-        dev, "rwkv6-1.6b", RWKV_FWD, "wkv6",
-        dict(num_layers=24, d_model=2048, num_heads=32, head_dim=64,
-             d_ff=7168, vocab_size=65536), plain_tol=RWKV_PLAIN_LOSS_TOL)
-    return launches
+    """Every LM of ``LM_PATHS`` through ``drive_lm``.  Returns (each
+    kernel's forward launches over all of them, and by forward)."""
+    launches, by_path = {}, {}
+    for arch, path in LM_PATHS.items():
+        t0 = time.perf_counter()
+        for name, n in drive_lm(dev, arch, path).items():
+            launches[name] = launches.get(name, 0) + n
+            by_path.setdefault(name, {})[f"{arch} forward"] = n
+        print(f"{arch}: {time.perf_counter() - t0:.1f} s")
+    return launches, by_path
 
 
 def phase_lm_small_reference(dev):
-    """On the card at smoke width, fp32, TF32 off: ``lm_apply`` through the
-    kernels against the plain path (1e-4), and prefill + decode against
-    the teacher-forced forward (5e-4, the reference's pin), for both
-    architectures and the sliding-window ring."""
+    """On the card at smoke width, fp32, TF32 off, for every arch of
+    ``LM_PATHS`` (recurrentgemma-9b at 4 layers, so one attention layer
+    runs): ``lm_apply`` through the kernels against the plain path
+    (1e-4), and prefill + decode against the teacher-forced forward (5e-4,
+    the reference's pin), also on a sliding-window ring (qwen3-14b,
+    recurrentgemma-9b); and a whisper decode past its cache (max target
+    positions cut to 8, decoding to 16) against the same run on the CPU
+    (1e-4)."""
     from repro_torch.config import reduce_for_smoke
     from repro_torch.configs.registry import get_config
     from repro_torch.models.transformer import (lm_apply, lm_decode_step,
                                                 lm_init, lm_prefill)
+    from repro_torch.tree import tree_map
 
-    def setup(arch, seq, over=None):
+    def setup(arch, seq, over=None, device=dev):
         cfg = reduce_for_smoke(get_config(arch, "train_4k"), seq_len=seq,
                                batch=2)
+        if arch == "recurrentgemma-9b":
+            cfg = cfg.override({"model.num_layers": 4})
         if over:
             cfg = cfg.override(over)
         m = cfg.model
-        params = lm_init(0, m, torch.float32, dev)
-        toks = torch.as_tensor(np.random.default_rng(1).integers(
-            0, m.vocab_size, (2, seq)), device=dev)
-        return m, params, toks
+        params = lm_init(0, m, torch.float32, device)
+        rng = np.random.default_rng(1)
+        batch = {"tokens": torch.as_tensor(rng.integers(
+            0, m.vocab_size, (2, seq)), device=device)}
+        if m.encdec.enabled:
+            batch["enc_embeds"] = torch.as_tensor(0.1 * rng.standard_normal(
+                (2, m.encdec.encoder_seq, m.d_model)), dtype=torch.float32,
+                device=device)
+        return m, params, batch
 
+    def decode_run(m, params, batch, pre, seq):
+        extra = {k: v for k, v in batch.items() if k == "enc_embeds"}
+        toks = batch["tokens"]
+        lg, state, idx = lm_prefill(params, dict(extra, tokens=toks[:, :pre]),
+                                    m, cache_len=seq,
+                                    cache_dtype=torch.float32)
+        out = [lg]
+        for t in range(pre, seq):
+            lg, state = lm_decode_step(params, toks[:, t], state, t, m)
+            out.append(lg)
+        return out
+
+    ring = {"model.attention": "sliding", "model.sliding_window": 5}
     with torch.no_grad():
-        for arch in ("qwen3-14b", "rwkv6-1.6b"):
-            m, params, toks = setup(arch, 100)
-            a, _ = lm_apply(params, {"tokens": toks}, m, use_kernel=False)
-            b, _ = lm_apply(params, {"tokens": toks}, m, use_kernel=True)
+        for arch in LM_PATHS:
+            m, params, batch = setup(arch, 100)
+            a, _ = lm_apply(params, batch, m, use_kernel=False)
+            b, _ = lm_apply(params, batch, m, use_kernel=True)
             d = float((a - b).abs().max())
             check(d <= 1e-4, f"{arch} small: kernel path vs plain {d}")
             print(f"small input, {arch} lm_apply (2 x 100), kernel path vs "
                   f"plain path: max abs diff {d:.3e} (pin 1e-4)")
-        for arch, seq, pre, over in (
-                ("qwen3-14b", 12, 8, None), ("rwkv6-1.6b", 12, 8, None),
-                ("qwen3-14b", 24, 6, {"model.attention": "sliding",
-                                      "model.sliding_window": 5})):
-            m, params, toks = setup(arch, seq, over)
-            full, _ = lm_apply(params, {"tokens": toks}, m)
-            lg, state, idx = lm_prefill(params, {"tokens": toks[:, :pre]}, m,
-                                        cache_len=seq,
-                                        cache_dtype=torch.float32)
-            errs = [float((lg - full[:, pre - 1]).abs().max())]
-            for t in range(pre, seq):
-                lg, state = lm_decode_step(params, toks[:, t], state, t, m)
-                errs.append(float((lg - full[:, t]).abs().max()))
+        cases = [(arch, 12, 8, None) for arch in LM_PATHS] + [
+            ("qwen3-14b", 24, 6, ring),
+            ("recurrentgemma-9b", 24, 6, dict(ring, **{
+                "model.num_layers": 3}))]
+        for arch, seq, pre, over in cases:
+            m, params, batch = setup(arch, seq, over)
+            full, _ = lm_apply(params, batch, m)
+            got = decode_run(m, params, batch, pre, seq)
+            errs = [float((g - full[:, pre - 1 + i]).abs().max())
+                    for i, g in enumerate(got)]
             check(max(errs) < 5e-4, f"{arch} {over}: decode drift {errs}")
             print(f"small input, {arch}{' ring' if over else ''}: prefill "
                   f"{pre} + decode to {seq} vs forward, max abs diff "
                   f"{max(errs):.3e} (pin 5e-4)")
+        past = {"model.encdec.max_target_positions": 8}
+        m, params, batch = setup("whisper-base", 16, past)
+        got = decode_run(m, params, batch, 6, 16)
+        cpu = torch.device("cpu")
+        want = decode_run(m, tree_map(lambda t: t.to(cpu), params),
+                          tree_map(lambda t: t.to(cpu), batch), 6, 16)
+        d = max(float((g.cpu() - w).abs().max()) for g, w in zip(got, want))
+        check(d <= 1e-4, f"whisper decode past its cache: card vs CPU {d}")
+        print(f"small input, whisper-base with 8 target positions: prefill "
+              f"6 + decode to 16 (past the cache and the position table; "
+              f"both clamp), card vs CPU max abs diff {d:.3e} (pin 1e-4)")
 
 
 def main() -> int:
@@ -3358,7 +3530,9 @@ def main() -> int:
             by_path.setdefault(name, {})["attack path"] = n
     print(f"attack path: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    launches.update(phase_lm_paths(dev))
+    lm_launches, lm_by_path = phase_lm_paths(dev)
+    launches.update(lm_launches)
+    by_path.update(lm_by_path)
     print(f"LM paths: {time.perf_counter() - t0:.1f} s")
     for row in rows:
         row["launches"] = launches[row["name"]]

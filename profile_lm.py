@@ -2,15 +2,18 @@
 """Where the time goes on the port's LM paths and inside its dp_clip,
 wkv6, boundary_fuse and agg_fuse kernels, on one NVIDIA GPU.
 
-    python3 profile_lm.py [--arch qwen3-14b rwkv6-1.6b] [--kernels]
+    python3 profile_lm.py [--arch qwen3-14b rwkv6-1.6b ...] [--kernels]
 
-For each architecture at full width (random weights from seed 0): serving
-as ``chip_smoke.py`` drives it (4 requests of 128-1024 prompt tokens, 16
-greedy tokens, bf16 cache) twice, with the prefill time and every decode
-step's time (host clock, each step ending in a host read of the tokens);
-then the ``lm_loss`` forward (qwen3-14b B 2 x S 2048, rwkv6-1.6b B 4 x
-T 2048) warm, through the kernels and through the plain path, with the
-loss of each.  Two decode steps, the qwen3-14b prefill and the forward
+For each architecture at full width (random weights from seed 0), at the
+depth and on the batches ``chip_smoke.py``'s ``LM_PATHS`` give it
+(qwen2-72b at 32 of 80 layers, llama3-405b at 8 of 126; whisper's frame
+embeddings, chameleon's interleaved image tokens): serving as
+``chip_smoke.py`` drives it (4 requests of 128-1024 prompt tokens,
+32-400 for whisper, 16 greedy tokens, bf16 cache) twice, with the
+prefill time and every decode step's time (host clock, each step ending
+in a host read of the tokens); then the ``lm_loss`` forward (B 2 x S
+2048; rwkv6-1.6b B 4 x T 2048, whisper B 2 x S 448) warm, through the
+kernels and through the plain path, with the loss of each.  Two decode steps, the qwen3-14b prefill and the forward
 through the kernels are traced with ``torch.profiler``: for each, the
 trace window, the time some kernel was running (the union of the
 kernels' intervals) and its share of the window, the number of kernel
@@ -55,7 +58,6 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-FORWARD = {"qwen3-14b": (2, 2048), "rwkv6-1.6b": (4, 2048)}
 REQUESTS, GEN_TOKENS = 4, 16
 DP_BATCH, DP_CLIENTS = 256, 5
 WKV_SHAPE = (4, 2048, 32, 64)
@@ -349,23 +351,33 @@ def profile_wkv6(dev):
 
 def profile_arch(arch, dev):
     from torch.profiler import ProfilerActivity, profile
+    from chip_smoke import LM_FWD, LM_PATHS, lm_forward_batch
     from repro_torch.configs.registry import get_config
-    from repro_torch.data import synthetic_lm_batch, synthetic_tokens
+    from repro_torch.data import synthetic_tokens
+    from repro_torch.models.frontends import audio_frame_embeddings
     from repro_torch.models.transformer import lm_init, lm_loss
     from repro_torch.runtime import make_decode_step, make_prefill_step
     from repro_torch.runtime.serve import _dtype
 
+    path = LM_PATHS[arch]
     cfg = get_config(arch, "decode_32k")
+    if path.get("layers"):
+        cfg = cfg.override({"model.num_layers": path["layers"]})
+        print(f"{arch}: {path['layers']} layers (cut: {path['cut']})")
     m = cfg.model
     params = lm_init(0, m, _dtype(cfg.parallel.param_dtype), dev)
     rng = np.random.default_rng(0)
-    lens = [int(n) for n in rng.integers(128, 1025, REQUESTS)]
+    lo, hi = path.get("prompts", (128, 1025))
+    lens = [int(n) for n in rng.integers(lo, hi, REQUESTS)]
     max_len = max(lens)
     toks = np.zeros((REQUESTS, max_len), np.int32)
     for i, n in enumerate(lens):       # left-padded, as serve_batch does
         toks[i, max_len - n:] = synthetic_tokens(1, n, m.vocab_size,
                                                  seed=i)[0]
     batch = {"tokens": torch.as_tensor(toks, device=dev)}
+    if m.encdec.enabled:
+        batch["enc_embeds"] = audio_frame_embeddings(
+            torch.Generator(device=dev).manual_seed(0), REQUESTS, m)
     prefill = make_prefill_step(
         cfg.override({"shape.seq_len": max_len + GEN_TOKENS}))
     decode = make_decode_step(cfg)
@@ -402,9 +414,8 @@ def profile_arch(arch, dev):
                 torch.cuda.synchronize()
             busy(prof, f"{arch} prefill {REQUESTS}x{max_len}")
         del state
-        b, s = FORWARD[arch]
-        fwd = {k: torch.as_tensor(v, device=dev) for k, v in
-               synthetic_lm_batch(b, s, m.vocab_size, seed=0).items()}
+        b, s = path.get("fwd", LM_FWD)
+        fwd = lm_forward_batch(dev, m, b, s)
         losses = {}
         for use_kernel in (True, False):
             lm_loss(params, fwd, m, cd, use_kernel=use_kernel)
@@ -427,8 +438,9 @@ def profile_arch(arch, dev):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", nargs="*", default=list(FORWARD),
-                    choices=list(FORWARD))
+    from chip_smoke import LM_PATHS
+    ap.add_argument("--arch", nargs="*", default=["qwen3-14b", "rwkv6-1.6b"],
+                    choices=list(LM_PATHS))
     ap.add_argument("--kernels", action="store_true",
                     help="trace the dp_clip, wkv6, boundary_fuse and "
                          "agg_fuse kernels first")

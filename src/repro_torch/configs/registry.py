@@ -1,10 +1,9 @@
 """Architecture registry (port of ``repro/configs/registry.py``):
 ``--arch <id>`` resolution, optionally bound to an input shape.
 
-Ported: the paper's own model and the LM substrate's dense and recurrent
-models.  Every other architecture of the JAX registry raises a ``KeyError``
-naming the ROADMAP item it waits for.  ``long_500k`` applicability as in
-the reference: native for state-based archs, a sliding-window variant for
+Every architecture of the JAX registry: the LM substrate's ten and the
+paper's own model.  ``long_500k`` applicability as in the reference:
+native for state-based archs, a sliding-window variant for
 full-attention decoders, skipped for whisper.
 """
 from __future__ import annotations
@@ -17,21 +16,17 @@ from repro_torch.config import ATTN_SLIDING, INPUT_SHAPES, RunConfig
 # arch id -> module name
 _ARCHS: Dict[str, str] = {
     "qwen3-14b": "repro_torch.configs.qwen3_14b",
+    "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
     "rwkv6-1.6b": "repro_torch.configs.rwkv6_1b6",
+    "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite",
+    "chameleon-34b": "repro_torch.configs.chameleon_34b",
+    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
+    "whisper-base": "repro_torch.configs.whisper_base",
+    "granite-20b": "repro_torch.configs.granite_20b",
+    "qwen2-72b": "repro_torch.configs.qwen2_72b",
+    "llama3-405b": "repro_torch.configs.llama3_405b",
     # the paper's own model
     "dcgan-mnist": "repro_torch.configs.dcgan_mnist",
-}
-
-# archs of the JAX registry that are not ported yet -> what they wait for
-_WAITING: Dict[str, str] = {
-    "recurrentgemma-9b": "the rglru block",
-    "deepseek-v2-lite-16b": "the mla and moe blocks",
-    "chameleon-34b": "the vlm frontend",
-    "olmoe-1b-7b": "the moe block",
-    "whisper-base": "the whisper encoder/decoder",
-    "granite-20b": "its config",
-    "qwen2-72b": "its config",
-    "llama3-405b": "its config",
 }
 
 SHAPES: List[str] = list(INPUT_SHAPES)
@@ -50,14 +45,10 @@ def list_archs() -> List[str]:
 
 
 def get_config(arch: str, shape: Optional[str] = None) -> RunConfig:
-    """Resolve ``--arch <id>`` among the ported architectures, optionally
-    bound to one of ``INPUT_SHAPES``."""
+    """Resolve ``--arch <id>``, optionally bound to one of
+    ``INPUT_SHAPES``."""
     if arch not in _ARCHS:
-        why = (f" ({_WAITING[arch]}, ROADMAP Queue A item 16)"
-               if arch in _WAITING else "")
-        raise KeyError(
-            f"arch {arch!r} is not ported to repro_torch{why}; ported: "
-            f"{sorted(_ARCHS)}")
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ARCHS)}")
     cfg: RunConfig = importlib.import_module(_ARCHS[arch]).config()
     if shape is not None:
         if shape not in INPUT_SHAPES:

@@ -24,6 +24,7 @@ from repro_torch.config import RunConfig, reduce_for_smoke
 from repro_torch.configs.registry import get_config
 from repro_torch.data import synthetic_tokens
 from repro_torch.device import resolve_device
+from repro_torch.models.frontends import audio_frame_embeddings
 from repro_torch.models.transformer import lm_init
 from repro_torch.runtime import make_decode_step, make_prefill_step
 from repro_torch.runtime.serve import _dtype
@@ -43,11 +44,13 @@ def _sync(dev: torch.device) -> None:
 
 def serve_batch(cfg: RunConfig, requests: List[Request], gen_tokens: int,
                 seed: int = 0, verbose: bool = True, *, device=None,
-                params=None):
+                params=None, enc_embeds: Optional[torch.Tensor] = None):
     """Serve ``requests`` as one batch: prefill, then ``gen_tokens`` greedy
     decode steps; each request's tokens land in ``generated``.  Parameters
     come from ``lm_init(seed)`` on ``device`` unless ``params`` (the same
-    tree, already on the device) is given."""
+    tree, already on the device) is given.  An encoder-decoder model's
+    frame embeddings (B, S_enc, d) are drawn from a generator seeded with
+    ``seed`` unless ``enc_embeds`` is given."""
     m = cfg.model
     dev = resolve_device(device)
     with torch.no_grad():
@@ -63,6 +66,12 @@ def serve_batch(cfg: RunConfig, requests: List[Request], gen_tokens: int,
         for i, r in enumerate(requests):
             batch_tokens[i, max_len - len(r.prompt):] = r.prompt  # left-pad
         batch = {"tokens": torch.as_tensor(batch_tokens, device=dev)}
+        if m.encdec.enabled:
+            if enc_embeds is None:
+                enc_embeds = audio_frame_embeddings(
+                    torch.Generator(device=dev).manual_seed(int(seed)),
+                    len(requests), m)
+            batch["enc_embeds"] = enc_embeds.to(dev)
 
         t0 = time.time()
         logits, state, index = prefill(params, batch)

@@ -351,13 +351,15 @@ def gqa_decode(p, x, cache_k, cache_v, index: int, dims: AttnDims,
     (a Python int).  Sliding-window archs use a ring buffer of size
     ``window``.  The new K/V are written into ``cache_k``/``cache_v`` in
     place (the reference returns updated copies), and the caches are
-    returned."""
+    returned.  Past the end of a full cache (whisper's decoder cache is
+    clipped to its 448 positions) the write lands in the last slot, as
+    the reference's ``dynamic_update_slice`` clamps it."""
     b = x.shape[0]
     s_cache = cache_k.shape[1]
     dev = x.device
     pos = torch.full((1,), index, dtype=torch.int64, device=dev)
     q, k, v = gqa_project_qkv(p, x, dims, pos, compute_dtype)
-    slot = index % s_cache if dims.window else index
+    slot = index % s_cache if dims.window else min(index, s_cache - 1)
     cache_k[:, slot:slot + 1] = k.to(cache_k.dtype)
     cache_v[:, slot:slot + 1] = v.to(cache_v.dtype)
     j = torch.arange(s_cache, device=dev)

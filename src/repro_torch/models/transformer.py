@@ -1,13 +1,12 @@
 """Language-model assembly: embeddings -> period-stacked block stack -> head
 (port of ``repro/models/transformer.py``).
 
-Ported for the decoder-only families whose blocks are ported (``attn``:
-dense; ``rwkv``: ssm).  The encoder-decoder (whisper) and hybrid branches
-raise ``NotImplementedError`` (ROADMAP Queue A item 16).  Layers are
-stacked per *period* as in the reference; the stack runs as a Python loop
-over periods, so ``scan_layers`` and ``remat`` are accepted and change
-nothing (both reference paths compute the same values, and a forward pass
-keeps no residuals for a backward).
+Every family of the reference: decoder-only (dense / moe / ssm / hybrid /
+vlm) and encoder-decoder (whisper).  Layers are stacked per *period* as in
+the reference; the stack runs as a Python loop over periods, so
+``scan_layers`` and ``remat`` are accepted and change nothing (both
+reference paths compute the same values, and a forward pass keeps no
+residuals for a backward).
 
 Public API
 ----------
@@ -18,33 +17,24 @@ Public API
   lm_prefill(params, batch, m, ...)        -> (logits_last, state, index)
   lm_decode_step(params, token, state, index, m, ...) -> (logits, state)
 
-Tensors in ``batch`` live on the parameters' device.  Decode updates the
-state it is given in place and returns it.
+Tensors in ``batch`` live on the parameters' device; an encoder-decoder
+batch also carries ``enc_embeds`` (B, S_enc, d), the stub frontend's frame
+embeddings.  Decode updates the state it is given in place and returns it.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.config import AUDIO, HYBRID, ModelConfig
+from repro_torch.config import HYBRID, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.blocks import (block_apply, block_decode, block_init,
-                                       block_state_init, period_of,
-                                       split_periods)
+                                       block_state_init, norm_apply,
+                                       norm_init, period_of, split_periods)
 from repro_torch.tree import tree_map
-
-
-def _check_ported(m: ModelConfig) -> None:
-    if m.encdec.enabled or m.family == AUDIO:
-        raise NotImplementedError(
-            f"{m.name}: the encoder-decoder LM (whisper) is not ported to "
-            f"repro_torch yet (ROADMAP Queue A item 16)")
-    if m.family == HYBRID:
-        raise NotImplementedError(
-            f"{m.name}: the hybrid LM (RG-LRU) is not ported to repro_torch "
-            f"yet (ROADMAP Queue A item 16)")
 
 
 # ---------------------------------------------------------------------------
@@ -69,20 +59,31 @@ def _stack_init(gen, m: ModelConfig, dtype):
     return stack, tail
 
 
+def _encoder_model_cfg(m: ModelConfig) -> ModelConfig:
+    """Encoder stack config: same dims, 'enc' blocks, encoder depth."""
+    enc = dataclasses.replace(m, num_layers=m.encdec.encoder_layers,
+                              family="dense")
+    enc._force_kind = "enc"  # read by blocks.layer_kinds
+    return enc
+
+
 def lm_init(seed: int, m: ModelConfig, dtype=torch.float32, device=None
             ) -> Dict[str, Any]:
     """Random parameters from ``seed``, drawn on ``device`` (the GPU unless
     the caller names another)."""
-    _check_ported(m)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     p: Dict[str, Any] = {}
     p["embed"] = L.embedding_init(gen, m.vocab_size, m.d_model, dtype)
     p["stack"], p["tail"] = _stack_init(gen, m, dtype)
-    p["final_norm"] = L.rmsnorm_init(m.d_model, dtype, dev)
+    p["final_norm"] = norm_init(m, dtype, dev)
     if not m.tie_embeddings:
         p["head"] = {"w": L._normal(gen, (m.d_model, m.vocab_size),
                                     m.d_model ** -0.5, dtype)}
+    if m.encdec.enabled:
+        e_stack, e_tail = _stack_init(gen, _encoder_model_cfg(m), dtype)
+        p["encoder"] = {"stack": e_stack, "tail": e_tail,
+                        "norm": L.layernorm_init(m.d_model, dtype, dev)}
     return p
 
 
@@ -90,7 +91,7 @@ def lm_init(seed: int, m: ModelConfig, dtype=torch.float32, device=None
 # forward
 # ---------------------------------------------------------------------------
 
-def _run_stack(stack, tail, x, m: ModelConfig, positions, cd,
+def _run_stack(stack, tail, x, m: ModelConfig, positions, cd, enc_out,
                use_kernel: bool, cache_len: int = 0,
                cache_dtype=torch.bfloat16):
     """Run the period-stacked blocks, then the tail. If cache_len > 0, also
@@ -105,15 +106,15 @@ def _run_stack(stack, tail, x, m: ModelConfig, positions, cd,
         caches = {}
         for j, kind in enumerate(period):
             x, a, c = block_apply(kind, pparams[f"b{j}"], x, m, positions,
-                                  cd, None, use_kernel, cache_len,
+                                  cd, enc_out, use_kernel, cache_len,
                                   cache_dtype)
             aux_total = aux_total + a
             caches[f"b{j}"] = c
         per_caches.append(caches)
     tail_cache = {}
     for i, kind in enumerate(rem):
-        x, a, c = block_apply(kind, tail[f"t{i}"], x, m, positions, cd, None,
-                              use_kernel, cache_len, cache_dtype)
+        x, a, c = block_apply(kind, tail[f"t{i}"], x, m, positions, cd,
+                              enc_out, use_kernel, cache_len, cache_dtype)
         aux_total = aux_total + a
         tail_cache[f"t{i}"] = c
     if cache_len:
@@ -125,27 +126,60 @@ def _run_stack(stack, tail, x, m: ModelConfig, positions, cd,
 
 def _head(params, x, m: ModelConfig):
     """Final norm and the vocabulary projection, fp32 logits."""
-    x = L.rmsnorm_apply(params["final_norm"], x, m.norm_eps)
+    x = norm_apply(m, params["final_norm"], x)
     if m.tie_embeddings:
         return L.unembed_apply(params["embed"], x)
     # bf16 operands, fp32 accumulation and result, as the reference
     return L._f32_matmul(x, params["head"]["w"])
 
 
+def encode(params, enc_embeds, m: ModelConfig, cd=None, remat: str = "full",
+           scan_layers: bool = True) -> torch.Tensor:
+    """Whisper encoder over stub frame embeddings (B, S_enc, d).  Its
+    bidirectional attention takes the plain path, as in the reference."""
+    se, d = enc_embeds.shape[1], m.d_model
+    x = enc_embeds + L.sinusoidal_positions(se, d, enc_embeds.device).to(
+        enc_embeds.dtype)
+    enc = params["encoder"]
+    x, _, _ = _run_stack(enc["stack"], enc["tail"], x, _encoder_model_cfg(m),
+                         torch.arange(se, device=x.device), cd, None, False)
+    return L.layernorm_apply(enc["norm"], x)
+
+
+def _embed(params, tokens, m: ModelConfig, cd):
+    """Token embeddings of a prompt, scaled (hybrid) or with sinusoidal
+    positions added (encoder-decoder) as the reference."""
+    x = L.embedding_apply(params["embed"], tokens, cd)
+    if m.family == HYBRID:                   # gemma-style embed scaling
+        x = x * torch.tensor(m.d_model ** 0.5, dtype=x.dtype)
+    if m.encdec.enabled:                     # whisper: sinusoidal positions
+        x = x + L.sinusoidal_positions(tokens.shape[1], m.d_model,
+                                       x.device).to(x.dtype)
+    return x
+
+
+def _encoder_out(params, batch, m: ModelConfig, cd, remat, scan_layers
+                 ) -> Optional[torch.Tensor]:
+    if not m.encdec.enabled:
+        return None
+    return encode(params, batch["enc_embeds"], m, cd, remat, scan_layers)
+
+
 def lm_apply(params, batch: Dict[str, torch.Tensor], m: ModelConfig,
              cd=None, remat: str = "full", use_kernel: bool = False,
              positions=None, scan_layers: bool = True
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """batch: {"tokens": (B,S) int}.  ``remat`` and ``scan_layers`` are
-    accepted for the reference's signature and change nothing here."""
-    _check_ported(m)
+    """batch: {"tokens": (B,S) int, ["enc_embeds": (B,Se,d)]}.  ``remat``
+    and ``scan_layers`` are accepted for the reference's signature and
+    change nothing here."""
     tokens = batch["tokens"]
     b, s = tokens.shape
-    x = L.embedding_apply(params["embed"], tokens, cd)
+    x = _embed(params, tokens, m, cd)
     if positions is None:
         positions = torch.arange(s, device=x.device)
+    enc_out = _encoder_out(params, batch, m, cd, remat, scan_layers)
     x, aux, _ = _run_stack(params["stack"], params["tail"], x, m, positions,
-                           cd, use_kernel)
+                           cd, enc_out, use_kernel)
     return _head(params, x, m), aux
 
 
@@ -179,7 +213,6 @@ def init_decode_state(m: ModelConfig, batch: int, cache_len: int,
                       dtype=torch.bfloat16, device=None):
     """Zero decode state, per-period leaves stacked on a leading axis, on
     ``device`` (the GPU unless the caller names another)."""
-    _check_ported(m)
     dev = resolve_device(device)
     period = period_of(m)
     n_full, rem = split_periods(m)
@@ -211,11 +244,18 @@ def lm_decode_step(params, token: torch.Tensor, state, index: int,
                    ) -> Tuple[torch.Tensor, Any]:
     """token: (B,) int; index: the current position (a Python int).
     ``state`` is updated in place and returned."""
-    _check_ported(m)
     period = period_of(m)
     n_full, rem = split_periods(m)
     index = int(index)
     x = L.embedding_apply(params["embed"], token[:, None], cd)
+    if m.family == HYBRID:
+        x = x * torch.tensor(m.d_model ** 0.5, dtype=x.dtype)
+    if m.encdec.enabled:
+        # the decoder's positions stop at its last one, as the reference
+        mtp = m.encdec.max_target_positions
+        pos_emb = L.sinusoidal_positions(mtp, m.d_model, x.device)[
+            min(index, mtp - 1)]
+        x = x + pos_emb.to(x.dtype)
     for i in range(n_full):
         pparams = tree_map(lambda a: a[i], params["stack"])
         pstate = tree_map(lambda a: a[i], state["stack"])
@@ -238,12 +278,12 @@ def lm_prefill(params, batch: Dict[str, torch.Tensor], m: ModelConfig,
     next index). The cache is populated inside the forward pass (each
     block contributes its K/V / recurrent state), so prefill is one pass.
     Attention takes the plain path, as in the reference."""
-    _check_ported(m)
     tokens = batch["tokens"]
     b, s = tokens.shape
-    x = L.embedding_apply(params["embed"], tokens, cd)
+    x = _embed(params, tokens, m, cd)
+    enc_out = _encoder_out(params, batch, m, cd, remat, scan_layers)
     positions = torch.arange(s, device=x.device)
     x, _, state = _run_stack(params["stack"], params["tail"], x, m,
-                             positions, cd, False, cache_len=cache_len,
-                             cache_dtype=cache_dtype)
+                             positions, cd, enc_out, False,
+                             cache_len=cache_len, cache_dtype=cache_dtype)
     return _head(params, x[:, -1:], m)[:, 0], state, s

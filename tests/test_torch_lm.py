@@ -27,7 +27,6 @@ from repro_torch.config import INPUT_SHAPES, reduce_for_smoke
 from repro_torch.configs.registry import SkippedShape, get_config
 from repro_torch.data import synthetic_lm_batch, synthetic_tokens
 from repro_torch.launch.serve import Request, serve_batch
-from repro_torch.models import blocks as B
 from repro_torch.models import transformer as T
 from repro_torch.runtime import cache_length, make_decode_step, \
     make_prefill_step
@@ -84,35 +83,9 @@ def test_long_500k_binding():
     assert issubclass(SkippedShape, Exception)
 
 
-@pytest.mark.parametrize("arch", [
-    "recurrentgemma-9b", "deepseek-v2-lite-16b", "chameleon-34b",
-    "olmoe-1b-7b", "whisper-base", "granite-20b", "qwen2-72b",
-    "llama3-405b"])
-def test_unported_archs_raise(arch):
-    jget_config(arch)                       # known to the reference
-    with pytest.raises(KeyError, match="item 16"):
-        get_config(arch)
-
-
-@pytest.mark.parametrize("kind", ["moe", "mla", "rglru", "enc", "dec"])
-def test_unported_kinds_raise(kind):
+def test_lm_init_stacks_layers():
+    """The period's parameters are stacked on a leading layer axis."""
     m = reduce_for_smoke(get_config("qwen3-14b")).model
-    gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        B.block_init(gen, kind, m, torch.float32)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        B.block_state_init(kind, m, 1, 4, torch.float32)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        B.block_apply(kind, {}, torch.zeros((1, 2, m.d_model)), m, None,
-                      None)
-
-
-def test_unported_families_raise():
-    m = reduce_for_smoke(get_config("qwen3-14b")).model
-    for over in ({"model.family": "hybrid"}, {"model.family": "audio"}):
-        mm = reduce_for_smoke(get_config("qwen3-14b")).override(over).model
-        with pytest.raises(NotImplementedError, match="item 16"):
-            T.lm_init(0, mm, device="cpu")
     assert T.lm_init(0, m, device="cpu")["stack"]["b0"]["attn"]["wq"][
         "w"].shape == (m.num_layers, m.d_model, m.q_dim)
 
