@@ -66,7 +66,16 @@ non-zero exit, and no result line:
    qwen2-72b (32 of its 80 layers) and llama3-405b (8 of 126): one
    flash_attention launch an ``attn`` / ``moe`` layer and one wkv6
    launch an ``rwkv`` layer a forward, two forwards equal bit for bit;
-   serving launches neither, as in the reference.  And the adaptive path at full width
+   serving launches neither, as in the reference.  Then LM training at
+   full width (``phase_train_paths``), which launches no hand-written
+   kernel (they are forward-only, as in the reference): ``train_loop``
+   on rwkv6-1.6b (24 layers, fp32 parameters and AdamW state, bf16
+   compute, B 4 x T 1024, 2 steps), ``make_train_step`` on qwen3-14b (4
+   of 40 layers, bf16, 8 micro-batches of 1 x 2048, 2 steps) and
+   ``make_fsl_train_step`` on whisper-base (3 clients x B 8 x 448,
+   FedAvg every 2 steps, 4 steps), each with its warm step's wall, tokens
+   a second and peak memory; a train step built with
+   ``use_flash_kernel`` is refused.  And the adaptive path at full width
    (``phase_adaptive_path``, 3 rounds x 2 batches): ``control.mode=
    "adaptive"`` with the codec, sigma, split and deadline controllers,
    DP-SGD through the split with the dp_clip and boundary_fuse kernels
@@ -122,7 +131,12 @@ non-zero exit, and no result line:
    against none, each bit for bit under deterministic cuDNN; the shipped
    prefix through the kernel against the plain stage within one int8
    quantum, 5 gradient-inversion steps on the card against the CPU, and
-   ``split_forward`` against the unsplit forward bit for bit.
+   ``split_forward`` against the unsplit forward bit for bit; every
+   train path's losses and parameters finite, the warm step moving them,
+   the FSL replicas equal bit for bit after each FedAvg step and only
+   then, and a train step at smoke width on the card against the CPU
+   (SGD; gradients and parameters within 1e-5 of a leaf's largest,
+   rwkv6-1.6b 1e-4).
 
 Prints ``{"kernels": [...]}`` on a line of its own and, as the last line,
 ``{"ok": true, "device": {...}}``.
@@ -3259,6 +3273,19 @@ def lm_forward_batch(dev, m, b, s):
     return batch
 
 
+def check_full_width(arch, cfg):
+    """``cfg``'s model has the widths ``LM_PATHS[arch]`` names (checked
+    before any depth cut)."""
+    want = LM_PATHS[arch]["widths"]
+    got = {}
+    for name in want:
+        v = cfg.model
+        for part in name.split("."):
+            v = getattr(v, part)
+        got[name] = v
+    check(got == want, f"{arch} is not at full width: {got}")
+
+
 def drive_lm(dev, arch, path):
     """One LM at full width (``path``: its entry of ``LM_PATHS``):
     ``lm_loss`` forward under ``torch.no_grad`` with
@@ -3279,15 +3306,8 @@ def drive_lm(dev, arch, path):
     from repro_torch.runtime.serve import _dtype
     from repro_torch.tree import leaves
 
-    def width(m, name):
-        for part in name.split("."):
-            m = getattr(m, part)
-        return m
-
     cfg = get_config(arch).override({"parallel.use_flash_kernel": True})
-    full_width = path["widths"]
-    got = {k: width(cfg.model, k) for k in full_width}
-    check(got == full_width, f"{arch} is not at full width: {got}")
+    check_full_width(arch, cfg)
     full_depth = cfg.model.num_layers
     if path.get("layers"):
         cfg = cfg.override({"model.num_layers": path["layers"]})
@@ -3484,6 +3504,323 @@ def phase_lm_small_reference(dev):
               f"both clamp), card vs CPU max abs diff {d:.3e} (pin 1e-4)")
 
 
+# ---------------------------------------------------------------------------
+# LM training at full width: the train launcher, the train step, the FSL step
+# ---------------------------------------------------------------------------
+
+# train_loop on rwkv6-1.6b (the reference launcher's own arch), full depth
+TRAIN_RWKV = dict(batch=4, seq=1024, steps=2)
+# make_train_step on qwen3-14b at full width, 4 of its 40 layers (40 are
+# 29.5 GB of bf16 parameters and 59 GB of bf16 AdamW state: past one card
+# with the step's gradients); steps taken at the schedule's indices from
+# the end of its warmup, where bf16 parameters move by more than an ulp
+TRAIN_QWEN = dict(layers=4, batch=8, seq=2048, steps=2)
+# make_fsl_train_step on whisper-base at full size
+TRAIN_WHISPER = dict(clients=3, batch=8, seq=448, local_steps=2, steps=4)
+TRAIN_PEAK_GB = 76
+# the small reference's card-vs-CPU pin, of each leaf's largest value
+# (rwkv6's fp32 gradient is ill-conditioned at smoke size: the JAX
+# package's own is 2.7e-5 of a leaf's largest from a float64 evaluation;
+# tests/test_torch_train.py)
+TRAIN_SMALL_TOL = {"qwen3-14b": 1e-5, "whisper-base": 1e-5,
+                   "rwkv6-1.6b": 1e-4}
+
+
+def tree_digest(tree):
+    """Per leaf, its float64 sum and sum of squares (on the leaf's device):
+    any moved element changes them far beyond their rounding."""
+    from repro_torch.tree import leaves
+    return [torch.stack([l.double().sum(), l.double().square().sum()])
+            for l in leaves(tree)]
+
+
+def moved_leaves(before, after):
+    return sum(not torch.equal(a, b) for a, b in zip(before, after))
+
+
+def check_finite_tree(label, tree):
+    from repro_torch.tree import leaves
+    for leaf in leaves(tree):
+        check(leaf.device.type == "cuda", f"{label}: a leaf on {leaf.device}")
+        check(bool(torch.isfinite(leaf.float()).all()),
+              f"{label}: non-finite parameter")
+
+
+def report_train(label, tokens, walls, losses, peak, counts):
+    warm = walls[-1]
+    print(f"{label}: losses {[round(x, 6) for x in losses]}, step walls "
+          f"{[round(w, 3) for w in walls]} s (cold first), warm step "
+          f"{warm:.3f} s = {tokens / warm:.0f} tokens/s, peak memory "
+          f"{peak / 1e9:.2f} GB, hand-written kernel launches "
+          f"{counts or 'none'}")
+
+
+def phase_train_paths(dev):
+    """LM training at full width, every kernel's launch count set to 0
+    just before each path and read just after (training runs none: the
+    kernels are forward-only, as in the reference):
+    (a) ``launch.train.train_loop`` on rwkv6-1.6b, 24 layers, fp32
+    parameters and AdamW state, bf16 compute, B 4 x T 1024, 2 steps;
+    (b) ``make_train_step`` on qwen3-14b, 4 of 40 layers, bf16 parameters
+    and AdamW state, 8 micro-batches of B 8 x S 2048, 2 steps;
+    (c) ``make_fsl_train_step`` on whisper-base (6 + 6 layers), 3 clients
+    x B 8 x 448 target tokens, FedAvg every 2 steps, 4 steps: the
+    replicas differ after steps 0 and 2 and are equal bit for bit after
+    steps 1 and 3.
+    Each prints its warm step's wall, tokens a second, peak memory and
+    losses; every loss and parameter is finite and the warm step moves
+    the parameters.  Then a step built with ``use_flash_kernel`` is
+    refused and launches nothing."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import synthetic_lm_batch
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models.frontends import audio_frame_embeddings
+    from repro_torch.models.transformer import lm_init
+    from repro_torch.optim import make_optimizer
+    from repro_torch.runtime import make_fsl_train_step, make_train_step
+    from repro_torch.runtime.serve import _dtype
+    from repro_torch.tree import leaves, tree_map
+
+    wrappers = kernel_wrappers()
+
+    def zero_counts():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def read_counts(label):
+        counts = {k: w.launches for k, w in wrappers.items() if w.launches}
+        check(not counts, f"{label}: kernel launches {counts}, expected none")
+        return counts
+
+    # (a) the launcher on rwkv6-1.6b
+    t0 = time.perf_counter()
+    a = TRAIN_RWKV
+    cfg = get_config("rwkv6-1.6b", "train_4k").override(
+        {"shape.global_batch": a["batch"], "shape.seq_len": a["seq"]})
+    check_full_width("rwkv6-1.6b", cfg)
+    check(cfg.parallel.param_dtype == "float32"
+          and cfg.parallel.compute_dtype == "bfloat16"
+          and cfg.optim.name == "adamw" and not cfg.optim.state_dtype
+          and cfg.parallel.remat == "full", f"rwkv6 train config {cfg}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    walls, digests = [], []
+
+    def on_step(i, params, metrics, seconds):
+        walls.append(seconds)
+        digests.append(tree_digest(params))
+
+    zero_counts()
+    params, losses = train_loop(cfg, a["steps"], device=dev, on_step=on_step,
+                                log_every=a["steps"])
+    torch.cuda.synchronize()
+    counts = read_counts("rwkv6-1.6b train_loop")
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(all(math.isfinite(x) for x in losses),
+          f"rwkv6-1.6b train_loop: losses {losses}")
+    check_finite_tree("rwkv6-1.6b train_loop", params)
+    moved = moved_leaves(digests[-2], digests[-1])
+    check(moved > 0, "rwkv6-1.6b train_loop: the warm step moved nothing")
+    n_params = sum(l.numel() for l in leaves(params))
+    print(f"rwkv6-1.6b train_loop: {cfg.model.num_layers} layers (full "
+          f"depth), {n_params / 1e9:.3f} B fp32 parameters, AdamW fp32 "
+          f"state, bf16 compute, remat {cfg.parallel.remat}, B {a['batch']} "
+          f"x T {a['seq']}; the warm step moved {moved} of "
+          f"{len(digests[-1])} leaves")
+    report_train("rwkv6-1.6b train_loop", a["batch"] * a["seq"], walls,
+                 losses, peak, counts)
+    check(peak / 1e9 <= TRAIN_PEAK_GB, f"rwkv6-1.6b peak {peak / 1e9} GB")
+    del params, digests
+    print(f"rwkv6-1.6b train path: {time.perf_counter() - t0:.1f} s")
+
+    # (b) the train step on qwen3-14b
+    t0 = time.perf_counter()
+    b = TRAIN_QWEN
+    cfg = get_config("qwen3-14b", "train_4k")
+    check_full_width("qwen3-14b", cfg)
+    cfg = cfg.override({"model.num_layers": b["layers"],
+                        "shape.global_batch": b["batch"],
+                        "shape.seq_len": b["seq"]})
+    m = cfg.model
+    check(cfg.parallel.param_dtype == "bfloat16"
+          and cfg.parallel.microbatches == 8 and not cfg.optim.state_dtype,
+          f"qwen3-14b train config {cfg.parallel}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = lm_init(0, m, torch.bfloat16, dev)
+    opt_state = make_optimizer(cfg.optim).init(params)
+    step = make_train_step(cfg)
+    walls, losses, digests = [], [], [tree_digest(params)]
+    zero_counts()
+    for i in range(b["steps"]):
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in
+                 synthetic_lm_batch(b["batch"], b["seq"], m.vocab_size,
+                                    seed=i).items()}
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        params, opt_state, met = step(params, opt_state, batch,
+                                      cfg.optim.warmup_steps + i)
+        losses.append(float(met["loss"]))
+        walls.append(time.perf_counter() - ts)
+        digests.append(tree_digest(params))
+    counts = read_counts("qwen3-14b train step")
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(all(math.isfinite(x) for x in losses),
+          f"qwen3-14b train step: losses {losses}")
+    check_finite_tree("qwen3-14b train step", params)
+    check_finite_tree("qwen3-14b AdamW state", opt_state)
+    moved = moved_leaves(digests[-2], digests[-1])
+    check(moved > 0, "qwen3-14b train step: the warm step moved nothing")
+    n_params = sum(l.numel() for l in leaves(params))
+    print(f"qwen3-14b make_train_step: {m.num_layers} of 40 layers (cut: "
+          f"40 are 29.5 GB of bf16 parameters and as much again twice in "
+          f"AdamW state), {n_params / 1e9:.3f} B bf16 parameters, bf16 "
+          f"AdamW state, {cfg.parallel.microbatches} micro-batches of "
+          f"B {b['batch'] // cfg.parallel.microbatches} x S {b['seq']}, "
+          f"steps at schedule indices {cfg.optim.warmup_steps}-"
+          f"{cfg.optim.warmup_steps + b['steps'] - 1} (lr "
+          f"{float(met['lr']):.3g}); the warm step moved {moved} of "
+          f"{len(digests[-1])} leaves")
+    report_train("qwen3-14b make_train_step", b["batch"] * b["seq"], walls,
+                 losses, peak, counts)
+    check(peak / 1e9 <= TRAIN_PEAK_GB, f"qwen3-14b peak {peak / 1e9} GB")
+    del params, opt_state, digests, batch
+    print(f"qwen3-14b train path: {time.perf_counter() - t0:.1f} s")
+
+    # (c) the FSL step on whisper-base
+    t0 = time.perf_counter()
+    c = TRAIN_WHISPER
+    n = c["clients"]
+    cfg = get_config("whisper-base", "train_4k")
+    check_full_width("whisper-base", cfg)
+    cfg = cfg.override({"fsl.local_steps": c["local_steps"],
+                        "shape.global_batch": c["batch"],
+                        "shape.seq_len": c["seq"]})
+    m = cfg.model
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = lm_init(0, m, _dtype(cfg.parallel.param_dtype), dev)
+    opt_state = make_optimizer(cfg.optim).init(params)
+    cp = tree_map(lambda x: x[None].expand(n, *x.shape), params)
+    co = tree_map(lambda x: x[None].expand(n, *x.shape), opt_state)
+    step = make_fsl_train_step(cfg, n)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    walls, losses, spreads = [], [], []
+    prev = tree_digest(cp)
+    zero_counts()
+    for i in range(c["steps"]):
+        batch = {k: torch.as_tensor(v, device=dev).reshape(n, c["batch"], -1)
+                 for k, v in synthetic_lm_batch(n * c["batch"], c["seq"],
+                                                m.vocab_size,
+                                                seed=i).items()}
+        batch["enc_embeds"] = audio_frame_embeddings(
+            gen, n * c["batch"], m, _dtype(cfg.parallel.compute_dtype)
+        ).reshape(n, c["batch"], m.encdec.encoder_seq, m.d_model)
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        cp, co, met = step(cp, co, batch, i)
+        losses.append(float(met["loss"]))
+        walls.append(time.perf_counter() - ts)
+        equal = all(torch.equal(l[0], l[r]) for l in leaves(cp)
+                    for r in range(1, n))
+        averaged = (i + 1) % c["local_steps"] == 0
+        check(equal == averaged, f"whisper-base FSL step {i}: replicas "
+              f"equal {equal}, a FedAvg step {averaged}")
+        spreads.append(max(float((l.float() - l[0:1].float()).abs().max())
+                           for l in leaves(cp)))
+        now = tree_digest(cp)
+        check(moved_leaves(prev, now) > 0,
+              f"whisper-base FSL step {i} moved nothing")
+        prev = now
+    counts = read_counts("whisper-base FSL step")
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(all(math.isfinite(x) for x in losses),
+          f"whisper-base FSL step: losses {losses}")
+    check_finite_tree("whisper-base FSL step", cp)
+    print(f"whisper-base make_fsl_train_step: {m.encdec.encoder_layers} enc "
+          f"+ {m.num_layers} dec layers (full size), {n} clients x B "
+          f"{c['batch']} x {c['seq']} target tokens (+ "
+          f"{m.encdec.encoder_seq} frames), local_steps "
+          f"{c['local_steps']}: replicas' largest spread after each step "
+          f"{[f'{x:.3g}' for x in spreads]} (equal bit for bit after steps "
+          f"1 and 3)")
+    report_train("whisper-base make_fsl_train_step",
+                 n * c["batch"] * c["seq"], walls, losses, peak, counts)
+    del cp, co, params, opt_state, batch
+    torch.cuda.empty_cache()
+    print(f"whisper-base train path: {time.perf_counter() - t0:.1f} s")
+
+    # the kernels are forward-only: a step that asks for them is refused
+    zero_counts()
+    flash = get_config("qwen3-14b", "train_4k").override(
+        {"parallel.use_flash_kernel": True})
+    for build in (make_train_step, lambda cfg: make_fsl_train_step(cfg, 2)):
+        try:
+            build(flash)
+        except ValueError as e:
+            check("forward-only" in str(e), f"refusal says {e}")
+        else:
+            raise RuntimeError("a train step with use_flash_kernel was built")
+    read_counts("use_flash_kernel train step")
+    print("a train step built with parallel.use_flash_kernel is refused "
+          "(the kernels are forward-only), no kernel launched")
+
+
+def phase_train_small_reference(dev):
+    """At smoke width, fp32 compute, TF32 off, SGD: one train step (2
+    micro-batches) on the card against the same step on the CPU, for the
+    three train paths' archs: the momentum (the clipped gradients) and the
+    parameters within ``TRAIN_SMALL_TOL`` of each leaf's largest value
+    (a key bias's, whose gradient is 0 analytically, of the tree's).
+    Not bit for bit: the embedding's backward sums with atomics on the
+    card."""
+    from repro_torch.config import reduce_for_smoke
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import synthetic_lm_batch
+    from repro_torch.models.transformer import lm_init
+    from repro_torch.optim import make_optimizer
+    from repro_torch.runtime import make_train_step
+    from repro_torch.tree import leaves, tree_map
+
+    cpu = torch.device("cpu")
+    for arch, tol in TRAIN_SMALL_TOL.items():
+        cfg = reduce_for_smoke(get_config(arch, "train_4k"), seq_len=32,
+                               batch=4).override(
+            {"optim.name": "sgd", "optim.lr": 0.1,
+             "parallel.microbatches": 2})
+        m = cfg.model
+        params = lm_init(0, m, torch.float32, dev)
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in
+                 synthetic_lm_batch(4, 32, m.vocab_size, seed=3).items()}
+        if m.encdec.enabled:
+            batch["enc_embeds"] = 0.1 * torch.randn(
+                (4, m.encdec.encoder_seq, m.d_model),
+                generator=torch.Generator(device=dev).manual_seed(3),
+                device=dev)
+        runs = []
+        for where in (dev, cpu):
+            p = tree_map(lambda t: t.to(where), params)
+            b = tree_map(lambda t: t.to(where), batch)
+            o = make_optimizer(cfg.optim).init(p)
+            runs.append(make_train_step(cfg)(p, o, b, 0))
+        (card_p, card_o, card_m), (host_p, host_o, host_m) = runs
+        worst = 0.0
+        for card, host in ((card_p, host_p), (card_o["mom"], host_o["mom"])):
+            top = max(float(h.abs().max()) for h in leaves(host))
+            for path, a, h in zip(paths(host), leaves(card), leaves(host)):
+                err = float((a.cpu() - h).abs().max())
+                # a key bias's gradient is 0 analytically (softmax cancels
+                # q.b): its rounding noise is held against the tree's scale
+                ref = top if path[-2:] == ("wk", "b") else float(
+                    h.abs().max())
+                worst = max(worst, err / max(ref, 1e-30))
+        check(worst <= tol, f"{arch} small train step: card vs CPU {worst}")
+        dl = abs(float(card_m["loss"]) - float(host_m["loss"]))
+        print(f"small input, {arch} train step (SGD, 2 micro-batches), card "
+              f"vs CPU: gradients and parameters within {worst:.3e} of each "
+              f"leaf's largest (pin {tol}), loss diff {dl:.3e}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs the port "
@@ -3534,6 +3871,9 @@ def main() -> int:
     launches.update(lm_launches)
     by_path.update(lm_by_path)
     print(f"LM paths: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_train_paths(dev)
+    print(f"train paths: {time.perf_counter() - t0:.1f} s")
     for row in rows:
         row["launches"] = launches[row["name"]]
         if row["name"] in by_path:
@@ -3545,6 +3885,7 @@ def main() -> int:
     phase_small_adaptive_reference(dev)
     phase_small_attack_reference(dev)
     phase_lm_small_reference(dev)
+    phase_train_small_reference(dev)
     print(f"small references: {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": rows}))

@@ -41,6 +41,23 @@ boundary_fuse has no amax mode it is timed with the tensor-wide amax
 alone, and where its agg_fuse has no leaf table the folds are timed one
 launch a leaf).
 ``--arch`` with no name skips the architectures.
+
+``--train ARCH`` (rwkv6-1.6b, qwen3-14b or whisper-base) drives that
+arch's train path of ``chip_smoke.py`` at its size (``TRAIN_RWKV``,
+``TRAIN_QWEN``, ``TRAIN_WHISPER``: the train step, for whisper the FSL
+step over its clients): a cold step, a warm step timed, and one more
+traced with ``torch.profiler`` (CUDA activity only: an rwkv6 step
+launches some 10^6 kernels), with its busy share and top device times.
+Then the parts the step is made of, at the step's shapes, each as a
+share of the warm step: the
+plain WKV loop (one layer's forward and backward through autograd, plus
+the checkpoint's second forward, times the layers) and the head product
+(final norm, the fp32 vocabulary product and the log-softmax, forward and
+backward, once a micro-batch), each timed alone and scaled by its count
+(an estimate: the traced step's kernels are not attributed to parts, and
+eager parts alone need not add up as they do inside the step); and the
+AdamW update,
+timed inside the warm step by CUDA events around each update call.
 """
 import argparse
 import functools
@@ -51,6 +68,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -436,11 +454,167 @@ def profile_arch(arch, dev):
         busy(prof, f"{arch} forward through the kernels")
 
 
+def train_setup(arch, dev, updates):
+    """-> (cfg, params, opt_state, step, batch, step_idx, clients) of the
+    arch's train path in ``chip_smoke.py`` (clients 0: not FSL).  The
+    step's optimizer appends a (start, end) pair of CUDA events around
+    each of its update calls to ``updates``."""
+    from chip_smoke import TRAIN_QWEN, TRAIN_RWKV, TRAIN_WHISPER
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import synthetic_lm_batch
+    from repro_torch.models.frontends import audio_frame_embeddings
+    from repro_torch.models.transformer import lm_init
+    from repro_torch.optim import Optimizer, make_optimizer
+    from repro_torch.runtime import make_fsl_train_step, make_train_step
+    from repro_torch.runtime import train as RT
+    from repro_torch.runtime.serve import _dtype
+    from repro_torch.tree import tree_map
+
+    size = {"rwkv6-1.6b": TRAIN_RWKV, "qwen3-14b": TRAIN_QWEN,
+            "whisper-base": TRAIN_WHISPER}[arch]
+    over = {"shape.global_batch": size["batch"], "shape.seq_len": size["seq"]}
+    if "layers" in size:
+        over["model.num_layers"] = size["layers"]
+    clients = size.get("clients", 0)
+    if clients:
+        over["fsl.local_steps"] = size["local_steps"]
+    cfg = get_config(arch, "train_4k").override(over)
+    m = cfg.model
+    params = lm_init(0, m, _dtype(cfg.parallel.param_dtype), dev)
+    opt_state = make_optimizer(cfg.optim).init(params)
+    n = max(1, clients)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in
+             synthetic_lm_batch(n * size["batch"], size["seq"],
+                                m.vocab_size, seed=0).items()}
+    if m.encdec.enabled:
+        batch["enc_embeds"] = audio_frame_embeddings(
+            torch.Generator(device=dev).manual_seed(0), n * size["batch"], m,
+            _dtype(cfg.parallel.compute_dtype))
+    def timed_optimizer(ocfg):
+        opt = make_optimizer(ocfg)
+
+        def update(*args):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = opt.update(*args)
+            end.record()
+            updates.append((start, end))
+            return out
+        return Optimizer(init=opt.init, update=update)
+
+    if clients:
+        params = tree_map(lambda x: x[None].expand(n, *x.shape), params)
+        opt_state = tree_map(lambda x: x[None].expand(n, *x.shape),
+                             opt_state)
+        batch = tree_map(lambda x: x.reshape(n, size["batch"],
+                                             *x.shape[1:]), batch)
+    with mock.patch.object(RT, "make_optimizer", timed_optimizer):
+        step = make_fsl_train_step(cfg, n) if clients \
+            else make_train_step(cfg)
+    idx = cfg.optim.warmup_steps if arch == "qwen3-14b" else 0
+    return cfg, params, opt_state, step, batch, idx, clients
+
+
+def profile_train(arch, dev):
+    """One warm train step of ``arch``'s path in ``chip_smoke.py``: wall,
+    tokens a second, a traced step's busy share and top kernels, and the
+    shares of the WKV loop, the head product and AdamW (see the module
+    docstring)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import rwkv6
+    from repro_torch.models.transformer import _head
+    from repro_torch.runtime.serve import _dtype
+    from repro_torch.tree import tree_map
+
+    updates = []
+    cfg, params, opt_state, step, batch, idx, clients = train_setup(
+        arch, dev, updates)
+    m = cfg.model
+    tokens = batch["tokens"].numel()
+    torch.cuda.reset_peak_memory_stats(dev)
+    walls = []
+    for i in range(2):
+        updates.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, met = step(params, opt_state, batch, idx + i)
+        float(met["loss"])
+        walls.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    warm = walls[-1]
+    if not updates:
+        raise RuntimeError("the train step did not call the timed optimizer "
+                           "(runtime.train no longer looks up "
+                           "make_optimizer by that name)")
+    adam_s = sum(a.elapsed_time(b) for a, b in updates) / 1e3
+    print(f"{arch} {'FSL ' if clients else ''}train step ({tokens} tokens): "
+          f"cold {walls[0]:.3f} s, warm {warm:.3f} s = {tokens / warm:.0f} "
+          f"tokens/s, peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        params, opt_state, met = step(params, opt_state, batch, idx + 2)
+        float(met["loss"])
+    busy(prof, f"{arch} traced warm train step", top=12)
+    del prof, met, opt_state
+
+    one = tree_map(lambda x: x[0], params) if clients else params
+    clients = max(1, clients)
+    nmb = max(1, cfg.parallel.microbatches)
+    mb = batch["tokens"].shape[-2] // nmb
+    seq = batch["tokens"].shape[-1]
+    cd = _dtype(cfg.parallel.compute_dtype)
+    parts = {}
+    if m.rwkv.head_dim and m.family == "ssm":
+        n = m.rwkv.head_dim
+        h = m.d_model // n
+        g = torch.Generator(device=dev).manual_seed(0)
+        r, k, v = (torch.randn((mb, seq, h, n), generator=g, device=dev,
+                               requires_grad=True) for _ in range(3))
+        w = torch.rand((mb, seq, h, n), generator=g, device=dev) \
+            .requires_grad_(True)
+        u = torch.randn((h, n), generator=g, device=dev, requires_grad=True)
+
+        def wkv_fwd_bwd():
+            out, _ = rwkv6.wkv6_scan(r, k, v, w, u, n)
+            out.sum().backward()
+
+        def wkv_fwd():
+            with torch.no_grad():
+                rwkv6.wkv6_scan(r, k, v, w, u, n)
+        parts["WKV loop (timed alone, x layers: an estimate)"] = (
+            eager_ms(wkv_fwd_bwd, 1) + eager_ms(wkv_fwd, 1)) \
+            * m.num_layers * nmb * clients / 1e3
+        del r, k, v, w, u
+    x = torch.randn((mb, seq, m.d_model), device=dev, dtype=cd,
+                    requires_grad=True)
+    hp = {k: one[k] for k in ("final_norm", "embed", "head") if k in one}
+    hp = tree_map(lambda t: t.detach().requires_grad_(True), hp)
+    labels = batch["labels"].reshape(-1, seq)[:mb].long()
+
+    def head_fwd_bwd():
+        logits = _head(hp, x, m)
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1, labels[..., None])[..., 0]
+        (lse - picked).mean().backward()
+    parts["head product (timed alone, x micro-batches: an estimate)"] = \
+        eager_ms(
+            head_fwd_bwd, 3) * nmb * clients / 1e3
+    parts["AdamW update (in the warm step, CUDA events)"] = adam_s
+    for name, sec in parts.items():
+        print(f"{arch} train step: {name} {sec:.3f} s = {sec / warm:.3f} "
+              f"of the warm step")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     from chip_smoke import LM_PATHS
     ap.add_argument("--arch", nargs="*", default=["qwen3-14b", "rwkv6-1.6b"],
                     choices=list(LM_PATHS))
+    ap.add_argument("--train", nargs="*", default=[],
+                    choices=["rwkv6-1.6b", "qwen3-14b", "whisper-base"],
+                    help="trace a warm train step of these chip_smoke.py "
+                         "train paths")
     ap.add_argument("--kernels", action="store_true",
                     help="trace the dp_clip, wkv6, boundary_fuse and "
                          "agg_fuse kernels first")
@@ -474,6 +648,9 @@ def main() -> int:
         torch.cuda.empty_cache()
     for arch in args.arch:
         profile_arch(arch, dev)
+        torch.cuda.empty_cache()
+    for arch in args.train:
+        profile_train(arch, dev)
         torch.cuda.empty_cache()
     return 0
 

@@ -7,15 +7,14 @@ under ``experiments/gan_torch/`` (``--out``).
   fed_async_demo        — sync vs async scheduling, codecs, stragglers
   device_selection_demo — the four selection strategies' plans and prices
   serve_demo            — batched prefill + greedy decode on an LM config
-  quickstart            — split planning, then a two-client FSL-GAN round
+  quickstart            — split planning, a two-client FSL-GAN round, then
+                          two LM train steps on a reduced olmoe-1b-7b
   adaptive_control_demo — the four controllers, recorded and replayed
   trace_viewer_demo     — a traced split round, health alerts and digests
   privacy_frontier_demo — gradient / activation inversion and membership
                           inference, then the DP-SGD defense re-attacked
   split_training_demo   — a round trained through the split, its cost,
                           and the leakage of the tensors it shipped
-
-``examples/federated_lm.py`` and the third demo of ``quickstart`` (the LM
-train step) wait for the port's LM training runtime (ROADMAP Queue A item
-16).
+  federated_lm          — per-client LM replicas under FedAvg cadences
+                          k = 1 and 4: loss and parameter-sync traffic
 """

@@ -1,13 +1,13 @@
-"""Quickstart: the paper's core and the FSL-GAN round in well under a
-minute.  Twin of the first two demos of ``examples/quickstart.py``: its
-third, the LM train step, waits for the port's LM training runtime
-(ROADMAP Queue A item 16).
+"""Quickstart: the three layers of the framework in well under a minute.
+Twin of ``examples/quickstart.py``.
 
 1. paper core — split a discriminator across heterogeneous devices and
                 price the four selection strategies (Fig 2 machinery)
 2. FSL-GAN    — two federated clients train a DCGAN for two rounds
+3. substrate  — a reduced assigned architecture (olmoe-1b-7b) takes two
+                LM train steps
 
-Both results land in ``quickstart.json`` under ``--out``.
+The results land in ``quickstart.json`` under ``--out``.
 
 Run: PYTHONPATH=src python -m repro_torch.examples.quickstart [--device cpu]
 """
@@ -16,13 +16,20 @@ import json
 import os
 from typing import Dict, List, Optional
 
-from repro_torch.config import DCGANConfig
+import torch
+
+from repro_torch.config import DCGANConfig, reduce_for_smoke
 from repro_torch.configs.registry import get_config
 from repro_torch.core.devices import make_pool
 from repro_torch.core.gan import FSLGANTrainer
 from repro_torch.core.simulate import strategy_sweep
-from repro_torch.data import partition_dirichlet, synthetic_mnist
+from repro_torch.data import (partition_dirichlet, synthetic_lm_batch,
+                              synthetic_mnist)
+from repro_torch.device import resolve_device
 from repro_torch.models.dcgan import disc_layer_costs, disc_layer_names
+from repro_torch.models.transformer import lm_init
+from repro_torch.optim import make_optimizer
+from repro_torch.runtime import make_train_step
 
 OUT = os.path.join("experiments", "gan_torch")
 
@@ -61,6 +68,27 @@ def demo_fsl_gan(device=None, rounds: int = 2, batch_size: int = 16,
     return hist
 
 
+def demo_lm_substrate(device=None) -> List[Dict[str, float]]:
+    print("=== 3. assigned-arch substrate: olmoe-1b-7b (reduced) ===")
+    cfg = reduce_for_smoke(get_config("olmoe-1b-7b", "train_4k"),
+                           seq_len=32, batch=4)
+    m = cfg.model
+    dev = resolve_device(device)
+    params = lm_init(0, m, device=dev)
+    opt = make_optimizer(cfg.optim)
+    opt_state = opt.init(params)
+    step = make_train_step(cfg)
+    hist = []
+    for i in range(2):
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in
+                 synthetic_lm_batch(4, 32, m.vocab_size, seed=i).items()}
+        params, opt_state, metrics = step(params, opt_state, batch, i)
+        hist.append({k: float(metrics[k]) for k in ("loss", "aux_loss")})
+        print(f"  step {i}: loss={hist[-1]['loss']:.3f} "
+              f"(aux={hist[-1]['aux_loss']:.4f})")
+    return hist
+
+
 def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rounds", type=int, default=2)
@@ -72,7 +100,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     args = ap.parse_args(argv)
     result = {"strategy_sweep": demo_split_planning(),
               "fsl_gan": demo_fsl_gan(args.device, args.rounds,
-                                      args.batch_size, args.base_filters)}
+                                      args.batch_size, args.base_filters),
+              "lm_substrate": demo_lm_substrate(args.device)}
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "quickstart.json"), "w") as f:
         json.dump(result, f, indent=2)

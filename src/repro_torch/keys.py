@@ -22,7 +22,7 @@ Key = Tuple[int, ...]
 
 # first element of every root key: the noise source, so that two sources
 # seeded alike never share a stream
-DP_SGD, UPLINK, STAGE, DEFAULT, ROSTER = 1, 2, 3, 4, 5
+DP_SGD, UPLINK, STAGE, DEFAULT, ROSTER, LM_DATA = 1, 2, 3, 4, 5, 6
 
 
 def root(source: int, seed: int) -> Key:

@@ -72,7 +72,7 @@ def causal_conv1d(x, w, b, state: Optional[torch.Tensor] = None
 def rglru_scan(x, r_gate, i_gate, a_base, h0: Optional[torch.Tensor] = None):
     """The LRU recurrence. x, r_gate, i_gate: (B,T,C) fp32; a_base: (C,).
     -> (h (B,T,C), h_T (B,C))."""
-    b, t, c = x.shape
+    b, _, c = x.shape
     log_a = _C * r_gate * F.logsigmoid(a_base)[None, None, :]  # <= 0
     a = torch.exp(log_a)
     gated = i_gate * x
@@ -83,13 +83,15 @@ def rglru_scan(x, r_gate, i_gate, a_base, h0: Optional[torch.Tensor] = None):
     # time-major, so each step reads and writes contiguous rows
     a_t = a.transpose(0, 1).contiguous()
     u_t = u.transpose(0, 1).contiguous()
-    hs = torch.empty_like(a_t)
+    # each step's state its own tensor, stacked once; the inputs unbound
+    # once, so under autograd no step's backward scatters into a zero
+    # tensor of the whole sequence (an unbind's backward stacks once)
     h = h0
-    for i in range(t):
-        torch.mul(a_t[i], h, out=hs[i])
-        hs[i].add_(u_t[i])
-        h = hs[i]
-    return hs.transpose(0, 1), h.clone()
+    steps = []
+    for a_i, u_i in zip(a_t.unbind(0), u_t.unbind(0)):
+        h = a_i * h + u_i
+        steps.append(h)
+    return torch.stack(steps).transpose(0, 1), h
 
 
 def rglru_block_apply(p, x, cfg, conv_state=None, h0=None,

@@ -95,13 +95,16 @@ def wkv6_scan(r, k, v, w, u, head_dim: int,
     b, t, h, n = r.shape
     S = (torch.zeros((b, h, n, n), dtype=torch.float32, device=r.device)
          if state0 is None else state0)
-    r, k, v, w = (a.to(torch.float32) for a in (r, k, v, w))
+    # each input split into its time steps once: under autograd, indexing
+    # a step would give every step's backward a zero tensor of the whole
+    # sequence to scatter into (an unbind's backward stacks once)
+    r, k, v, w = (a.to(torch.float32).unbind(1) for a in (r, k, v, w))
     uu = u[None, :, :, None]
     outs = []
     for i in range(t):
-        kv = k[:, i, :, :, None] * v[:, i, :, None, :]       # (B,H,n,n)
-        outs.append(torch.einsum("bhn,bhnm->bhm", r[:, i], S + uu * kv))
-        S = w[:, i, :, :, None] * S + kv
+        kv = k[i][:, :, :, None] * v[i][:, :, None, :]       # (B,H,n,n)
+        outs.append(torch.einsum("bhn,bhnm->bhm", r[i], S + uu * kv))
+        S = w[i][:, :, :, None] * S + kv
     return torch.stack(outs, dim=1), S
 
 

@@ -3,10 +3,16 @@
 
 Every family of the reference: decoder-only (dense / moe / ssm / hybrid /
 vlm) and encoder-decoder (whisper).  Layers are stacked per *period* as in
-the reference; the stack runs as a Python loop over periods, so
-``scan_layers`` and ``remat`` are accepted and change nothing (both
-reference paths compute the same values, and a forward pass keeps no
-residuals for a backward).
+the reference; the stack runs as a Python loop over periods (the
+reference's ``lax.scan`` and its unrolled loop compute the same values, so
+``scan_layers`` is accepted and changes nothing).  ``remat`` is the
+reference's: where autograd records the forward, ``"full"`` checkpoints
+each period (``jax.checkpoint(period_fn)``: only the period's input is
+kept, the rest recomputed in the backward) and ``"dots"`` keeps the
+outputs of the period's un-batched matrix products and recomputes the
+rest (``checkpoint_dots_with_no_batch_dims``); ``"none"`` keeps every
+residual.  All three give the same values; prefill and decode run no
+checkpoint.
 
 Public API
 ----------
@@ -24,9 +30,12 @@ embeddings.  Decode updates the state it is given in place and returns it.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.config import HYBRID, ModelConfig
 from repro_torch.device import resolve_device
@@ -35,6 +44,8 @@ from repro_torch.models.blocks import (block_apply, block_decode, block_init,
                                        block_state_init, norm_apply,
                                        norm_init, period_of, split_periods)
 from repro_torch.tree import tree_map
+
+REMATS = ("none", "full", "dots")
 
 
 # ---------------------------------------------------------------------------
@@ -91,25 +102,68 @@ def lm_init(seed: int, m: ModelConfig, dtype=torch.float32, device=None
 # forward
 # ---------------------------------------------------------------------------
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``checkpoint_dots_with_no_batch_dims``: keep what a matrix product
+    without batch dimensions returns (``aten.mm`` / ``aten.addmm``; a
+    batched product is ``bmm``), recompute everything else."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpointed(fn, remat: str):
+    """``fn`` under the reference's ``remat`` policy: ``"full"`` keeps only
+    its inputs for the backward, ``"dots"`` its un-batched matrix products
+    too.  Where autograd records nothing there is no backward to serve, and
+    ``fn`` runs as it is."""
+    if remat not in REMATS:
+        raise ValueError(f"unknown remat {remat!r}; one of {REMATS}")
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn
+    extra = {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, _dots_policy)} \
+        if remat == "dots" else {}
+
+    def run(*args):
+        return checkpoint(fn, *args, use_reentrant=False, **extra)
+    return run
+
+
+def _period_slices(stack, n: int):
+    """The stack's ``n`` periods as trees of views, each leaf unbound once.
+    (Indexing a leaf once a period would, under autograd, give every
+    period's backward a zero tensor of the whole leaf to scatter into.)"""
+    unbound = tree_map(lambda a: a.unbind(0), stack)
+    return [tree_map(lambda u: u[i], unbound) for i in range(n)]
+
+
 def _run_stack(stack, tail, x, m: ModelConfig, positions, cd, enc_out,
                use_kernel: bool, cache_len: int = 0,
-               cache_dtype=torch.bfloat16):
-    """Run the period-stacked blocks, then the tail. If cache_len > 0, also
-    collect the decode cache produced by prefill (returned in
-    init_decode_state layout)."""
+               cache_dtype=torch.bfloat16, remat: str = "none"):
+    """Run the period-stacked blocks, each period under ``remat`` (see
+    :func:`_checkpointed`; not with a cache), then the tail. If
+    cache_len > 0, also collect the decode cache produced by prefill
+    (returned in init_decode_state layout)."""
     period = period_of(m)
     n_full, rem = split_periods(m)
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    per_caches = []
-    for i in range(n_full):
-        pparams = tree_map(lambda a: a[i], stack)
+
+    def period_fn(x, pparams):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         caches = {}
         for j, kind in enumerate(period):
             x, a, c = block_apply(kind, pparams[f"b{j}"], x, m, positions,
                                   cd, enc_out, use_kernel, cache_len,
                                   cache_dtype)
-            aux_total = aux_total + a
+            aux = aux + a
             caches[f"b{j}"] = c
+        return x, aux, caches
+
+    f = period_fn if cache_len else _checkpointed(period_fn, remat)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    per_caches = []
+    for pparams in _period_slices(stack, n_full):
+        x, a, caches = f(x, pparams)
+        aux_total = aux_total + a
         per_caches.append(caches)
     tail_cache = {}
     for i, kind in enumerate(rem):
@@ -142,7 +196,8 @@ def encode(params, enc_embeds, m: ModelConfig, cd=None, remat: str = "full",
         enc_embeds.dtype)
     enc = params["encoder"]
     x, _, _ = _run_stack(enc["stack"], enc["tail"], x, _encoder_model_cfg(m),
-                         torch.arange(se, device=x.device), cd, None, False)
+                         torch.arange(se, device=x.device), cd, None, False,
+                         remat=remat)
     return L.layernorm_apply(enc["norm"], x)
 
 
@@ -170,8 +225,9 @@ def lm_apply(params, batch: Dict[str, torch.Tensor], m: ModelConfig,
              positions=None, scan_layers: bool = True
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """batch: {"tokens": (B,S) int, ["enc_embeds": (B,Se,d)]}.  ``remat``
-    and ``scan_layers`` are accepted for the reference's signature and
-    change nothing here."""
+    is applied per period, to the encoder's too, where autograd records
+    the forward; ``scan_layers`` is accepted for the reference's signature
+    and changes nothing."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = _embed(params, tokens, m, cd)
@@ -179,7 +235,7 @@ def lm_apply(params, batch: Dict[str, torch.Tensor], m: ModelConfig,
         positions = torch.arange(s, device=x.device)
     enc_out = _encoder_out(params, batch, m, cd, remat, scan_layers)
     x, aux, _ = _run_stack(params["stack"], params["tail"], x, m, positions,
-                           cd, enc_out, use_kernel)
+                           cd, enc_out, use_kernel, remat=remat)
     return _head(params, x, m), aux
 
 

@@ -10,9 +10,10 @@ import torch
 
 from repro_torch.examples import (adaptive_control_demo,
                                   device_selection_demo, fed_async_demo,
-                                  fsl_gan_mnist, privacy_frontier_demo,
-                                  quickstart, serve_demo,
-                                  split_training_demo, trace_viewer_demo)
+                                  federated_lm, fsl_gan_mnist,
+                                  privacy_frontier_demo, quickstart,
+                                  serve_demo, split_training_demo,
+                                  trace_viewer_demo)
 from repro_torch.obs import load_run
 
 SMALL = ["--batch-size", "8", "--base-filters", "8", "--device", "cpu"]
@@ -77,7 +78,27 @@ def test_quickstart(tmp_path):
     assert len(res["strategy_sweep"]) == 4
     assert len(res["fsl_gan"]) == 1
     assert np.isfinite(res["fsl_gan"][0]["g_loss"])
+    # the third demo: two olmoe-1b-7b train steps, with the MoE's aux loss
+    assert len(res["lm_substrate"]) == 2
+    assert all(np.isfinite(s["loss"]) and s["aux_loss"] > 0
+               for s in res["lm_substrate"])
     assert os.path.exists(tmp_path / "quickstart.json")
+
+
+def test_federated_lm(tmp_path):
+    """Cadences k = 1 and 4 over 4 steps: 4 FedAvg rounds against 1, a
+    quarter of the parameter traffic."""
+    res = federated_lm.main(["--arch", "qwen3-14b", "--clients", "2",
+                             "--steps", "4", "--device", "cpu",
+                             *_out(tmp_path)])
+    k1, k4 = res["local_steps=1"], res["local_steps=4"]
+    assert (k1["fedavg_rounds"], k4["fedavg_rounds"]) == (4, 1)
+    assert k4["param_mib"] == pytest.approx(k1["param_mib"] / 4)
+    assert all(np.isfinite(k1["losses"] + k4["losses"]))
+    # both cadences start from the same replicas on the same batches
+    assert k1["losses"][0] == k4["losses"][0]
+    with open(tmp_path / "federated_lm.json") as f:
+        assert json.load(f) == res
 
 
 def test_adaptive_control_demo(tmp_path):

@@ -7,16 +7,26 @@ recurrentgemma-9b's 16 heads on 1 kv head of 256 with a 2048 window (the
 CUDA-core kernel), granite-20b's 48 heads on 1 and llama3-405b's 128 on
 8 (bf16 on the tensor cores; fp32 on the CUDA cores).  And two MoE
 forwards at olmoe-1b-7b's routing, equal bit for bit: the combine has no
-float atomics.  This file imports no JAX: the card's results are held
-against the port's plain versions.
+float atomics.  And LM training on the card (twins of
+``tests/test_torch_train.py``): a train step against the same step on
+the CPU, ``remat="full"`` against ``"none"``, the FSL cadence, and the
+kernels refused under autograd.  This file imports no JAX: the card's
+results are held against the port's plain versions and the CPU.
 """
 import pytest
 import torch
 
-from repro_torch.config import MoEConfig
+from repro_torch.config import MoEConfig, reduce_for_smoke
+from repro_torch.configs.registry import get_config
+from repro_torch.data import synthetic_lm_batch
 from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.wkv6.kernel import wkv6_kernel
 from repro_torch.models import moe as M
+from repro_torch.models import transformer as T
+from repro_torch.optim import make_optimizer
+from repro_torch.runtime import make_fsl_train_step, make_train_step
+from repro_torch.tree import leaves, tree_map, value_and_grad
 
 # bf16: kernel and plain version each round their fp32 result once, so
 # they differ by at most one bf16 ulp; fp32: sums over up to 2048 keys in
@@ -76,3 +86,111 @@ def test_two_moe_forwards_on_gpu_are_equal_bit_for_bit(cuda, dtype):
     if dtype == torch.float32:
         torch.testing.assert_close(a.cpu(), cpu, rtol=0, atol=1e-5)
         torch.testing.assert_close(aux_a.cpu(), cpu_aux, rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# LM training on the card
+# ---------------------------------------------------------------------------
+
+def _paths(tree, prefix=()):
+    if not isinstance(tree, dict):
+        return [prefix]
+    return [p for k in sorted(tree) for p in _paths(tree[k], prefix + (k,))]
+
+
+def _train_setup(arch, dev, over=None, seq=32, batch=4):
+    cfg = reduce_for_smoke(get_config(arch, "train_4k"), seq_len=seq,
+                           batch=batch).override(
+        {"optim.name": "sgd", "optim.lr": 0.1, **(over or {})})
+    m = cfg.model
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in
+             synthetic_lm_batch(batch, seq, m.vocab_size, seed=3).items()}
+    if m.encdec.enabled:
+        batch["enc_embeds"] = 0.1 * torch.randn(
+            (batch["tokens"].shape[0], m.encdec.encoder_seq, m.d_model),
+            generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+    return cfg, T.lm_init(0, m, torch.float32, dev), batch
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-14b", "whisper-base",
+                                  "olmoe-1b-7b"])
+def test_train_step_on_gpu_matches_cpu(cuda, arch):
+    """fp32, TF32 off, SGD, 2 micro-batches: the parameters and the
+    momentum (the clipped gradients) within 1e-5 of each leaf's largest
+    value of the same step on the CPU (a key bias's of the tree's; not
+    bit for bit: the card sums in other orders)."""
+    cfg, params, batch = _train_setup(arch, cuda,
+                                      {"parallel.microbatches": 2})
+    runs = []
+    for where in (cuda, torch.device("cpu")):
+        p = tree_map(lambda t: t.to(where), params)
+        b = tree_map(lambda t: t.to(where), batch)
+        runs.append(make_train_step(cfg)(p, make_optimizer(cfg.optim).init(p),
+                                         b, 0))
+    (gp, go, gm), (hp, ho, hm) = runs
+    assert float(gm["loss"]) == pytest.approx(float(hm["loss"]), rel=1e-5)
+    for card, host in ((gp, hp), (go["mom"], ho["mom"])):
+        top = max(float(h.abs().max()) for h in leaves(host))
+        for path, a, h in zip(_paths(host), leaves(card), leaves(host)):
+            assert a.device.type == "cuda"
+            err = float((a.cpu() - h).abs().max())
+            # a key bias's gradient is 0 analytically (softmax cancels
+            # q.b): its rounding noise is held against the tree's scale
+            ref = top if path[-2:] == ("wk", "b") else float(h.abs().max())
+            assert err <= 1e-5 * max(ref, 1e-30), path
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "recurrentgemma-9b"])
+def test_remat_full_matches_none_on_gpu(cuda, arch):
+    """The checkpointed stack recomputes the same forward on the card: the
+    same loss bit for bit, gradients within 1e-6 of each leaf's largest
+    (the backward's sums may take other orders)."""
+    over = {"model.num_layers": 4} if arch == "recurrentgemma-9b" else {}
+    cfg, params, batch = _train_setup(arch, cuda, over, seq=16, batch=2)
+    m = cfg.model
+    res = {r: value_and_grad(lambda p, b: T.lm_loss(p, b, m, None, r)[0])(
+        params, batch) for r in ("none", "full")}
+    assert torch.equal(res["full"][0], res["none"][0])
+    for a, b in zip(leaves(res["full"][1]), leaves(res["none"][1])):
+        assert float((a - b).abs().max()) <= 1e-6 * max(
+            float(b.abs().max()), 1e-30)
+
+
+@pytest.mark.gpu
+def test_fsl_cadence_on_gpu(cuda):
+    """3 replicas, FedAvg every 2 steps: they differ after step 0 and are
+    equal bit for bit after step 1."""
+    n = 3
+    cfg, params, _ = _train_setup("qwen3-14b", cuda,
+                                  {"fsl.local_steps": 2})
+    m = cfg.model
+    cp = tree_map(lambda x: x[None].expand(n, *x.shape), params)
+    co = tree_map(lambda x: x[None].expand(n, *x.shape),
+                  make_optimizer(cfg.optim).init(params))
+    step = make_fsl_train_step(cfg, n)
+    for i in range(2):
+        b = {k: torch.as_tensor(v, device=cuda).reshape(n, 4, -1) for k, v in
+             synthetic_lm_batch(4 * n, 32, m.vocab_size, seed=i).items()}
+        cp, co, _ = step(cp, co, b, i)
+        equal = all(torch.equal(l[0], l[c]) for l in leaves(cp)
+                    for c in range(1, n))
+        assert equal == (i == 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-14b", "rwkv6-1.6b"])
+def test_kernels_refuse_autograd_on_gpu(cuda, arch):
+    """A loss through the kernels under autograd raises before a launch:
+    the kernels are forward-only (and ``make_train_step`` refuses
+    ``use_flash_kernel``)."""
+    cfg, params, batch = _train_setup(arch, cuda, seq=16, batch=2)
+    before = (flash_attention_kernel.launches, wkv6_kernel.launches)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        value_and_grad(lambda p, b: T.lm_loss(p, b, cfg.model,
+                                              use_kernel=True)[0])(
+            params, batch)
+    with pytest.raises(ValueError, match="forward-only"):
+        make_train_step(cfg.override({"parallel.use_flash_kernel": True}))
+    assert (flash_attention_kernel.launches, wkv6_kernel.launches) == before
