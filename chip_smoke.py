@@ -98,9 +98,20 @@ non-zero exit, and no result line:
    the most (4 x (b + 1) launches at boundary b) beside the clean depth
    sweep, membership inference, the trainer's state through a checkpoint
    onto the card bit for bit, and a roster round's two-tier reduce
-   through the fedavg kernel (5 launches) against the flat FedAvg.  Every
-   launch count is set to 0 just before a path and read just after it,
-   and must be exactly what the path runs;
+   through the fedavg kernel (5 launches) against the flat FedAvg.  And
+   the dry run (``phase_dryrun``, after the train paths; fake tensors on
+   the CPU, no kernel): ``launch.dryrun.run_pair`` on qwen3-14b
+   ``train_4k`` over the (16, 16) mesh and llama3-405b ``decode_32k``
+   over (2, 16, 16) with probes (each record's per-chip flops, parameter,
+   optimizer and activation bytes, collective bytes and dominant term;
+   the probes' prediction at the traced depth against its direct count),
+   ``lower_one`` of qwen3-14b at 4 of 40 layers on the one-card host mesh
+   against the same step on the card (flops under ``FlopCounterMode``,
+   the parameter and optimizer bytes the allocator took, the activation
+   estimate beside the warm step's peak), and ``fedavg_collective`` over
+   a one-rank NCCL group bit for bit against ``fedavg``.  Every launch
+   count is set to 0 just before a path and read just after it, and must
+   be exactly what the path runs;
 5. the output — finite losses, every parameter on the card, generated
    images in range, epsilon finite and growing (DP-SGD, with and without
    the split), the LAN and edge bytes the split and the codec predict (the
@@ -3821,6 +3832,208 @@ def phase_train_small_reference(dev):
               f"leaf's largest (pin {tol}), loss diff {dl:.3e}")
 
 
+# ---------------------------------------------------------------------------
+# the dry run: the sharded layout on the production meshes, and against a
+# real step on the card
+# ---------------------------------------------------------------------------
+
+DRYRUN_DIR = os.path.join(ROOT, "build", "dryrun")
+# (a) two pairs of the dry run, with probes
+DRYRUN_PAIRS = [("qwen3-14b", "train_4k", False),
+                ("llama3-405b", "decode_32k", True)]
+# the probes' prediction at the traced depth against its trace
+PROBE_TOL = 1e-9
+# (b) the dry run against the real warm step of phase_train_paths (b)
+DRYRUN_FLOPS_TOL = 1e-6
+ALLOC_ROUND = 512               # the caching allocator's rounding a block
+
+
+def phase_dryrun(dev):
+    """The dry run (``repro_torch.launch.dryrun``; fake tensors on a fake
+    CPU device, no card) and what the card says of it:
+    (a) ``run_pair`` on qwen3-14b ``train_4k`` over the (16, 16) mesh and
+    llama3-405b ``decode_32k`` over (2, 16, 16), with probes: status ok,
+    every term finite and nonnegative, and the probes' prediction at the
+    traced depth (2 periods) within ``PROBE_TOL`` of that trace's direct
+    count (flops, bytes, activation elements);
+    (b) ``lower_one`` of qwen3-14b at 4 of 40 layers, 8 micro-batches of
+    1 x 2048, on ``make_host_mesh()`` (one card: (1, 1)), against the same
+    step on the card: its flops under ``FlopCounterMode`` on the warm step
+    (within ``DRYRUN_FLOPS_TOL``), the parameter and optimizer bytes
+    against what the caching allocator's stats say ``lm_init`` and the
+    optimizer's init took (the bytes the tensors requested within
+    ``ALLOC_ROUND`` a leaf; the blocks allocated, which the allocator
+    rounds, printed beside), and the activation estimate beside the warm
+    step's peak above what was live before it, with their ratio;
+    (c) ``fedavg_collective`` over a one-rank NCCL group on the card,
+    equal bit for bit to ``fedavg`` of the one tree (the weighted form
+    within 1e-6 of it).
+    No kernel launches in any of them (counts set to 0 before, read
+    after)."""
+    import socket
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.fedavg import (fedavg, fedavg_collective,
+                                         fedavg_weighted_collective)
+    from repro_torch.data import synthetic_lm_batch
+    from repro_torch.launch.dryrun import lower_one, run_pair
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.transformer import lm_init
+    from repro_torch.optim import make_optimizer
+    from repro_torch.runtime import make_train_step
+    from repro_torch.tree import leaves
+
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+
+    # (a) the two pairs
+    for arch, shape, multi in DRYRUN_PAIRS:
+        t0 = time.perf_counter()
+        rec = run_pair(arch, shape, multi, DRYRUN_DIR, verbose=False)
+        wall = time.perf_counter() - t0
+        check(rec["status"] == "ok", f"dry run {arch} {shape}: {rec}")
+        pt = rec["probe_terms"]
+        check("error" not in pt, f"dry run {arch} {shape} probes: {pt}")
+        for k in ("hlo_flops", "hlo_bytes", "collective_bytes",
+                  "compute_term_s", "memory_term_s", "collective_term_s",
+                  "arg_bytes_per_device", "temp_bytes_per_device",
+                  "out_bytes_per_device", "param_bytes_per_device",
+                  "opt_bytes_per_device"):
+            v = rec[k]
+            check(math.isfinite(v) and v >= 0,
+                  f"dry run {arch} {shape}: {k} = {v}")
+        worst = max(pt["direct_check"][k]
+                    for k in ("flops", "bytes", "act", "act_chip"))
+        check(worst <= PROBE_TOL, f"dry run {arch} {shape}: probes vs "
+              f"direct {pt['direct_check']}")
+        print(f"dry run {arch} {shape} on {rec['mesh']} ({rec['chips']} "
+              f"chips; tensors {rec['tensors']}, kernels {rec['kernels']}, "
+              f"use_flash_kernel {rec['use_flash_kernel']}): flops a chip "
+              f"{rec['hlo_flops']:.6e}, params "
+              f"{rec['param_bytes_per_device'] / 1e9:.4f} GB, opt "
+              f"{rec['opt_bytes_per_device'] / 1e9:.4f} "
+              f"GB, activations {rec['temp_bytes_per_device'] / 1e9:.4f} GB "
+              f"a rank, collectives {rec['collective_bytes']:.6e} B, terms "
+              f"compute {rec['compute_term_s']:.4e} s, memory "
+              f"{rec['memory_term_s']:.4e} s, collective "
+              f"{rec['collective_term_s']:.4e} s: dominant "
+              f"{rec['dominant']}; traced {rec['traced_periods']} of "
+              f"{rec['periods']} periods in {rec['compile_s']:.1f} s, "
+              f"probes vs direct {pt['direct_check']}, pair {wall:.1f} s")
+
+    # (b) the dry run against the real step on the card
+    b = TRAIN_QWEN
+    cfg = get_config("qwen3-14b", "train_4k").override({
+        "model.num_layers": b["layers"], "shape.global_batch": b["batch"],
+        "shape.seq_len": b["seq"]})
+    m = cfg.model
+    t0 = time.perf_counter()
+    counts = lower_one(cfg, make_host_mesh(device_type=dev.type))
+    trace_s = time.perf_counter() - t0
+    check(counts.chips == 1 and counts.share == 1.0,
+          f"host mesh: {counts.chips} chips, share {counts.share}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    def allocated():
+        """(bytes of the blocks allocated, bytes the tensors asked for)"""
+        st = torch.cuda.memory_stats(dev)
+        return (st["allocated_bytes.all.current"],
+                st["requested_bytes.all.current"])
+
+    base = allocated()
+    params = lm_init(0, m, torch.bfloat16, dev)
+    after_params = allocated()
+    opt_state = make_optimizer(cfg.optim).init(params)
+    after_opt = allocated()
+    for label, lo, hi, want, n in (
+            ("parameter", base, after_params, counts.param_bytes,
+             len(leaves(params))),
+            ("optimizer", after_params, after_opt, counts.opt_bytes,
+             len(leaves(opt_state)))):
+        got_alloc, got_req = hi[0] - lo[0], hi[1] - lo[1]
+        check(abs(got_req - want) <= ALLOC_ROUND * n,
+              f"dry run {label} bytes {want} vs requested {got_req} "
+              f"({n} leaves)")
+        print(f"dry run vs card, qwen3-14b {m.num_layers} layers: {label} "
+              f"bytes {want:.0f} counted; on the card {got_req} requested "
+              f"({got_req - want:+.0f} B), {got_alloc} allocated "
+              f"({got_alloc - want:+.0f} B; {n} leaves, pin "
+              f"{ALLOC_ROUND} B a leaf: "
+              f"{'within' if abs(got_alloc - want) <= ALLOC_ROUND * n else 'outside'})")
+    step = make_train_step(cfg)
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in
+                synthetic_lm_batch(b["batch"], b["seq"], m.vocab_size,
+                                   seed=i).items()} for i in range(2)]
+    params, opt_state, _ = step(params, opt_state, batches[0],
+                                cfg.optim.warmup_steps)
+    torch.cuda.synchronize()
+    before = allocated()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ts = time.perf_counter()
+    with FlopCounterMode(display=False) as fc:
+        params, opt_state, met = step(params, opt_state, batches[1],
+                                      cfg.optim.warmup_steps + 1)
+        loss = float(met["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - ts
+    st = torch.cuda.memory_stats(dev)
+    peak = (st["allocated_bytes.all.peak"], st["requested_bytes.all.peak"])
+    card_flops = float(fc.get_total_flops())
+    rel = abs(card_flops - counts.flops) / card_flops
+    check(math.isfinite(loss), f"dry run check step: loss {loss}")
+    check(rel <= DRYRUN_FLOPS_TOL, f"dry run flops {counts.flops} vs the "
+          f"card's step {card_flops}")
+    above = [p - q for p, q in zip(peak, before)]
+    print(f"dry run vs card, qwen3-14b {m.num_layers} layers, "
+          f"{cfg.parallel.microbatches} micro-batches of 1 x {b['seq']}: "
+          f"flops {counts.flops:.6e} counted (trace {trace_s:.1f} s), "
+          f"{card_flops:.6e} on the card's warm step (rel diff {rel:.2e}, "
+          f"pin {DRYRUN_FLOPS_TOL}); activations {counts.temp_bytes / 1e9:.4f}"
+          f" GB counted; the warm step's peak {peak[0] / 1e9:.4f} GB "
+          f"allocated ({peak[1] / 1e9:.4f} GB requested) is "
+          f"{above[0] / 1e9:.4f} GB ({above[1] / 1e9:.4f} GB) above what "
+          f"was live before it, {before[0] / 1e9:.4f} GB: ratio counted / "
+          f"measured {counts.temp_bytes / above[0]:.4f} allocated, "
+          f"{counts.temp_bytes / above[1]:.4f} requested; warm step under "
+          f"FlopCounterMode {wall:.3f} s")
+    del params, opt_state, batches
+    torch.cuda.empty_cache()
+
+    # (c) the collective FedAvg on a one-rank NCCL group
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0, device_id=dev)
+    try:
+        gen = torch.Generator(device=dev).manual_seed(7)
+        tree = {"w": torch.randn((4096, 1024), generator=gen, device=dev),
+                "b": {"x": torch.randn((1000,), generator=gen, device=dev),
+                      "h": torch.randn((512, 256), generator=gen,
+                                       device=dev).to(torch.bfloat16)}}
+        got, want = fedavg_collective(tree), fedavg([tree])
+        same = all(torch.equal(g, w) for g, w in zip(leaves(got),
+                                                     leaves(want)))
+        check(same, "fedavg_collective on one rank differs from fedavg")
+        wgot = fedavg_weighted_collective(tree, 2.5)
+        werr = max(float((g.float() - w.float()).abs().max())
+                   for g, w in zip(leaves(wgot), leaves(want)))
+        check(werr <= 1e-6 * max(float(w.float().abs().max())
+                                 for w in leaves(want)),
+              f"fedavg_weighted_collective on one rank: {werr}")
+    finally:
+        dist.destroy_process_group()
+    counts_now = {k: w.launches for k, w in wrappers.items() if w.launches}
+    check(not counts_now, f"dry run phase: kernel launches {counts_now}")
+    print(f"fedavg_collective on a one-rank NCCL group: bit for bit "
+          f"fedavg's ({len(leaves(tree))} leaves, fp32 and bf16); the "
+          f"weighted form within {werr:.3e}; no kernel launched in the "
+          f"dry-run phase")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs the port "
@@ -3874,6 +4087,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_train_paths(dev)
     print(f"train paths: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_dryrun(dev)
+    print(f"dry run: {time.perf_counter() - t0:.1f} s")
     for row in rows:
         row["launches"] = launches[row["name"]]
         if row["name"] in by_path:

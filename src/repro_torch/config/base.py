@@ -2,8 +2,9 @@
 
 A copy of ``repro/config/base.py``: the port reads the same configuration
 objects, field for field, so one dotted override means the same thing in
-both packages.  Options whose modules are not ported yet are rejected where
-the port runs (``repro_torch.core.gan.FSLGANTrainer``), not here.
+both packages.  Every option has a ported module behind it; the JAX-only
+switches (``*.kernel_interpret``, ``split.pipeline_scan``) are read and
+ignored.
 
 Plain dataclasses (no external deps) with:
   - nested to_dict / from_dict round-tripping,

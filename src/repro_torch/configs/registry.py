@@ -29,6 +29,7 @@ _ARCHS: Dict[str, str] = {
     "dcgan-mnist": "repro_torch.configs.dcgan_mnist",
 }
 
+ASSIGNED_ARCHS: List[str] = [a for a in _ARCHS if a != "dcgan-mnist"]
 SHAPES: List[str] = list(INPUT_SHAPES)
 
 # long_500k handling per arch
@@ -68,3 +69,16 @@ def get_config(arch: str, shape: Optional[str] = None) -> RunConfig:
                                 "model.sliding_window": 4096})
         cfg = cfg.validate()
     return cfg
+
+
+def iter_pairs(include_skipped: bool = False):
+    """Yield (arch, shape, cfg_or_None) for the 10 x 4 matrix of the LM
+    archs and input shapes (None for a pair skipped by design, when
+    ``include_skipped``)."""
+    for arch in ASSIGNED_ARCHS:
+        for shape in SHAPES:
+            try:
+                yield arch, shape, get_config(arch, shape)
+            except SkippedShape:
+                if include_skipped:
+                    yield arch, shape, None

@@ -1,5 +1,5 @@
 """Federated data partitioning (numpy copy of ``repro/data/federated.py``):
-Dirichlet non-IID label skew.
+IID and Dirichlet non-IID label skew.
 
 The paper notes (Fig 4) that multiple discriminators "preserve the
 heterogeneity of the data distributions" — the Dirichlet partitioner is how
@@ -10,6 +10,16 @@ from __future__ import annotations
 from typing import Dict, List
 
 import numpy as np
+
+
+def partition_iid(data: np.ndarray, num_clients: int, seed: int = 0
+                  ) -> Dict[str, np.ndarray]:
+    """Uniform split: a seeded permutation cut into ``num_clients`` parts
+    of sizes differing by at most one."""
+    rng = np.random.default_rng(seed)
+    idx = rng.permutation(len(data))
+    parts = np.array_split(idx, num_clients)
+    return {f"c{i}": data[p] for i, p in enumerate(parts)}
 
 
 def partition_dirichlet(data: np.ndarray, labels: np.ndarray,

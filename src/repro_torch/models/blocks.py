@@ -33,6 +33,7 @@ from repro_torch.models import moe as MOE_M
 from repro_torch.models import rglru as RG
 from repro_torch.models import rwkv6 as RW
 from repro_torch.models.layers import AttnDims
+from repro_torch.sharding.specs import Lg
 
 
 # ---------------------------------------------------------------------------
@@ -79,6 +80,10 @@ def split_periods(m: ModelConfig) -> Tuple[int, List[str]]:
 def norm_init(m: ModelConfig, dtype, device):
     return (L.layernorm_init(m.d_model, dtype, device) if m.family == AUDIO
             else L.rmsnorm_init(m.d_model, dtype, device))
+
+
+def norm_specs(m: ModelConfig):
+    return (L.layernorm_specs() if m.family == AUDIO else L.rmsnorm_specs())
 
 
 def norm_apply(m: ModelConfig, p, x):
@@ -131,6 +136,31 @@ def block_init(gen: torch.Generator, kind: str, m: ModelConfig, dtype
                 "xattn": L.gqa_init(gen, dims, dtype),
                 "ln2": norm_init(m, dtype, dev),
                 "mlp": L.mlp_init(gen, m.d_model, m.d_ff, m.act, dtype)}
+    raise ValueError(kind)
+
+
+def block_specs(kind: str, m: ModelConfig) -> Dict[str, Any]:
+    """The logical axes of :func:`block_init`'s tree, leaf for leaf."""
+    dims = attn_dims(m)
+    if kind in ("attn", "moe", "enc"):
+        p = {"ln1": norm_specs(m), "attn": L.gqa_specs(dims),
+             "ln2": norm_specs(m)}
+        p["mlp"] = (MOE_M.moe_specs(m.moe) if kind == "moe"
+                    else L.mlp_specs(m.act))
+        return p
+    if kind == "mla":
+        return {"ln1": norm_specs(m), "attn": MLA.mla_specs(m.mla),
+                "ln2": norm_specs(m), "mlp": MOE_M.moe_specs(m.moe)}
+    if kind == "rwkv":
+        return {"ln1": norm_specs(m), "time": RW.timemix_specs(m.rwkv),
+                "ln2": norm_specs(m), "chan": RW.channelmix_specs()}
+    if kind == "rglru":
+        return {"ln1": norm_specs(m), "rec": RG.rglru_block_specs(m.rglru),
+                "ln2": norm_specs(m), "mlp": L.mlp_specs(m.act)}
+    if kind == "dec":
+        return {"ln1": norm_specs(m), "attn": L.gqa_specs(dims),
+                "lnx": norm_specs(m), "xattn": L.gqa_specs(dims),
+                "ln2": norm_specs(m), "mlp": L.mlp_specs(m.act)}
     raise ValueError(kind)
 
 
@@ -308,6 +338,33 @@ def block_state_init(kind: str, m: ModelConfig, batch: int, cache_len: int,
                 "v": zeros(batch, c, m.num_kv_heads, m.head_dim),
                 "ck": zeros(batch, se, m.num_kv_heads, m.head_dim),
                 "cv": zeros(batch, se, m.num_kv_heads, m.head_dim)}
+    raise ValueError(kind)
+
+
+def block_state_specs(kind: str, m: ModelConfig) -> Dict[str, Any]:
+    """Logical axes for decode state (leading dim = batch).
+
+    The cache sequence dim is sharded over the model axis ("seq"): at
+    long_500k (batch 1) that is the only way the cache spreads, and at
+    decode_32k it keeps the scores from replicating.  "kv" heads come
+    after "seq" and only claim an axis when one is left and divisible.
+    """
+    if kind in ("attn", "moe"):
+        return {"k": Lg("batch", "seq", "kv", None),
+                "v": Lg("batch", "seq", "kv", None)}
+    if kind == "mla":
+        return {"ckv": Lg("batch", "seq", None),
+                "krope": Lg("batch", "seq", None)}
+    if kind == "rwkv":
+        return {"x_time": Lg("batch", None), "x_chan": Lg("batch", None),
+                "S": Lg("batch", "heads", None, None)}
+    if kind == "rglru":
+        return {"conv": Lg("batch", None, "mlp"), "h": Lg("batch", "mlp")}
+    if kind == "dec":
+        return {"k": Lg("batch", None, "kv", None),
+                "v": Lg("batch", None, "kv", None),
+                "ck": Lg("batch", None, "kv", None),
+                "cv": Lg("batch", None, "kv", None)}
     raise ValueError(kind)
 
 

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import DCGANConfig
+from repro_torch.sharding.specs import Lg
 
 Device = Union[str, torch.device]
 
@@ -133,6 +134,16 @@ def disc_init(gen: torch.Generator, c: DCGANConfig, device: Device,
     return p
 
 
+def disc_specs(c: DCGANConfig) -> Dict[str, Any]:
+    p: Dict[str, Any] = {}
+    for i in range(c.conv_blocks):
+        p[f"conv{i}"] = {"w": Lg(None, None, None, "mlp"), "b": Lg("mlp")}
+        if i > 0:
+            p[f"conv{i}"]["bn"] = {"scale": Lg("mlp"), "bias": Lg("mlp")}
+    p["classifier"] = {"w": Lg("mlp", None), "b": Lg(None)}
+    return p
+
+
 def disc_apply_layer(name: str, p, x: torch.Tensor, c: DCGANConfig
                      ) -> torch.Tensor:
     """Apply one named discriminator layer (the unit of an FSL portion).
@@ -180,6 +191,18 @@ def gen_init(gen: torch.Generator, c: DCGANConfig, device: Device,
         "deconv1": {**_conv_init(gen, 5, 5, f * 2, f, device, dtype),
                     "bn": _bn_init(f, device, dtype)},
         "out": _conv_init(gen, 5, 5, f, c.channels, device, dtype),
+    }
+
+
+def gen_specs(c: DCGANConfig) -> Dict[str, Any]:
+    bn = {"scale": Lg(None), "bias": Lg(None)}
+    return {
+        "proj": {"w": Lg(None, "mlp"), "b": Lg("mlp"), "bn": bn},
+        "deconv0": {"w": Lg(None, None, "mlp", None), "b": Lg(None),
+                    "bn": bn},
+        "deconv1": {"w": Lg(None, None, "mlp", None), "b": Lg(None),
+                    "bn": bn},
+        "out": {"w": Lg(None, None, None, None), "b": Lg(None)},
     }
 
 

@@ -4,10 +4,11 @@
 Pure functions over parameter trees, as in the reference:
 ``*_init(gen, ...) -> params`` (nested dict of tensors with the JAX keys
 and leaf shapes: a dense ``w`` is ``(d_in, d_out)``, so ``dense_apply`` is
-``x @ w``) and ``*_apply(params, x, ...) -> y``.  The reference's
-``*_specs`` trees and ``constrain`` calls are sharding hints, the identity
-on one device; they wait for the LM's sharded runtime (ROADMAP Queue A
-item 16).
+``x @ w``), ``*_specs(...) -> the matching tree of Lg logical-axis
+leaves`` and ``*_apply(params, x, ...) -> y``.  The ``constrain`` calls
+mark activations with logical axes at the reference's sites; they are the
+identity unless an activation policy is installed
+(``sharding/specs.py``).
 
 ``*_init`` draws from a ``torch.Generator`` on the parameters' device, so a
 seed gives other numbers than the JAX key stream; the parity tests carry
@@ -20,6 +21,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding.specs import Lg, constrain
 
 # ---------------------------------------------------------------------------
 # init helpers
@@ -42,6 +45,13 @@ def dense_init(gen, d_in: int, d_out: int, dtype=torch.float32, scale=None,
     return p
 
 
+def dense_specs(l_in, l_out, bias: bool = False):
+    p = {"w": Lg(l_in, l_out)}
+    if bias:
+        p["b"] = Lg(l_out)
+    return p
+
+
 def dense_apply(p, x, compute_dtype=None):
     w = p["w"]
     if compute_dtype is not None:
@@ -61,6 +71,10 @@ def rmsnorm_init(d: int, dtype=torch.float32, device=None):
     return {"scale": torch.ones((d,), dtype=dtype, device=device)}
 
 
+def rmsnorm_specs():
+    return {"scale": Lg(None)}
+
+
 def rmsnorm_apply(p, x, eps: float = 1e-6):
     dt = x.dtype
     x32 = x.to(torch.float32)
@@ -72,6 +86,10 @@ def rmsnorm_apply(p, x, eps: float = 1e-6):
 def layernorm_init(d: int, dtype=torch.float32, device=None):
     return {"scale": torch.ones((d,), dtype=dtype, device=device),
             "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm_specs():
+    return {"scale": Lg(None), "bias": Lg(None)}
 
 
 def layernorm_apply(p, x, eps: float = 1e-5):
@@ -90,6 +108,10 @@ def layernorm_apply(p, x, eps: float = 1e-5):
 
 def embedding_init(gen, vocab: int, d: int, dtype=torch.float32):
     return {"table": _normal(gen, (vocab, d), 0.02, dtype)}
+
+
+def embedding_specs():
+    return {"table": Lg("vocab", "embed")}
 
 
 def embedding_apply(p, ids, compute_dtype=None):
@@ -161,13 +183,26 @@ def mlp_init(gen, d: int, d_ff: int, act: str = "silu", dtype=torch.float32):
             "down": dense_init(gen, d_ff, d, dtype, bias=True)}
 
 
+def mlp_specs(act: str = "silu"):
+    if act == "silu":
+        return {"gate": dense_specs("embed", "mlp"),
+                "up": dense_specs("embed", "mlp"),
+                "down": dense_specs("mlp", "embed")}
+    return {"up": dense_specs("embed", "mlp", bias=True),
+            "down": dense_specs("mlp", "embed", bias=True)}
+
+
 def mlp_apply(p, x, act: str = "silu", compute_dtype=None):
+    # the hidden activations shard over "mlp", as the column/row-parallel
+    # weights do
     if act == "silu":
         g = dense_apply(p["gate"], x, compute_dtype)
         u = dense_apply(p["up"], x, compute_dtype)
-        return dense_apply(p["down"], F.silu(g) * u, compute_dtype)
+        h = constrain(F.silu(g) * u, ("batch", None, "mlp"))
+        return dense_apply(p["down"], h, compute_dtype)
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(dense_apply(p["up"], x, compute_dtype), approximate="tanh")
+    h = constrain(h, ("batch", None, "mlp"))
     return dense_apply(p["down"], h, compute_dtype)
 
 
@@ -303,6 +338,17 @@ def gqa_init(gen, dims: AttnDims, dtype=torch.float32):
     return p
 
 
+def gqa_specs(dims: AttnDims):
+    p = {"wq": dense_specs("embed", "mlp", bias=dims.qkv_bias),
+         "wk": dense_specs("embed", "kv", bias=dims.qkv_bias),
+         "wv": dense_specs("embed", "kv", bias=dims.qkv_bias),
+         "wo": dense_specs("mlp", "embed")}
+    if dims.qk_norm:
+        p["q_norm"] = rmsnorm_specs()
+        p["k_norm"] = rmsnorm_specs()
+    return p
+
+
 def gqa_project_qkv(p, x, dims: AttnDims, positions, compute_dtype=None,
                     rope: bool = True):
     b, s, _ = x.shape
@@ -318,6 +364,10 @@ def gqa_project_qkv(p, x, dims: AttnDims, positions, compute_dtype=None,
     if rope:
         q = apply_rope(q, positions, dims.rope_theta)
         k = apply_rope(k, positions, dims.rope_theta)
+    # heads shard over the model axis (kv heads too when they divide it)
+    q = constrain(q, ("batch", None, "heads", None))
+    k = constrain(k, ("batch", None, "kv", None))
+    v = constrain(v, ("batch", None, "kv", None))
     return q, k, v
 
 

@@ -16,7 +16,9 @@ import torch
 
 from repro_torch.models.layers import (NEG_INF, _normal, apply_rope,
                                        attention, dense_apply, dense_init,
-                                       rmsnorm_apply, rmsnorm_init)
+                                       dense_specs, rmsnorm_apply,
+                                       rmsnorm_init, rmsnorm_specs)
+from repro_torch.sharding.specs import Lg
 
 
 def mla_init(gen, d: int, num_heads: int, head_dim: int, cfg,
@@ -33,6 +35,17 @@ def mla_init(gen, d: int, num_heads: int, head_dim: int, cfg,
         "w_uv": _normal(gen, (num_heads, rk, vh), rk ** -0.5, dtype),
         "wo": dense_init(gen, num_heads * vh, d, dtype,
                          scale=(num_heads * vh) ** -0.5),
+    }
+
+
+def mla_specs(cfg):
+    return {
+        "wq": dense_specs("embed", "mlp"),
+        "w_dkv": dense_specs("embed", None),
+        "kv_norm": rmsnorm_specs(),
+        "w_uk": Lg("heads", None, None),
+        "w_uv": Lg("heads", None, None),
+        "wo": dense_specs("mlp", "embed"),
     }
 
 

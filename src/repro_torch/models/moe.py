@@ -27,7 +27,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import _normal, dense_apply, dense_init, \
-    mlp_apply, mlp_init
+    dense_specs, mlp_apply, mlp_init, mlp_specs
+from repro_torch.sharding.specs import Lg, constrain
 
 
 def moe_init(gen, d: int, cfg, dtype=torch.float32):
@@ -44,6 +45,20 @@ def moe_init(gen, d: int, cfg, dtype=torch.float32):
     if cfg.num_shared_experts:
         p["shared"] = mlp_init(gen, d, ff * cfg.num_shared_experts, "silu",
                                dtype)
+    return p
+
+
+def moe_specs(cfg):
+    p = {
+        "router": dense_specs("embed", None),
+        "experts": {
+            "gate": Lg("experts", "embed", "mlp"),
+            "up": Lg("experts", "embed", "mlp"),
+            "down": Lg("experts", "mlp", "embed"),
+        },
+    }
+    if cfg.num_shared_experts:
+        p["shared"] = mlp_specs("silu")
     return p
 
 
@@ -155,7 +170,9 @@ def moe_apply(p, x, cfg, compute_dtype=None):
     cd = compute_dtype or x.dtype
     groups = _dispatch_groups(t, cfg.top_k)
     xt = x.reshape(groups, t // groups, d)
+    xt = constrain(xt, ("batch", None, None))
     y, aux = _local_moe(xt, p, cfg, cd)
+    y = constrain(y, ("batch", None, None))
     aux = torch.mean(aux)
     y = y.reshape(b, s, d)
     if cfg.num_shared_experts:

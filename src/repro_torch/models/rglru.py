@@ -22,7 +22,9 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import _normal, dense_apply, dense_init
+from repro_torch.models.layers import (_normal, dense_apply, dense_init,
+                                       dense_specs)
+from repro_torch.sharding.specs import Lg
 
 _C = 8.0  # Griffin's fixed temperature on the recurrence gate
 
@@ -49,6 +51,18 @@ def rglru_block_init(gen, d: int, cfg, dtype=torch.float32):
         "a_x": zeros(), "a_b": zeros(),
         "i_x": zeros(), "i_b": zeros(),
         "w_out": dense_init(gen, lw, d, dtype),
+    }
+
+
+def rglru_block_specs(cfg):
+    return {
+        "w_gate": dense_specs("embed", "mlp"),
+        "w_rec": dense_specs("embed", "mlp"),
+        "conv_w": Lg(None, "mlp"), "conv_b": Lg("mlp"),
+        "lam": Lg("mlp"),
+        "a_x": Lg("mlp"), "a_b": Lg("mlp"),
+        "i_x": Lg("mlp"), "i_b": Lg("mlp"),
+        "w_out": dense_specs("mlp", "embed"),
     }
 
 

@@ -19,7 +19,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense_apply, dense_init
+from repro_torch.models.layers import dense_apply, dense_init, dense_specs
+from repro_torch.sharding.specs import Lg
 
 MIX_NAMES = ("r", "k", "v", "w", "g")   # receptance, key, value, decay, gate
 
@@ -29,6 +30,10 @@ def _lora(gen, d: int, rank: int, out: int, dtype):
                     dtype=torch.float32) * d ** -0.5
     return {"a": a.to(dtype),
             "b": torch.zeros((rank, out), dtype=dtype, device=gen.device)}
+
+
+def _lora_specs():
+    return {"a": Lg("embed", None), "b": Lg(None, None)}
 
 
 def _lora_apply(p, x, act=torch.tanh):
@@ -56,6 +61,22 @@ def timemix_init(gen, d: int, cfg, dtype=torch.float32):
         "decay_base": zeros(d),          # per-channel base decay
         "decay_lora": _lora(gen, d, cfg.decay_lora, d, dtype),
         "bonus_u": zeros(d),             # per-channel "first token" bonus
+    }
+
+
+def timemix_specs(cfg):
+    return {
+        "mu_x": Lg(None),
+        "mu": Lg(None, None),
+        "ts_lora": {n: _lora_specs() for n in MIX_NAMES},
+        "wr": dense_specs("embed", "mlp"),
+        "wk": dense_specs("embed", "mlp"),
+        "wv": dense_specs("embed", "mlp"),
+        "wg": dense_specs("embed", "mlp"),
+        "wo": dense_specs("mlp", "embed"),
+        "decay_base": Lg(None),
+        "decay_lora": _lora_specs(),
+        "bonus_u": Lg(None),
     }
 
 
@@ -153,6 +174,13 @@ def channelmix_init(gen, d: int, d_ff: int, dtype=torch.float32):
             "wk": dense_init(gen, d, d_ff, dtype),
             "wv": dense_init(gen, d_ff, d, dtype),
             "wr": dense_init(gen, d, d, dtype)}
+
+
+def channelmix_specs():
+    return {"mu_k": Lg(None), "mu_r": Lg(None),
+            "wk": dense_specs("embed", "mlp"),
+            "wv": dense_specs("mlp", "embed"),
+            "wr": dense_specs("embed", "embed")}
 
 
 def channelmix_apply(p, x, x_prev_last=None, compute_dtype=None):

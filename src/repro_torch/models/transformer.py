@@ -17,11 +17,19 @@ checkpoint.
 Public API
 ----------
   lm_init(seed, m, dtype, device)          random params from a seed
+  lm_param_shapes(m, dtype)                ShapeDtype tree (nothing allocated)
+  lm_specs(m)                              logical-axis tree (matches params)
   lm_apply(params, batch, m, ...)          -> (logits, aux_loss)
   lm_loss(params, batch, m, ...)           -> (loss, metrics)
   init_decode_state(m, batch, cache_len)   stacked decode state
+  decode_state_shapes(m, batch, cache_len) its ShapeDtype tree
+  decode_state_specs(m)                    logical-axis tree for the state
   lm_prefill(params, batch, m, ...)        -> (logits_last, state, index)
   lm_decode_step(params, token, state, index, m, ...) -> (logits, state)
+
+The shape functions run the init under ``FakeTensorMode`` on a fake CPU
+device: every leaf's shape and dtype, with no storage behind it, so even
+llama3-405b's 811.7 GB of parameters allocate nothing.
 
 Tensors in ``batch`` live on the parameters' device; an encoder-decoder
 batch also carries ``enc_embeds`` (B, S_enc, d), the stub frontend's frame
@@ -34,6 +42,7 @@ import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -41,15 +50,18 @@ from repro_torch.config import HYBRID, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.blocks import (block_apply, block_decode, block_init,
-                                       block_state_init, norm_apply,
-                                       norm_init, period_of, split_periods)
-from repro_torch.tree import tree_map
+                                       block_specs, block_state_init,
+                                       block_state_specs, norm_apply,
+                                       norm_init, norm_specs, period_of,
+                                       split_periods)
+from repro_torch.sharding.specs import Lg, constrain
+from repro_torch.tree import shapes_of, tree_map
 
 REMATS = ("none", "full", "dots")
 
 
 # ---------------------------------------------------------------------------
-# init
+# init / specs / shapes
 # ---------------------------------------------------------------------------
 
 def _stack_init(gen, m: ModelConfig, dtype):
@@ -67,6 +79,20 @@ def _stack_init(gen, m: ModelConfig, dtype):
         tree_map(lambda dst, src: dst[i].copy_(src), stack, one)
     tail = {f"t{i}": block_init(gen, kind, m, dtype)
             for i, kind in enumerate(rem)}
+    return stack, tail
+
+
+def _with_layers_axis(tree):
+    """Every Lg leaf of ``tree`` with the stacked "layers" axis in front."""
+    return tree_map(lambda lg: Lg("layers", *lg), tree)
+
+
+def _stack_specs(m: ModelConfig):
+    period = period_of(m)
+    n_full, rem = split_periods(m)
+    one = {f"b{i}": block_specs(kind, m) for i, kind in enumerate(period)}
+    stack = _with_layers_axis(one) if n_full else {}
+    tail = {f"t{i}": block_specs(kind, m) for i, kind in enumerate(rem)}
     return stack, tail
 
 
@@ -95,6 +121,28 @@ def lm_init(seed: int, m: ModelConfig, dtype=torch.float32, device=None
         e_stack, e_tail = _stack_init(gen, _encoder_model_cfg(m), dtype)
         p["encoder"] = {"stack": e_stack, "tail": e_tail,
                         "norm": L.layernorm_init(m.d_model, dtype, dev)}
+    return p
+
+
+def lm_param_shapes(m: ModelConfig, dtype=torch.float32):
+    """Parameter tree as :class:`~repro_torch.tree.ShapeDtype` leaves:
+    :func:`lm_init` traced on fake tensors, nothing allocated."""
+    with FakeTensorMode():
+        return shapes_of(lm_init(0, m, dtype, device="cpu"))
+
+
+def lm_specs(m: ModelConfig) -> Dict[str, Any]:
+    """The logical axes of :func:`lm_init`'s tree, leaf for leaf."""
+    p: Dict[str, Any] = {}
+    p["embed"] = L.embedding_specs()
+    p["stack"], p["tail"] = _stack_specs(m)
+    p["final_norm"] = norm_specs(m)
+    if not m.tie_embeddings:
+        p["head"] = {"w": Lg("embed", "vocab")}
+    if m.encdec.enabled:
+        e_stack, e_tail = _stack_specs(_encoder_model_cfg(m))
+        p["encoder"] = {"stack": e_stack, "tail": e_tail,
+                        "norm": L.layernorm_specs()}
     return p
 
 
@@ -151,6 +199,9 @@ def _run_stack(stack, tail, x, m: ModelConfig, positions, cd, enc_out,
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         caches = {}
         for j, kind in enumerate(period):
+            # the layer-boundary residual's sharding (sequence-parallel
+            # under the production rules)
+            x = constrain(x, ("batch", "seq", None))
             x, a, c = block_apply(kind, pparams[f"b{j}"], x, m, positions,
                                   cd, enc_out, use_kernel, cache_len,
                                   cache_dtype)
@@ -282,6 +333,27 @@ def init_decode_state(m: ModelConfig, batch: int, cache_len: int,
         stack = tree_map(lambda x: x[None].repeat(n_full, *([1] * x.dim())),
                          one_p)
     tail = {f"t{i}": one(kind) for i, kind in enumerate(rem)}
+    return {"stack": stack, "tail": tail}
+
+
+def decode_state_shapes(m: ModelConfig, batch: int, cache_len: int,
+                        dtype=torch.bfloat16):
+    """:func:`init_decode_state`'s tree as ShapeDtype leaves, nothing
+    allocated."""
+    with FakeTensorMode():
+        return shapes_of(init_decode_state(m, batch, cache_len, dtype,
+                                           device="cpu"))
+
+
+def decode_state_specs(m: ModelConfig):
+    """The logical axes of :func:`init_decode_state`'s tree."""
+    period = period_of(m)
+    n_full, rem = split_periods(m)
+    stack = {}
+    if n_full:
+        stack = _with_layers_axis({f"b{i}": block_state_specs(kind, m)
+                                   for i, kind in enumerate(period)})
+    tail = {f"t{i}": block_state_specs(kind, m) for i, kind in enumerate(rem)}
     return {"stack": stack, "tail": tail}
 
 

@@ -17,9 +17,8 @@ detection layer over it — health monitors, content digests, run diffing.
   * :mod:`repro_torch.obs.digest`   — content digests of the committed
     global state
   * :mod:`repro_torch.obs.diff`     — cross-run divergence localization
-
-The reference's bench regression gate (``repro/obs/regress.py``) gates the
-JAX benchmarks' ``BENCH_*.json`` files and waits for the port's benchmark.
+  * :mod:`repro_torch.obs.regress`  — the bench regression gate over
+    ``BENCH_*.json`` files (run as ``python -m repro_torch.obs.regress``)
 """
 from repro_torch.obs.diff import DiffEntry, RunDiff, diff_runs
 from repro_torch.obs.digest import (RoundDigest, digest_from_dict,

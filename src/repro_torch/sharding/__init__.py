@@ -1,5 +1,8 @@
-"""Client-axis sharding rules (port of ``repro/sharding``)."""
+"""Logical-axis sharding rules (port of ``repro/sharding``)."""
 from repro_torch.sharding.specs import (  # noqa: F401
-    AxisRules, Lg, client_axis_rules, client_chunks, is_lg, logical_spec,
-    mesh_axis_size, stacked_shardings, tree_shardings,
+    ActivationRecord, AxisRules, Lg, PartitionSpec, Sharding,
+    client_axis_rules, client_chunks, constrain, default_rules, is_lg,
+    logical_spec, make_activation_policy, mesh_axis_size,
+    set_activation_policy, spec_for_param, stacked_shardings,
+    tree_shardings,
 )

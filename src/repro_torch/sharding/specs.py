@@ -1,15 +1,31 @@
-"""Logical-axis sharding rules, the client-axis part.  Port of
-``repro/sharding/specs.py`` (``AxisRules``, ``mesh_axis_size``,
-``logical_spec``, ``tree_shardings``, ``client_axis_rules``,
-``stacked_shardings``); the LM layout's default rules, the activation
-policy and ``constrain`` wait for ROADMAP Queue A item 16.
+"""Logical-axis sharding rules.  Port of ``repro/sharding/specs.py``.
 
-Tensors are annotated with *logical* axis names; a rules table maps them
-to mesh axes.  A dimension whose size the mesh axes' extent does not
-divide is replicated instead.  A spec is a :class:`PartitionSpec`, a
-tuple with one entry a dimension (a mesh axis, a tuple of axes, or None),
+Parameters and activations are annotated with *logical* axis names; a
+single rules table maps them to mesh axes.  A dimension whose size the
+mesh axes' extent does not divide (or whose axes an earlier dimension
+took) is replicated instead.  A spec is a :class:`PartitionSpec`, a tuple
+with one entry a dimension (a mesh axis, a tuple of axes, or None),
 trailing Nones dropped as JAX drops them; a sharding is a
 :class:`Sharding`, a (mesh, spec) pair.
+
+Logical axes (:func:`default_rules`, the production layout)
+-----------------------------------------------------------
+  embed    d_model dim                -> FSDP over ("pod","data") when enabled
+  mlp      ffn hidden / fused q_dim   -> tensor-parallel over "model"
+  kv       fused kv_dim               -> "model" when divisible
+  experts  MoE expert dim             -> expert-parallel over "model"
+  vocab    vocabulary dim             -> "model"
+  batch    global batch               -> ("pod","data")
+  seq      sequence (activations)     -> "model" when sequence_parallel
+  layers/stack/conv/...               -> replicated
+
+Model code is mesh-agnostic: it marks activations with :func:`constrain`,
+the identity unless a policy is installed (:func:`set_activation_policy`).
+The reference's policy is ``with_sharding_constraint``; the port runs on
+one device and has no partitioner to constrain, so its policy
+(:func:`make_activation_policy`) records each call's logical axes, shape
+and resulting spec and returns the tensor unchanged: the dry run's check
+that every constrained activation has a spec on the mesh.
 
 The vectorized client program stacks every per-client tree and batch
 along a leading ``clients`` axis: dim 0 is the ``clients`` logical axis
@@ -20,7 +36,8 @@ other runs whole on one device.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
+from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple, Union)
 
 import torch
 
@@ -45,11 +62,42 @@ class Sharding(NamedTuple):
 class AxisRules:
     """Map from logical axis name -> mesh axis (or tuple of axes)."""
     rules: Dict[str, MeshAxes] = field(default_factory=dict)
+    fsdp: bool = True
+    tensor_parallel: bool = True
+    sequence_parallel: bool = True
 
     def mesh_axes_for(self, logical: Optional[str]) -> MeshAxes:
         if logical is None:
             return None
         return self.rules.get(logical)
+
+
+def default_rules(mesh: Mesh, parallel=None) -> AxisRules:
+    """Production layout: batch/FSDP over (pod,data), TP/EP over model.
+    ``parallel`` (a ``ParallelConfig``) switches FSDP, tensor and sequence
+    parallelism off; None keeps all three."""
+    axes = list(mesh.axis_names)
+    data_axes: Tuple[str, ...] = tuple(a for a in ("pod", "data")
+                                       if a in axes)
+    model = "model" if "model" in axes else None
+    fsdp = parallel.fsdp if parallel is not None else True
+    tp = parallel.tensor_parallel if parallel is not None else True
+    sp = parallel.sequence_parallel if parallel is not None else True
+    rules: Dict[str, MeshAxes] = {
+        "batch": data_axes or None,
+        "embed": data_axes if fsdp else None,
+        "mlp": model if tp else None,
+        "kv": model if tp else None,
+        "heads": model if tp else None,
+        "experts": model if tp else None,
+        "vocab": model if tp else None,
+        "seq": model if sp else None,
+        "state": None,
+        "layers": None,
+        "window": None,
+    }
+    return AxisRules(rules=rules, fsdp=fsdp, tensor_parallel=tp,
+                     sequence_parallel=sp)
 
 
 def mesh_axis_size(mesh: Mesh, axes: MeshAxes) -> int:
@@ -87,6 +135,59 @@ def logical_spec(mesh: Mesh, rules: AxisRules, shape: Sequence[int],
     while out and out[-1] is None:
         out.pop()
     return PartitionSpec(*out)
+
+
+def spec_for_param(mesh: Mesh, rules: AxisRules, arr_or_shape,
+                   logical: Sequence[Optional[str]]) -> Sharding:
+    """The sharding of a tensor (or anything with ``.shape``, or a shape)
+    with ``logical`` axes."""
+    shape = tuple(getattr(arr_or_shape, "shape", arr_or_shape))
+    return Sharding(mesh, logical_spec(mesh, rules, shape, logical))
+
+
+# ---------------------------------------------------------------------------
+# Activation-sharding policy hook
+# ---------------------------------------------------------------------------
+
+_ACTIVATION_POLICY: Optional[Callable] = None
+
+
+def set_activation_policy(fn: Optional[Callable]) -> None:
+    """fn(x, logical_axes: tuple) -> x, or None to clear."""
+    global _ACTIVATION_POLICY
+    _ACTIVATION_POLICY = fn
+
+
+def constrain(x, logical_axes):
+    """``x`` under the installed activation policy; the identity without
+    one."""
+    if _ACTIVATION_POLICY is None:
+        return x
+    return _ACTIVATION_POLICY(x, logical_axes)
+
+
+class ActivationRecord(NamedTuple):
+    logical: Tuple[Optional[str], ...]
+    shape: Tuple[int, ...]
+    sharding: Sharding
+
+
+def make_activation_policy(mesh: Mesh, rules: AxisRules,
+                           records: Optional[List[ActivationRecord]] = None
+                           ) -> Callable:
+    """A policy that appends each constrained activation's logical axes,
+    shape and sharding on ``mesh`` to ``records`` (when given) and returns
+    the tensor unchanged.  A shape that the logical axes do not fit
+    raises, as the reference's ``logical_spec`` does."""
+    def policy(x, logical_axes):
+        shape = tuple(x.shape)
+        sharding = Sharding(mesh, logical_spec(mesh, rules, shape,
+                                               logical_axes))
+        if records is not None:
+            records.append(ActivationRecord(tuple(logical_axes), shape,
+                                            sharding))
+        return x
+    return policy
 
 
 class Lg(tuple):

@@ -8,9 +8,26 @@ package.  Any value that is not a dict is a leaf.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Sequence, Tuple
+import math
+from typing import Any, Callable, Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
+
+
+class ShapeDtype(NamedTuple):
+    """A tensor's shape and dtype with nothing allocated (the counterpart
+    of ``jax.ShapeDtypeStruct``); a leaf of the shape trees."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+    @property
+    def nbytes(self) -> int:
+        return math.prod(self.shape) * self.dtype.itemsize
+
+
+def shapes_of(tree):
+    """The tree of each leaf's :class:`ShapeDtype`."""
+    return tree_map(lambda t: ShapeDtype(tuple(t.shape), t.dtype), tree)
 
 
 def leaves(tree) -> List[Any]:
