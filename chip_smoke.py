@@ -2973,11 +2973,12 @@ def phase_flash_attention(dev):
     kernel tests in both types; Sq < Sk with q_offset; a padded kv whose
     valid length leaves rows fully masked; Sq and Sk that are no multiple
     of the tiles; a contiguous (B, H, S, D) layout; head_dim 256 (bf16 on
-    the CUDA cores) at the main path's sequence.  A bf16 view whose
-    strides TMA cannot take must raise at the kernel; the op takes it
-    (copied), and takes head_dim 16, 48, 80, 96 (zero-padded).  Then times
-    at the main path's shape and at head_dim 256 beside SDPA, which the
-    port never calls."""
+    the tensor cores with 64-key blocks, as at every D) at the main path's
+    sequence.  ptxas must report no spill for any tensor-core entry.  A
+    bf16 view whose strides TMA cannot take must raise at the kernel; the
+    op takes it (copied), and takes head_dim 16, 48, 80, 96 (zero-padded).
+    Then times at the main path's shape and at head_dim 256 beside SDPA,
+    which the port never calls."""
     import torch.nn.functional as F
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention.kernel import \
@@ -2986,17 +2987,26 @@ def phase_flash_attention(dev):
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     # registers and spills from ptxas, shared memory (dynamic) by query
+    tc_spills = {}
     for line in build.build_log("flash_attention").splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
-            kernel = "tensor cores" if "flash_fwd_tc" in name else "CUDA cores"
-            dt = (torch.bfloat16 if "flash_fwd_tc" in name
-                  or "bfloat16" in name else torch.float32)
+            tc = "flash_fwd_tc" in name
+            kernel = "tensor cores" if tc else "CUDA cores"
+            dt = torch.bfloat16 if tc else torch.float32
             d = int(re.search(r"Li(\d+)E", name).group(1))
         elif "registers" in line or "spill" in line:
             print(f"flash_attention {dt} D {d} ({kernel}): {line.strip()}"
                   + (f"; {smem_bytes(dt, d)} B dynamic shared memory"
                      if "registers" in line else ""))
+            if tc and "spill" in line:
+                tc_spills[d] = [int(n) for n in re.findall(
+                    r"(\d+) bytes spill", line)]
+    check(sorted(tc_spills) == [32, 64, 128, 256],
+          f"ptxas reported the tensor-core entries {sorted(tc_spills)}")
+    for d, spills in tc_spills.items():
+        check(spills == [0, 0], f"flash_fwd_tc<{d}> spills {spills} bytes "
+              f"(stores, loads)")
 
     gen = torch.Generator(device=dev).manual_seed(5)
 
@@ -3161,7 +3171,7 @@ def phase_flash_attention(dev):
         # bf16: P.V runs twice (P's bf16 high part and residual), so the
         # kernel's own tensor-core work is 1.5x the function's
         split = (f"; the kernel's 1.5x with P split: {1.5e3 * t_o:.4f} ms"
-                 if dt == torch.bfloat16 and d <= 128 else "")
+                 if dt == torch.bfloat16 else "")
         print(f"flash_attention {label} {shape}: bound {bound:.4f} ms, "
               f"set by {by} ({flops:.4g} flops at {peak / 1e12:.0f} "
               f"TFLOP/s = {1e3 * t_o:.4f} ms{split}; {nbytes} B at 3.35 "

@@ -23,30 +23,34 @@
 // H100's ~295 bf16 tensor-core flops per byte of HBM, so the bound is the
 // tensor cores' 989 TFLOP/s (87 us), not the 3.35 TB/s (30 us).
 //
-// Two kernels, chosen by dtype and head_dim:
+// Two kernels, chosen by dtype alone:
 //
-// bf16 at D = 32, 64, 128: flash_fwd_tc, on the tensor cores (FA3's shape).
+// bf16 (D = 32, 64, 128, 256): flash_fwd_tc, on the tensor cores (FA3's
+// shape).
 //  * one CTA per (q tile of 128 rows, head, batch), 384 threads: one
 //    producer warpgroup, of which one thread issues every copy, and two
 //    consumer warpgroups of 64 q rows each; setmaxnreg moves registers
 //    from the producer (24) to the consumers (240);
-//  * Q arrives once, K and V tiles of 128 keys through a 2-stage ring, all
-//    by TMA (4-d tensor maps over (D, H, S, B) with the caller's byte
-//    strides, encoded on the host and passed as __grid_constant__), into
-//    128-byte-swizzled shared memory (64-byte for D = 32), with mbarrier
-//    full (expect-tx) and empty (consumer release) barriers; K and V have
-//    barriers of their own, so S = Q.K^T starts while V is in flight;
-//  * S = Q.K^T by wgmma m64n128k16 from shared memory (K-major Q and K),
-//    fp32 accumulator in registers; the online softmax runs on the
-//    accumulator fragments (a row's max and sum across its 4 threads by
-//    shuffles), exp2 on logits prescaled by scale * log2(e);
+//  * Q arrives once, K and V tiles of Tile<D>::kBlockK keys (128 up to
+//    D = 128, 64 at D = 256) through a 2-stage ring, all by TMA (4-d
+//    tensor maps over (D, H, S, B) with the caller's byte strides, encoded
+//    on the host and passed as __grid_constant__), into 128-byte-swizzled
+//    shared memory (64-byte for D = 32) in panels of 64 columns, with
+//    mbarrier full (expect-tx) and empty (consumer release) barriers; K
+//    and V have barriers of their own, so S = Q.K^T starts while V is in
+//    flight;
+//  * S = Q.K^T by wgmma m64nBk16 (B = the kv block) from shared memory
+//    (K-major Q and K), fp32 accumulator in registers; the online softmax
+//    runs on the accumulator fragments (a row's max and sum across its 4
+//    threads by shuffles), exp2 on logits prescaled by scale * log2(e);
 //  * P stays in registers: the S accumulator's layout is the A-operand
 //    layout of the next wgmma.  P is split into hi = bf16(p) and lo =
 //    bf16(p - hi), and O += hi.V, O += lo.V are two register-A wgmmas
-//    (m64nDk16) with V read transposed through its descriptor
-//    (MN-major).  One bf16 rounding of P would miss the bf16 pin (one ulp
-//    of the fp32 result) on about a tenth of the outputs; the split keeps
-//    p to ~16 bits, for 1.5x the tensor-core work;
+//    (m64nDk16; n256 at D = 256, the largest wgmma N) with V read
+//    transposed through its descriptor (MN-major).  One bf16 rounding of
+//    P would miss the bf16 pin (one ulp of the fp32 result) on about a
+//    tenth of the outputs; the split keeps p to ~16 bits, for 1.5x the
+//    tensor-core work;
 //  * the softmax is hidden behind products twice over: block j's S is
 //    issued with block j-1's P.V and its softmax runs while that P.V is
 //    in flight, and the two warpgroups take turns (named barriers) to
@@ -57,13 +61,17 @@
 //    not a masked key, so keys past Sk get probability 0 by position;
 //  * causal q tiles run heaviest first: the q tile is the grid's slowest
 //    axis, walked from the last tile down.
-//  Tile sizes: a consumer thread holds S (64 fp32), P hi and lo (64
-//  registers) and O (D / 2 = 64 at D = 128) in its 240 registers; at
-//  D = 128 Q (32 KB) and two stages of K and V (128 KB) leave one CTA an
-//  SM.  On an H100, 128-key blocks ran faster than 64-key ones and a
-//  third stage gained nothing.
+//  Tile sizes: registers bind.  A consumer thread holds O (D / 2 fp32),
+//  S (kBlockK / 2), and P hi and lo (kBlockK / 2 packed) of the block
+//  before, all live at once while the next S is issued: 64 + 64 + 64 at
+//  D = 128 with 128-key blocks, 128 + 32 + 32 at D = 256 with 64-key
+//  blocks, within the 240 registers either way.  Shared memory: Q and two
+//  stages of K and V take 32 + 128 KB at D = 128 and 64 + 4 x 32 KB =
+//  192 KB at D = 256, one CTA an SM.  On an H100 at D = 128, 128-key
+//  blocks ran faster than 64-key ones and a third stage gained nothing; at
+//  D = 256 a third stage does not fit.
 //
-// fp32 (and bf16 at D = 256): flash_fwd_f32, on the CUDA cores (TF32
+// fp32 (D = 32, 64, 128, 256): flash_fwd_f32, on the CUDA cores (TF32
 // would break the fp32 pin).
 //  * one CTA per (q block of 64 rows, head, batch), 256 threads: thread
 //    (r, c) owns row r and the score columns c, c+4, ..., c+60 of each kv
@@ -71,15 +79,11 @@
 //  * Q (scaled later, as the reference), K and V tiles staged in shared
 //    memory: Q and K with a padded row stride (D + 1) so the threads of a
 //    warp hit distinct banks; above 48 KB (D >= 64) this is dynamic
-//    shared memory with the cudaFuncSetAttribute opt-in;
+//    shared memory with the cudaFuncSetAttribute opt-in (213,760 B at
+//    D = 256, one CTA an SM);
 //  * the row max and the row sum go between the row's 4 threads, which
 //    sit in one warp, by shuffles; the probabilities go through a shared
 //    64 x 65 tile to the P.V product.
-//  * D = 256 (at 213,760 B of shared memory, one CTA an SM) serves fp32
-//    and bf16 alike: bf16 at D = 256 cannot take the tensor-core tile (Q
-//    alone would be 64 KB and two K/V stages 256 KB), so it takes this
-//    kernel with bf16 loads, fp32 arithmetic and one rounding to bf16 at
-//    the store.  That is a route chosen by shape, not a fallback.
 //
 // Both run only the kv blocks some valid row of the CTA can see: below
 // the diagonal (first_k <= last_q), inside the window (last_k >= first_q
@@ -145,25 +149,10 @@ constexpr size_t smem_bytes_f32() {
                           kBlockQ * kPStride);
 }
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);              // round to nearest even
-}
-
-// T: the element type of q, k, v and o (float, or bf16 at D = 256); the
-// arithmetic is fp32 either way
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_f32(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o,
+flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o,
               Strides qs, Strides ks, Strides vs, Strides os, Params p) {
   constexpr int QS = D + 1;               // padded row stride of Q and K
   constexpr int kAcc = D / 4;             // output columns a thread owns
@@ -182,14 +171,14 @@ flash_fwd_f32(const T* __restrict__ q, const T* __restrict__ k,
   const int cg = tid & 3;
   const int nq = min(kBlockQ, p.Sq - q0);  // valid rows of this block
 
-  const T* qp = q + b * qs.b + h * qs.h;
-  const T* kp = k + b * ks.b + hk * ks.h;
-  const T* vp = v + b * vs.b + hk * vs.h;
-  T* op = o + b * os.b + h * os.h;
+  const float* qp = q + b * qs.b + h * qs.h;
+  const float* kp = k + b * ks.b + hk * ks.h;
+  const float* vp = v + b * vs.b + hk * vs.h;
+  float* op = o + b * os.b + h * os.h;
 
   for (int i = tid; i < kBlockQ * D; i += kThreads) {
     const int r = i / D, d = i - r * D;
-    Qs[r * QS + d] = r < nq ? to_f32(qp[(int64_t)(q0 + r) * qs.s + d]) : 0.f;
+    Qs[r * QS + d] = r < nq ? qp[(int64_t)(q0 + r) * qs.s + d] : 0.f;
   }
 
   int kb_lo, kb_hi;
@@ -212,8 +201,8 @@ flash_fwd_f32(const T* __restrict__ q, const T* __restrict__ k,
       const int kk = k0 + r;
       float kx = 0.f, vx = 0.f;
       if (kk < p.Sk) {
-        kx = to_f32(kp[(int64_t)kk * ks.s + d]);
-        vx = to_f32(vp[(int64_t)kk * vs.s + d]);
+        kx = kp[(int64_t)kk * ks.s + d];
+        vx = vp[(int64_t)kk * vs.s + d];
       }
       Ks[r * QS + d] = kx;
       Vs[r * D + d] = vx;
@@ -280,14 +269,13 @@ flash_fwd_f32(const T* __restrict__ q, const T* __restrict__ k,
 
   if (row < nq) {
     const float denom = fmaxf(l_i, 1e-30f);
-    T* orow = op + (int64_t)(q0 + row) * os.s;
+    float* orow = op + (int64_t)(q0 + row) * os.s;
 #pragma unroll
-    for (int i = 0; i < kAcc; ++i)
-      orow[cg + 4 * i] = from_f32<T>(acc[i] / denom);
+    for (int i = 0; i < kAcc; ++i) orow[cg + 4 * i] = acc[i] / denom;
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                Strides qs, Strides ks, Strides vs, Strides os, int B,
                Params p, cudaStream_t stream) {
@@ -295,15 +283,16 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
   static bool opted_in = false;            // once per instantiation
   if (!opted_in) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_f32<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)bytes);
     if (e != cudaSuccess) return (int)e;
     opted_in = true;
   }
   dim3 grid((p.Sq + kBlockQ - 1) / kBlockQ, p.H, B);
-  flash_fwd_f32<T, D><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), qs, ks, vs, os, p);
+  flash_fwd_f32<D><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), qs, ks, vs, os,
+      p);
   return (int)cudaGetLastError();
 }
 
@@ -312,7 +301,6 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
 // ---------------------------------------------------------------------------
 
 constexpr int kTcBlockQ = 128;            // q rows a CTA: 2 warpgroups x 64
-constexpr int kTcBlockK = 128;            // keys a kv block (S: n128)
 constexpr int kStages = 2;                // K/V ring depth
 constexpr int kTcThreads = 384;           // producer + 2 consumer warpgroups
 constexpr int kProducerRegs = 24;
@@ -320,12 +308,15 @@ constexpr int kConsumerRegs = 240;
 
 template <int D>
 struct Tile {
+  // keys a kv block (S: m64nBk16): 128 up to D = 128; 64 at D = 256, where
+  // O takes 128 registers a thread and a K/V stage 32 KB
+  static constexpr int kBlockK = D <= 128 ? 128 : 64;
   static constexpr int kPanel = D < 64 ? D : 64;      // columns a swizzle row
   static constexpr int kPanels = D / kPanel;
   static constexpr int kRowBytes = 2 * kPanel;        // 64 or 128
   static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : 2;  // B128 / B64
   static constexpr int kQPanelBytes = kTcBlockQ * kRowBytes;
-  static constexpr int kKvPanelBytes = kTcBlockK * kRowBytes;
+  static constexpr int kKvPanelBytes = kBlockK * kRowBytes;
   static constexpr int kQBytes = kPanels * kQPanelBytes;
   static constexpr int kKvBytes = kPanels * kKvPanelBytes;
   // Q, then K stages, then V stages (each a multiple of 1024 B, so every
@@ -416,6 +407,21 @@ __device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+__device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t a,
+                                          uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 __device__ __forceinline__ void mma_rs_n32(float (&d)[16],
                                           const uint32_t (&a)[4],
                                           uint64_t b, int scale_d) {
@@ -467,12 +473,56 @@ __device__ __forceinline__ void mma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
+__device__ __forceinline__ void mma_rs_n256(float (&d)[128],
+                                           const uint32_t (&a)[4],
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t a,
+                                       uint64_t b, int scale_d) {
+  static_assert(N == 64 || N == 128, "S = Q.K^T: n64 or n128");
+  if constexpr (N == 64) mma_ss_n64(d, a, b, scale_d);
+  else mma_ss_n128(d, a, b, scale_d);
+}
+
 template <int N>
 __device__ __forceinline__ void mma_rs(float (&d)[N / 2],
                                        const uint32_t (&a)[4], uint64_t b) {
+  static_assert(N == 32 || N == 64 || N == 128 || N == 256, "P.V: n = D");
   if constexpr (N == 32) mma_rs_n32(d, a, b, 1);
   else if constexpr (N == 64) mma_rs_n64(d, a, b, 1);
-  else mma_rs_n128(d, a, b, 1);
+  else if constexpr (N == 128) mma_rs_n128(d, a, b, 1);
+  else mma_rs_n256(d, a, b, 1);
 }
 
 __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
@@ -486,9 +536,10 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
              const __grid_constant__ CUtensorMap tv,
              __nv_bfloat16* __restrict__ o, Strides os, Params p) {
   using T = Tile<D>;
-  constexpr int kS = kTcBlockK / 2;        // S accumulator registers
+  constexpr int kBK = T::kBlockK;
+  constexpr int kS = kBK / 2;              // S accumulator registers
   constexpr int kO = D / 2;                // O accumulator registers
-  constexpr int kPSteps = kTcBlockK / 16;  // k16 steps of P.V
+  constexpr int kPSteps = kBK / 16;        // k16 steps of P.V
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t q_s = base, k_s = base + T::kKOff, v_s = base + T::kVOff;
@@ -506,7 +557,7 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
   const int q0 = tile * kTcBlockQ;
   const int hk = h / (p.H / p.Hkv);
   int kb_lo, kb_hi;
-  kv_range(p, q0, min(kTcBlockQ, p.Sq - q0), kTcBlockK, &kb_lo, &kb_hi);
+  kv_range(p, q0, min(kTcBlockQ, p.Sq - q0), kBK, &kb_lo, &kb_hi);
   const int nblocks = kb_hi - kb_lo;
 
   if (threadIdx.x == 0) {
@@ -532,7 +583,7 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
       for (int it = 0; it < nblocks; ++it) {
         const int s = it % kStages;
         const uint32_t ph = ((it / kStages) & 1) ^ 1;
-        const int k0 = (kb_lo + it) * kTcBlockK;
+        const int k0 = (kb_lo + it) * kBK;
         mbar_wait(k_empty(s), ph);
         mbar_expect_tx(k_full(s), T::kKvBytes);
         for (int c = 0; c < T::kPanels; ++c)
@@ -577,7 +628,7 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
     for (int kk = 0; kk < D / 16; ++kk) {
       const int c = kk * 16 / T::kPanel;
       const uint32_t off = (kk * 16 % T::kPanel) * 2;
-      mma_ss_n128(
+      mma_ss<kBK>(
           sc,
           smem_desc(q_wg + c * T::kQPanelBytes + off, 16, 8 * T::kRowBytes,
                     T::kLayout),
@@ -613,8 +664,8 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
   auto softmax = [&](int k0, float& corr0, float& corr1) {
     // logits in log2 units; masks only where the block needs them
     const bool masked =
-        k0 + kTcBlockK > k_lim ||
-        (p.causal && (k0 + kTcBlockK - 1 > wq_first ||
+        k0 + kBK > k_lim ||
+        (p.causal && (k0 + kBK - 1 > wq_first ||
                       (p.window > 0 && wq_last - k0 >= p.window)));
     if (masked) {
 #pragma unroll
@@ -700,7 +751,7 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
     wgmma_wait<0>();
     reg_fence(sc);
     mbar_arrive(k_empty(0));
-    softmax(kb_lo * kTcBlockK, corr0, corr1);  // O is still 0
+    softmax(kb_lo * kBK, corr0, corr1);  // O is still 0
     split_p();
     for (int it = 1; it < nblocks; ++it) {
       const int s = it % kStages, prev = (it - 1) % kStages;
@@ -713,7 +764,7 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
       wgmma_wait<1>();                     // S has landed, P.V may not
       reg_fence(sc);
       mbar_arrive(k_empty(s));
-      softmax((kb_lo + it) * kTcBlockK, corr0, corr1);
+      softmax((kb_lo + it) * kBK, corr0, corr1);
       wgmma_wait<0>();
       reg_fence(acc);
       reg_fence(p_hi);
@@ -815,8 +866,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
   }
   CUtensorMap tq, tk, tv;
   if (!tensor_map<D>(&tq, q, B, p.H, p.Sq, qs, kTcBlockQ) ||
-      !tensor_map<D>(&tk, k, B, p.Hkv, p.Sk, ks, kTcBlockK) ||
-      !tensor_map<D>(&tv, v, B, p.Hkv, p.Sk, vs, kTcBlockK))
+      !tensor_map<D>(&tk, k, B, p.Hkv, p.Sk, ks, Tile<D>::kBlockK) ||
+      !tensor_map<D>(&tv, v, B, p.Hkv, p.Sk, vs, Tile<D>::kBlockK))
     return (int)cudaErrorInvalidValue;
   dim3 grid(p.H, B, (p.Sq + kTcBlockQ - 1) / kTcBlockQ);
   flash_fwd_tc<D><<<grid, kTcThreads, bytes, stream>>>(
@@ -826,9 +877,10 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// dtype: 0 = fp32 (CUDA cores), 1 = bf16 (D <= 128: tensor cores, q, k, v
-// 16-byte aligned with strides of multiples of 8 elements, as TMA needs;
-// D = 256: the CUDA cores, any strides).  D: 32, 64, 128 or 256.  Strides are in elements, (b, h, s) for each of q, k, v, o.
+// dtype: 0 = fp32 (CUDA cores, any strides), 1 = bf16 (tensor cores; q, k,
+// v 16-byte aligned with strides of multiples of 8 elements, as TMA needs,
+// o 4-byte aligned with even strides).  D: 32, 64, 128 or 256.  Strides
+// are in elements, (b, h, s) for each of q, k, v, o.
 // Launches on `stream`; returns cudaGetLastError() (0 = launched).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, int D,
@@ -846,22 +898,20 @@ extern "C" int flash_attention_fwd(
   if (dtype == 0) {
     switch (D) {
       case 32:
-        return launch_f32<float, 32>(q, k, v, o, qs, ks, vs, os, B, p, s);
+        return launch_f32<32>(q, k, v, o, qs, ks, vs, os, B, p, s);
       case 64:
-        return launch_f32<float, 64>(q, k, v, o, qs, ks, vs, os, B, p, s);
+        return launch_f32<64>(q, k, v, o, qs, ks, vs, os, B, p, s);
       case 128:
-        return launch_f32<float, 128>(q, k, v, o, qs, ks, vs, os, B, p, s);
+        return launch_f32<128>(q, k, v, o, qs, ks, vs, os, B, p, s);
       case 256:
-        return launch_f32<float, 256>(q, k, v, o, qs, ks, vs, os, B, p, s);
+        return launch_f32<256>(q, k, v, o, qs, ks, vs, os, B, p, s);
     }
   } else if (dtype == 1) {
     switch (D) {
       case 32: return launch_tc<32>(q, k, v, o, qs, ks, vs, os, B, p, s);
       case 64: return launch_tc<64>(q, k, v, o, qs, ks, vs, os, B, p, s);
       case 128: return launch_tc<128>(q, k, v, o, qs, ks, vs, os, B, p, s);
-      case 256:
-        return launch_f32<__nv_bfloat16, 256>(q, k, v, o, qs, ks, vs, os, B,
-                                              p, s);
+      case 256: return launch_tc<256>(q, k, v, o, qs, ks, vs, os, B, p, s);
     }
   }
   return (int)cudaErrorInvalidValue;
@@ -878,7 +928,19 @@ extern "C" int flash_attention_smem_bytes(int dtype, int D) {
     case 1032: return Tile<32>::kSmemBytes;
     case 1064: return Tile<64>::kSmemBytes;
     case 1128: return Tile<128>::kSmemBytes;
-    case 1256: return (int)smem_bytes_f32<256>();
+    case 1256: return Tile<256>::kSmemBytes;
+  }
+  return -1;
+}
+
+// keys a kv block of the tensor-core kernel at D (bf16); -1 for a D it is
+// not instantiated for
+extern "C" int flash_attention_tc_block_k(int D) {
+  switch (D) {
+    case 32: return Tile<32>::kBlockK;
+    case 64: return Tile<64>::kBlockK;
+    case 128: return Tile<128>::kBlockK;
+    case 256: return Tile<256>::kBlockK;
   }
   return -1;
 }

@@ -5,17 +5,16 @@
 Blockwise online softmax with GQA (K/V never repeated), causal,
 sliding-window and valid-length masks, fully masked kv blocks skipped.
 Instantiated for head_dim 32, 64, 128 and 256; the op pads any other
-head_dim up to one of them.  The route is chosen by dtype and head_dim:
-bf16 at D <= 128 runs on the tensor cores: one CTA per (q tile of 128
-rows, head, batch), ``wgmma`` products, K/V tiles of 128 keys fed by TMA
-through a 2-stage ring, P kept in registers as a bf16 high part and
-residual.  fp32 runs on the CUDA cores in fp32 (q blocks of 64), since
-TF32 would miss the fp32 pin; so does bf16 at D = 256, whose Q tile and
-K/V stages would not fit an SM's shared memory on the tensor-core path
-(bf16 loads, fp32 arithmetic, one rounding at the store).  The kernel
-reads every operand by its strides (d contiguous), so a ``(B, S, H, D)``
-tensor transposed to ``(B, H, S, D)`` is read in place; TMA needs bf16 q,
-k, v on 16-byte-aligned addresses with strides of multiples of 16 bytes
+head_dim up to one of them.  The route is chosen by dtype (:func:`route`):
+bf16 runs on the tensor cores at every head_dim: one CTA per (q tile of
+128 rows, head, batch), ``wgmma`` products, K/V tiles fed by TMA through a
+2-stage ring (:data:`TC_BLOCK_K` keys: 128 up to D = 128, 64 at D = 256,
+where O takes 128 registers a thread), P kept in registers as a bf16 high
+part and residual.  fp32 runs on the CUDA cores in fp32 (q blocks of 64),
+since TF32 would miss the fp32 pin.  The kernel reads every operand by its
+strides (d contiguous), so a ``(B, S, H, D)`` tensor transposed to
+``(B, H, S, D)`` is read in place; TMA needs bf16 q, k, v on
+16-byte-aligned addresses with strides of multiples of 16 bytes
 (:func:`tma_ok`), and the wrapper raises on any other.  Forward only:
 the reference has no VJP for its kernel, and neither has this one.  Built
 by ``nvcc`` at first use and called through ``ctypes``.
@@ -32,7 +31,10 @@ from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # dtype codes of the source
 HEAD_DIMS = (32, 64, 128, 256)                   # instantiated D
-TC_MAX_HEAD_DIM = 128         # bf16 up to here: tensor cores and TMA
+TC_MAX_HEAD_DIM = 256         # bf16 up to here: tensor cores and TMA
+# keys a kv block of the tensor-core kernel, by D (the source's
+# Tile<D>::kBlockK, which flash_attention_tc_block_k reports)
+TC_BLOCK_K = {32: 128, 64: 128, 128: 128, 256: 64}
 _MAX_GRID_YZ = 65535
 
 
@@ -45,6 +47,23 @@ def _lib():
                    + [i32, i32, i32, ctypes.c_float, p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """Which kernel of the source takes ``dtype`` at an instantiated
+    ``head_dim``: ``"tensor cores"`` (bf16: ``wgmma`` and TMA, operands as
+    :func:`tma_ok` says) or ``"cuda cores"`` (fp32)."""
+    return ("tensor cores" if dtype == torch.bfloat16
+            and head_dim <= TC_MAX_HEAD_DIM else "cuda cores")
+
+
+def tc_block_k(head_dim: int) -> int:
+    """Keys a kv block of the built tensor-core kernel at ``head_dim``
+    (builds the kernel if needed)."""
+    fn = build.load("flash_attention").flash_attention_tc_block_k
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(head_dim)
 
 
 def smem_bytes(dtype: torch.dtype, head_dim: int) -> int:
@@ -93,8 +112,8 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                            ) -> torch.Tensor:
     """q: (B, H, Sq, D); k/v: (B, Hkv, Sk, D), H % Hkv == 0, D in
     ``HEAD_DIMS``, all fp32 or all bf16 on one CUDA device, any strides
-    with the last dimension contiguous (bf16 at D <= 128: what TMA takes,
-    see the module's note).  Returns
+    with the last dimension contiguous (bf16: what TMA takes, see the
+    module's note).  Returns
     (B, H, Sq, D) in q's dtype, written into ``out`` when given (any such
     strided view, e.g. a transposed ``(B, S, H, D)`` buffer).
 
@@ -143,7 +162,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"out {tuple(out.shape)} {out.dtype}, need "
                          f"{tuple(q.shape)} {q.dtype}")
     strides = (*_strides(q), *_strides(k), *_strides(v), *_strides(out))
-    if q.dtype == torch.bfloat16 and d <= TC_MAX_HEAD_DIM:
+    if route(q.dtype, d) == "tensor cores":
         for name, t in (("q", q), ("k", k), ("v", v)):
             _check_tma(name, t, 16)
         _check_tma("out", out, 4)

@@ -12,8 +12,8 @@ a head_dim it is not instantiated for is zero-padded to the next one
 address or strides TMA cannot take (``kernel.tma_ok``) is copied to a
 fresh contiguous buffer.  A CPU tensor takes the plain version
 (``ref.py``).  The TPU op's block sizes and ``interpret`` switch have no
-counterpart here: the kernel fixes its own tiles (bf16: 128 q rows by 128
-keys on the tensor cores; fp32, and bf16 at D = 256: 64 by 64).
+counterpart here: the kernel fixes its own tiles (bf16, on the tensor
+cores: 128 q rows by 128 keys, 64 keys at D = 256; fp32: 64 by 64).
 
 Forward only, as the reference: a tensor that requires grad raises on
 either device.
@@ -26,9 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention.kernel import (HEAD_DIMS,
-                                                        TC_MAX_HEAD_DIM,
                                                         flash_attention_kernel,
-                                                        tma_ok)
+                                                        route, tma_ok)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 
@@ -76,7 +75,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "VJP; run it under torch.no_grad() or use the plain attention")
     if q.device.type == "cuda":
         qp, kp, vp, scale, d = pad_head_dim(q, k, v)
-        if q.dtype == torch.bfloat16 and qp.shape[-1] <= TC_MAX_HEAD_DIM:
+        if route(q.dtype, qp.shape[-1]) == "tensor cores":
             qt, kt, vt = (_tma_ready(t) for t in (qp, kp, vp))
         else:
             qt, kt, vt = (t.transpose(1, 2) for t in (qp, kp, vp))

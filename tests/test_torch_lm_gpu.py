@@ -3,9 +3,9 @@ CUDA).
 
 The flash_attention kernel against its plain version at the attention
 layers the new architectures give it, at their full width (B 2, S 2048):
-recurrentgemma-9b's 16 heads on 1 kv head of 256 with a 2048 window (the
-CUDA-core kernel), granite-20b's 48 heads on 1 and llama3-405b's 128 on
-8 (bf16 on the tensor cores; fp32 on the CUDA cores).  And two MoE
+recurrentgemma-9b's 16 heads on 1 kv head of 256 with a 2048 window,
+granite-20b's 48 heads on 1 and llama3-405b's 128 on 8 (bf16 on the
+tensor cores at every head_dim; fp32 on the CUDA cores).  And two MoE
 forwards at olmoe-1b-7b's routing, equal bit for bit: the combine has no
 float atomics.  And LM training on the card (twins of
 ``tests/test_torch_train.py``): a train step against the same step on

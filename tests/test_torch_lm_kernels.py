@@ -27,8 +27,10 @@ from repro.kernels.flash_attention.ops import flash_attention as jflash
 from repro.kernels.wkv6.ops import wkv6 as jwkv6
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.kernel import (HEAD_DIMS,
+                                                        TC_BLOCK_K,
                                                         flash_attention_kernel,
-                                                        tma_ok)
+                                                        route, smem_bytes,
+                                                        tc_block_k, tma_ok)
 from repro_torch.kernels.flash_attention.ops import (_tma_ready,
                                                      flash_attention,
                                                      pad_head_dim,
@@ -139,6 +141,14 @@ BF16_PIN = dict(rtol=2 ** -7, atol=1e-5)
 TC_CASES = ([c + (0, None) for c in FLASH_CASES]
             + [(1, 100, 300, 8, 2, 128, True, 0, 200, None),
                (2, 70, 150, 4, 2, 64, True, 16, 100, 100)])
+# head_dim 256 (64-key blocks): recurrentgemma-9b's GQA 16/1 with a window,
+# q_offset with Sq < Sk, rows that a window and a valid length leave with
+# no key, and Sq / Sk that are no multiple of the 128-row q tile or the
+# 64-key block, causal and not
+TC_CASES_256 = [(1, 130, 130, 16, 1, 256, True, 64, 0, None),
+                (1, 70, 200, 4, 2, 256, True, 0, 130, None),
+                (2, 70, 150, 4, 2, 256, True, 16, 100, 100),
+                (2, 130, 190, 4, 2, 256, False, 0, 0, None)]
 
 
 def _tc_emulation(q, k, v, *, causal, window, q_offset=0, seq_k_valid=None,
@@ -189,18 +199,31 @@ def _tc_case_inputs(case):
                                         seed=sum(case[:6])))
 
 
-@pytest.mark.parametrize("case", TC_CASES)
+@pytest.mark.parametrize("case", TC_CASES + TC_CASES_256)
 def test_flash_tensor_core_numerics_hold_the_bf16_pin(case):
     """The split of P keeps the redesigned kernel within one bf16 ulp of
-    the plain version, at the unchanged pin."""
+    the plain version, at the unchanged pin, with the kv block the kernel
+    takes at the case's head_dim (64 keys at D = 256)."""
     causal, window, q_offset, skv = case[6:]
     q, k, v = _tc_case_inputs(case)
     kw = dict(causal=causal, window=window, q_offset=q_offset,
               seq_k_valid=skv)
-    got = _tc_emulation(q, k, v, **kw)
+    got = _tc_emulation(q, k, v, block_k=TC_BLOCK_K[case[5]], **kw)
     want = attention_ref(q, k, v, **kw)
     assert got.shape == want.shape and got.dtype == torch.bfloat16
     torch.testing.assert_close(got.float(), want.float(), **BF16_PIN)
+
+
+def test_flash_route_sends_bf16_to_the_tensor_cores_at_every_head_dim():
+    """bf16 at every instantiated head_dim, 256 included, takes the
+    tensor-core kernel (and so TMA's operand rules); fp32 takes the
+    CUDA-core kernel at every head_dim; the op asks the same chooser for
+    the padded head_dim."""
+    assert HEAD_DIMS == (32, 64, 128, 256)
+    for d in HEAD_DIMS:
+        assert route(torch.bfloat16, d) == "tensor cores", d
+        assert route(torch.float32, d) == "cuda cores", d
+    assert TC_BLOCK_K == {32: 128, 64: 128, 128: 128, 256: 64}
 
 
 # head_dims the kernel is not built for, each padded to the next of
@@ -488,8 +511,9 @@ def test_flash_kernel_refuses_what_tma_cannot_take_on_gpu(cuda, view):
 @pytest.mark.parametrize("d", [16, 80, 96, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_op_takes_every_head_dim_on_gpu(cuda, d, dtype):
-    """Padded to 32 / 128 / 128 by the op, 256 as it is (bf16 there on the
-    CUDA cores), within the unchanged pins."""
+    """Padded to 32 / 128 / 128 by the op, 256 as it is (bf16 on the
+    tensor cores at every head_dim, fp32 on the CUDA cores), within the
+    unchanged pins."""
     q, k, v = (torch.tensor(a, device=cuda).to(dtype) for a in
                _flash_inputs(2, 150, 150, 4, 2, d, seed=63 + d))
     before = flash_attention_kernel.launches
@@ -518,6 +542,55 @@ def test_flash_op_copies_what_tma_cannot_take_on_gpu(cuda, view):
     want = attention_ref(*(t.transpose(1, 2) for t in (q, k, v))
                          ).transpose(1, 2)
     torch.testing.assert_close(got.float(), want.float(), **BF16_PIN)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", TC_CASES_256)
+def test_flash_kernel_head_dim_256_bf16_on_gpu(cuda, case):
+    """bf16 at D = 256 on the tensor cores (64-key blocks) against the
+    plain version at the bf16 pin: GQA 16/1 with a window, q_offset with
+    Sq < Sk, rows with no key, ragged tiles."""
+    causal, window, q_offset, skv = case[6:]
+    q, k, v = (t.to(cuda) for t in _tc_case_inputs(case))
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              seq_k_valid=skv)
+    before = flash_attention_kernel.launches
+    got = flash_attention_kernel(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_kernel.launches == before + 1
+    torch.testing.assert_close(got.float(), attention_ref(q, k, v, **kw)
+                               .float(), **BF16_PIN)
+
+
+@pytest.mark.gpu
+def test_flash_head_dim_256_bf16_refuses_and_the_op_copies_on_gpu(cuda):
+    """A bf16 D = 256 q whose head stride TMA cannot take (516 bytes)
+    raises at the kernel, launching nothing; the op copies it and
+    matches the plain version."""
+    k, v = (torch.randn(1, 16, 2, 256, device=cuda, dtype=torch.bfloat16)
+            for _ in range(2))
+    q = torch.randn(1, 16, 2, 258, device=cuda,
+                    dtype=torch.bfloat16)[..., :256]
+    before = flash_attention_kernel.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_kernel(*(t.transpose(1, 2) for t in (q, k, v)))
+    assert flash_attention_kernel.launches == before
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention_kernel.launches == before + 1
+    want = attention_ref(*(t.transpose(1, 2) for t in (q, k, v))
+                         ).transpose(1, 2)
+    torch.testing.assert_close(got.float(), want.float(), **BF16_PIN)
+
+
+@pytest.mark.gpu
+def test_flash_tensor_core_tiles_fit_on_gpu(cuda):
+    """Every bf16 tile fits a block's 227 KB of shared memory, and the
+    built kernel's kv block at each D is the one the CPU emulation takes
+    (``TC_BLOCK_K``)."""
+    for d in HEAD_DIMS:
+        assert 0 < smem_bytes(torch.bfloat16, d) <= 232_448, d
+        assert tc_block_k(d) == TC_BLOCK_K[d], d
 
 
 def _offset(a, cuda, off):
@@ -578,14 +651,17 @@ def test_wkv6_kernel_matches_plain_version_on_gpu(cuda, case):
 
 if __name__ == "__main__":
     # outputs outside the bf16 pin: P split into hi + lo vs rounded once
-    for case in TC_CASES + [(1, 2048, 2048, 4, 4, 128, True, 0, 0, None)]:
+    for case in TC_CASES + TC_CASES_256 + [
+            (1, 2048, 2048, 4, 4, 128, True, 0, 0, None),
+            (1, 2048, 2048, 4, 4, 256, True, 0, 0, None)]:
         q, k, v = _tc_case_inputs(case)
         kw = dict(causal=case[6], window=case[7], q_offset=case[8],
                   seq_k_valid=case[9])
         want = attention_ref(q, k, v, **kw).float()
         line = []
         for split in (True, False):
-            got = _tc_emulation(q, k, v, split=split, **kw).float()
+            got = _tc_emulation(q, k, v, split=split,
+                                block_k=TC_BLOCK_K[case[5]], **kw).float()
             bad = int((~torch.isclose(got, want, **BF16_PIN)).sum())
             line.append(f"{'split' if split else 'single'} {bad}/"
                         f"{got.numel()} ({100 * bad / got.numel():.2f}%), "

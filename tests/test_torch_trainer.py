@@ -20,6 +20,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_parity import BN_FED_BIASES, close_to_reference
+from _torch_parity import paths as _paths
 
 from repro.configs.registry import get_config as jget_config
 from repro.core.devices import make_pool as jmake_pool
@@ -50,25 +52,10 @@ SMALL = {"shape.global_batch": 8, "fsl.num_clients": 2,
          "model.dcgan.base_filters": 8}
 # the JAX kernel runs as the JAX tests run it; the port ignores the flag
 KERNEL = {"fed.kernel_aggregation": True, "fed.kernel_interpret": True}
-# Biases that feed straight into a batch norm: their analytic gradient is
-# zero, the float gradient is rounding noise of 1e-7 .. 7e-7 (10-70x
-# Adam's eps), so each Adam step moves them by about +-lr with a sign the
-# noise picks, and the noise differs between frameworks.  They change no
-# output.  Instead of the 1e-4 of the other leaves, each side must stay
-# within lr x Adam steps of the shared initial value; the two sides can
-# then differ by up to twice that.
-BN_FED_BIASES = {("conv1", "b"), ("conv2", "b"), ("deconv0", "b"),
-                 ("deconv1", "b")}
 
 
 def _np(tree):
     return jax.tree.map(np.asarray, tree)
-
-
-def _paths(tree, prefix=()):
-    if not isinstance(tree, dict):
-        return [prefix]
-    return [p for k in sorted(tree) for p in _paths(tree[k], prefix + (k,))]
 
 
 @pytest.fixture(scope="module")
@@ -255,32 +242,9 @@ TOPOLOGIES = {"flat": {}, "hier": {"fed.hierarchy_cohorts": 2},
 
 
 def _close_to_reference(tr, got, want, start, noise_steps=False):
-    """The parity rule of ``test_train_epoch_matches_jax``: every leaf
-    within 1e-4 absolute, BN-fed biases each within lr x Adam steps of
-    their shared start.
-
-    ``noise_steps`` (the generator): Adam's first step moves an element by
-    lr * g / (|g| + eps), so an element whose gradient is at rounding level
-    (|g| ~ eps = 1e-8) moves by a fraction of lr that the rounding picks,
-    as the BN-fed biases do every step.  Measured in the async round:
-    G proj.w[53, 569] had a first-step gradient of +4.2e-9 here and -6.7e-9
-    in JAX, a step difference of 1.39e-4 (ROADMAP Queue C).  Such elements
-    may exceed 1e-4, at most one in 10,000 of a leaf, each within
-    2 x lr x steps (the most two Adam walks can part)."""
-    drift = tr.cfg.optim.lr * ROUNDS * BATCHES
-    for path, g, w, s in zip(_paths(got), leaves(got),
-                             jax.tree.leaves(want), jax.tree.leaves(start)):
-        if path[-2:] in BN_FED_BIASES:
-            for side in (g.numpy(), w):
-                np.testing.assert_allclose(side, s, rtol=0, atol=drift,
-                                           err_msg=str(path))
-        elif noise_steps:
-            diff = np.abs(g.numpy() - w)
-            assert int((diff > 1e-4).sum()) <= g.numel() // 10_000, path
-            assert float(diff.max()) <= 2 * drift, path
-        else:
-            np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-4,
-                                       err_msg=str(path))
+    """``_torch_parity.close_to_reference`` over this module's rounds."""
+    close_to_reference(got, want, start, tr.cfg.optim.lr * ROUNDS * BATCHES,
+                       noise_steps)
 
 
 @pytest.mark.parametrize("codec", ["none", "fp16", "int8"])

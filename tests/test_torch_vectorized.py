@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 from _torch_gpu import cuda_fp32  # noqa: F401  (a fixture)
+from _torch_parity import close_to_reference
+from _torch_parity import paths as _paths
 from jax.sharding import AbstractMesh
 
 from repro.configs.registry import get_config as jget_config
@@ -46,15 +48,7 @@ SMALL = {"shape.global_batch": 8, "fsl.num_clients": 2,
 LOSS_TOL = dict(rtol=1e-5, atol=1e-5)
 PARAM_TOL = dict(rtol=5e-5, atol=5e-5)
 DEAD_BIASES = {("conv1", "b"), ("conv2", "b")}
-# the JAX parity rule's BN-fed biases (D and G)
-BN_FED_BIASES = DEAD_BIASES | {("deconv0", "b"), ("deconv1", "b")}
 CPU = torch.device("cpu")
-
-
-def _paths(tree, prefix=()):
-    if not isinstance(tree, dict):
-        return [prefix]
-    return [p for k in sorted(tree) for p in _paths(tree[k], prefix + (k,))]
 
 
 def _np(tree):
@@ -364,9 +358,15 @@ JAX_CASES = {
 def test_vectorized_round_matches_jax_vectorized(parts, case):
     """The port's vectorized round against the JAX trainer's vectorized
     round (its dp_clip as the plain reference inside the jitted program)
-    from the same parameters: losses at 1e-4 relative, parameters at 1e-4
-    absolute (BN-fed biases within lr x Adam steps of their start), every
-    other metric exactly."""
+    from the same parameters: losses at 1e-4 relative, every other metric
+    exactly, parameters to the parity rule of tests/test_torch_trainer.py
+    (``close_to_reference``): D at 1e-4 absolute, G the same with
+    rounding-level Adam steps allowed (``noise_steps``), BN-fed biases
+    within lr x Adam steps of their start.  Through the int8 split, 336 of
+    the 266,240 crossing codes come out one quantum apart from JAX's (an
+    input within rounding of a tie; the two codecs agree on equal inputs),
+    and the kinks that those flips move make G's gradient jump:
+    6 of 156,800 elements of G proj.w end 1.1e-4 to 1.9e-4 apart."""
     from repro_torch.bridge import params_from_numpy
     over = {**SMALL, **JAX_CASES[case], "fed.backend": "vectorized"}
     jtr = JTrainer(jget_config("dcgan-mnist").override(over), parts, seed=0)
@@ -385,19 +385,10 @@ def test_vectorized_round_matches_jax_vectorized(parts, case):
         for k in set(m) - {"d_loss", "g_loss"}:
             assert m[k] == jm[k], k
     drift = tr.cfg.optim.lr * ROUNDS * BATCHES
-    for got, want, start in (
-            (tr.state.g_params, _np(jtr.state.g_params), g0),
-            (tr.state.d_params[cid0], _np(jtr.state.d_params[cid0]), d0)):
-        for path, g, w, s in zip(_paths(got), leaves(got),
-                                 jax.tree.leaves(want),
-                                 jax.tree.leaves(start)):
-            if path[-2:] in BN_FED_BIASES:
-                for side in (g.numpy(), w):
-                    np.testing.assert_allclose(side, s, rtol=0, atol=drift,
-                                               err_msg=str(path))
-            else:
-                np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-4,
-                                           err_msg=str(path))
+    close_to_reference(tr.state.g_params, _np(jtr.state.g_params), g0, drift,
+                       noise_steps=True)
+    close_to_reference(tr.state.d_params[cid0],
+                       _np(jtr.state.d_params[cid0]), d0, drift)
 
 
 # ---------------------------------------------------------------------------
