@@ -5,19 +5,20 @@
 Blockwise online softmax with GQA (K/V never repeated), causal,
 sliding-window and valid-length masks, fully masked kv blocks skipped.
 Instantiated for head_dim 32, 64, 128 and 256; the op pads any other
-head_dim up to one of them.  The route is chosen by dtype (:func:`route`):
-bf16 runs on the tensor cores at every head_dim: one CTA per (q tile of
-128 rows, head, batch), ``wgmma`` products, K/V tiles fed by TMA through a
-2-stage ring (:data:`TC_BLOCK_K` keys: 128 up to D = 128, 64 at D = 256,
-where O takes 128 registers a thread), P kept in registers as a bf16 high
-part and residual.  fp32 runs on the CUDA cores in fp32 (q blocks of 64),
-since TF32 would miss the fp32 pin.  The kernel reads every operand by its
-strides (d contiguous), so a ``(B, S, H, D)`` tensor transposed to
-``(B, H, S, D)`` is read in place; TMA needs bf16 q, k, v on
-16-byte-aligned addresses with strides of multiples of 16 bytes
-(:func:`tma_ok`), and the wrapper raises on any other.  Forward only:
-the reference has no VJP for its kernel, and neither has this one.  Built
-by ``nvcc`` at first use and called through ``ctypes``.
+head_dim up to one of them.  The route is chosen by dtype alone
+(:func:`on_tensor_cores`).  bf16 runs on the tensor cores at every
+head_dim: one CTA per (q tile of 128 rows, head, batch), ``wgmma``
+products, K/V tiles fed by TMA through a 2-stage ring (:data:`TC_BLOCK_K`
+keys: 128 up to D = 128, 64 at D = 256, where O takes 128 registers a
+thread), P kept in registers as a bf16 high part and residual.  fp32 runs
+on the CUDA cores in fp32 (q blocks of 64), since TF32 would miss the
+fp32 pin.  The kernel reads every operand by its strides (d contiguous),
+so a ``(B, S, H, D)`` tensor transposed to ``(B, H, S, D)`` is read in
+place; TMA needs bf16 q, k, v on 16-byte-aligned addresses with strides
+of multiples of 16 bytes (:func:`tma_ok`), and the wrapper raises on any
+other.  Forward only: the reference has no VJP for its kernel, and
+neither has this one.  Built by ``nvcc`` at first use and called through
+``ctypes``.
 """
 from __future__ import annotations
 
@@ -31,7 +32,6 @@ from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # dtype codes of the source
 HEAD_DIMS = (32, 64, 128, 256)                   # instantiated D
-TC_MAX_HEAD_DIM = 256         # bf16 up to here: tensor cores and TMA
 # keys a kv block of the tensor-core kernel, by D (the source's
 # Tile<D>::kBlockK, which flash_attention_tc_block_k reports)
 TC_BLOCK_K = {32: 128, 64: 128, 128: 128, 256: 64}
@@ -49,12 +49,11 @@ def _lib():
     return fn
 
 
-def route(dtype: torch.dtype, head_dim: int) -> str:
-    """Which kernel of the source takes ``dtype`` at an instantiated
-    ``head_dim``: ``"tensor cores"`` (bf16: ``wgmma`` and TMA, operands as
-    :func:`tma_ok` says) or ``"cuda cores"`` (fp32)."""
-    return ("tensor cores" if dtype == torch.bfloat16
-            and head_dim <= TC_MAX_HEAD_DIM else "cuda cores")
+def on_tensor_cores(dtype: torch.dtype) -> bool:
+    """Whether ``dtype`` takes the source's tensor-core kernel (bf16:
+    ``wgmma`` and TMA, operands as :func:`tma_ok` says) at every
+    instantiated head_dim; fp32 takes the CUDA-core kernel."""
+    return dtype == torch.bfloat16
 
 
 def tc_block_k(head_dim: int) -> int:
@@ -162,7 +161,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"out {tuple(out.shape)} {out.dtype}, need "
                          f"{tuple(q.shape)} {q.dtype}")
     strides = (*_strides(q), *_strides(k), *_strides(v), *_strides(out))
-    if route(q.dtype, d) == "tensor cores":
+    if on_tensor_cores(q.dtype):
         for name, t in (("q", q), ("k", k), ("v", v)):
             _check_tma(name, t, 16)
         _check_tma("out", out, 4)

@@ -27,7 +27,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention.kernel import (HEAD_DIMS,
                                                         flash_attention_kernel,
-                                                        route, tma_ok)
+                                                        on_tensor_cores,
+                                                        tma_ok)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 
@@ -75,7 +76,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "VJP; run it under torch.no_grad() or use the plain attention")
     if q.device.type == "cuda":
         qp, kp, vp, scale, d = pad_head_dim(q, k, v)
-        if route(q.dtype, qp.shape[-1]) == "tensor cores":
+        if on_tensor_cores(q.dtype):
             qt, kt, vt = (_tma_ready(t) for t in (qp, kp, vp))
         else:
             qt, kt, vt = (t.transpose(1, 2) for t in (qp, kp, vp))

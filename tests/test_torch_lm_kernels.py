@@ -29,7 +29,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.kernel import (HEAD_DIMS,
                                                         TC_BLOCK_K,
                                                         flash_attention_kernel,
-                                                        route, smem_bytes,
+                                                        on_tensor_cores,
+                                                        smem_bytes,
                                                         tc_block_k, tma_ok)
 from repro_torch.kernels.flash_attention.ops import (_tma_ready,
                                                      flash_attention,
@@ -215,15 +216,15 @@ def test_flash_tensor_core_numerics_hold_the_bf16_pin(case):
 
 
 def test_flash_route_sends_bf16_to_the_tensor_cores_at_every_head_dim():
-    """bf16 at every instantiated head_dim, 256 included, takes the
-    tensor-core kernel (and so TMA's operand rules); fp32 takes the
-    CUDA-core kernel at every head_dim; the op asks the same chooser for
-    the padded head_dim."""
+    """The route depends on dtype alone: bf16 takes the tensor-core
+    kernel (and so TMA's operand rules), fp32 the CUDA-core kernel; every
+    instantiated head_dim, 256 included, has a tensor-core kv block, the
+    one the CPU emulation takes (``TC_BLOCK_K``, a multiple of 16)."""
+    assert on_tensor_cores(torch.bfloat16)
+    assert not on_tensor_cores(torch.float32)
     assert HEAD_DIMS == (32, 64, 128, 256)
-    for d in HEAD_DIMS:
-        assert route(torch.bfloat16, d) == "tensor cores", d
-        assert route(torch.float32, d) == "cuda cores", d
-    assert TC_BLOCK_K == {32: 128, 64: 128, 128: 128, 256: 64}
+    assert set(TC_BLOCK_K) == set(HEAD_DIMS)
+    assert all(bk % 16 == 0 for bk in TC_BLOCK_K.values())
 
 
 # head_dims the kernel is not built for, each padded to the next of
