@@ -643,7 +643,13 @@ class ObsConfig:
 
       * spans for round -> download -> client-execution -> split-segment ->
         boundary-crossing -> uplink -> aggregate on the engine's virtual
-        clock (plus wall-clock host spans), exported as Chrome-trace JSON;
+        clock, exported as Chrome-trace JSON; with ``trace_clock`` ``wall``
+        or ``both`` also the program's host spans of each round (round >
+        engine > client > sample / group > batch, uplink, reduce; commit,
+        g_update, feedback; ``repro_torch/obs/trace.py``) on the system
+        clock that ``torch.profiler`` traces count from, absolute
+        timestamps in the export, each with the host-device syncs made in
+        it on the card;
       * a typed metric registry fed from each round's ``RoundFeedback``,
         snapshotted to ``metrics.jsonl``;
       * the full ``RoundFeedback`` + knob-decision history as JSONL, enough

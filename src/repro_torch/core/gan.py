@@ -59,6 +59,7 @@ from __future__ import annotations
 import functools
 import time
 import warnings
+from contextlib import nullcontext
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
@@ -90,6 +91,7 @@ from repro_torch.obs import FlightRecorder, profile_engine_kernels
 from repro_torch.obs.digest import RoundDigest, state_digest, tree_digest
 from repro_torch.obs.health import (SEV_FATAL, HealthAbort, HealthAlert,
                                     HealthMonitor)
+from repro_torch.obs.trace import span
 from repro_torch.optim import make_optimizer
 from repro_torch.privacy.defenses import (RDPAccountant, make_dp_d_step,
                                           make_uplink_stage)
@@ -725,10 +727,11 @@ class FSLGANTrainer:
         """Server G update against the averaged D (never touches real data)."""
         st = self.state
         g_losses = []
-        for _ in range(batches):
-            st.g_params, st.g_opt, gl = self._g_step(
-                st.g_params, st.g_opt, d_avg, self._z(self.batch_size))
-            g_losses.append(float(gl))
+        with span("g_update"):
+            for _ in range(batches):
+                st.g_params, st.g_opt, gl = self._g_step(
+                    st.g_params, st.g_opt, d_avg, self._z(self.batch_size))
+                g_losses.append(float(gl))
         return g_losses
 
     def _record(self, metrics: Dict[str, float]) -> Dict[str, float]:
@@ -761,7 +764,20 @@ class FSLGANTrainer:
         raises :class:`~repro_torch.obs.health.HealthAbort`, ``rollback``
         restores the last healthy state.  With the recorder's ``digests``
         sink on, the round also commits a digest of the post-action global
-        state (``digests.jsonl``)."""
+        state (``digests.jsonl``).
+
+        The round is the program's ``round`` host span
+        (``repro_torch/obs/trace.py``): commit, g_update and feedback here,
+        engine and what it runs in ``fed/``.  They record under an active
+        tracer; the recorder makes its own active for the round when its
+        ``trace_clock`` is ``wall`` or ``both``."""
+        rec = nullcontext() if self.recorder is None \
+            else self.recorder.tracing()
+        with rec, span("round", index=self.state.step):
+            return self._round(batches_per_client, backend)
+
+    def _round(self, batches_per_client: int, backend: Optional[str]
+               ) -> Dict[str, float]:
         backend = backend or self.cfg.fed.backend
         st = self.state
         if self.monitor is not None \
@@ -811,135 +827,138 @@ class FSLGANTrainer:
                             lan_bytes_by_client=lan_by_client,
                             timeline_by_client=self._trace_timelines or None)
         d_avg = rep.global_params
-        for cid, opt in rep.opt_states.items():
-            st.d_opt[cid] = opt
-        for cid in self.client_ids:
-            st.d_params[cid] = tree_map(torch.clone, d_avg)
+        with span("commit"):
+            for cid, opt in rep.opt_states.items():
+                st.d_opt[cid] = opt
+            for cid in self.client_ids:
+                st.d_params[cid] = tree_map(torch.clone, d_avg)
 
         d_losses = [l for _, info in rep.client_infos
                     for l in info["losses"]]
         g_losses = self._g_updates(d_avg, batches_per_client)
         st.step += 1
-        if self.accountant is not None:
-            # adaptive runs account each round at the sigma the controller
-            # bound; frozen runs use the constructor's
-            sigma_arg = self.knobs.sigma if self._adaptive() else None
-            if self.cfg.privacy.mode == "dp_sgd":
-                # one Gaussian-mechanism release per EXECUTED DP batch,
-                # late-but-executed straggler work included
-                self.accountant.step(sum(info.get("steps", 0)
-                                         for _, info in rep.client_infos),
-                                     noise_multiplier=sigma_arg)
-            else:
-                # one release per executed uplink
-                self.accountant.step(len(rep.client_infos),
-                                     noise_multiplier=sigma_arg)
-        metrics = {
-            "d_loss": float(np.mean(d_losses)) if d_losses else float("nan"),
-            "g_loss": float(np.mean(g_losses)),
-            "num_clients": float(len(rep.participated)),
-            "round_time_s": rep.round_time_s,
-            "clock_s": rep.clock_s,
-            "up_mbytes": rep.traffic.total_up / 1e6,
-            "down_mbytes": rep.traffic.total_down / 1e6,
-            "stragglers": float(len(rep.stragglers)),
-            "mean_staleness": rep.mean_staleness,
-        }
-        if rep.traffic.total_edge:
-            metrics["edge_mbytes"] = rep.traffic.total_edge / 1e6
-        loads: Dict[str, float] = {}
-        if self.split_execs:
-            # executed split: measured boundary bytes that crossed the LAN
-            # this round, and the compute load each device carried
-            loads = self.device_load_report()
-            metrics["lan_mbytes"] = rep.traffic.total_lan / 1e6
-            metrics["max_device_load"] = max(loads.values())
-            metrics["mean_device_load"] = float(np.mean(list(
-                loads.values())))
-        if self.accountant is not None:
-            metrics["dp_epsilon"] = self.accountant.epsilon(
-                self.cfg.privacy.delta)[0]
-        cerrs = list(rep.codec_error.values())
-        if cerrs:
-            metrics["codec_error"] = float(np.mean(cerrs))
-        # the round's measurements as ONE typed record — what the
-        # controllers consume next round (and what frozen runs still log)
-        probe: Dict[str, Tuple[float, ...]] = {}
-        if self._adaptive() and "split" in self.cfg.control.controllers \
-                and self.split_execs:
-            probe = self._probe_boundary_dcor()
-        fb = RoundFeedback(
-            round_index=st.step - 1,
-            backend=backend,
-            codec=eng.codec_name,
-            sigma=self.knobs.sigma,
-            deadline_s=eng.deadline_s,
-            split_strategy=self.knobs.split_strategy,
-            up_bytes=int(rep.traffic.total_up),
-            down_bytes=int(rep.traffic.total_down),
-            lan_bytes=int(rep.traffic.total_lan),
-            codec_error=float(np.mean(cerrs)) if cerrs else float("nan"),
-            uplink_bps=float(self.cfg.fed.uplink_bps),
-            round_time_s=float(rep.round_time_s),
-            clock_s=float(rep.clock_s),
-            client_finish_s=dict(rep.finish_s),
-            num_clients=len(rep.participated),
-            stragglers=len(rep.stragglers),
-            d_loss=metrics["d_loss"],
-            g_loss=metrics["g_loss"],
-            dp_epsilon=metrics.get("dp_epsilon", float("nan")),
-            dp_steps=(self.accountant.steps - acct_steps_before
-                      if self.accountant else 0),
-            device_loads=loads,
-            boundary_dcor=probe,
-            pipeline_microbatches=self._pipeline_k(),
-            pipeline_speedup=self._pipeline_speedup,
-            backend_probe_us=probe_us,
-            edge_bytes=int(rep.traffic.total_edge),
-            cohorts=int(self.cfg.fed.hierarchy_cohorts),
-            shards=self._num_shards(backend))
-        self.feedback.append(fb)
+        with span("feedback"):
+            if self.accountant is not None:
+                # adaptive runs account each round at the sigma the controller
+                # bound; frozen runs use the constructor's
+                sigma_arg = self.knobs.sigma if self._adaptive() else None
+                if self.cfg.privacy.mode == "dp_sgd":
+                    # one Gaussian-mechanism release per EXECUTED DP batch,
+                    # late-but-executed straggler work included
+                    self.accountant.step(sum(info.get("steps", 0)
+                                             for _, info in rep.client_infos),
+                                         noise_multiplier=sigma_arg)
+                else:
+                    # one release per executed uplink
+                    self.accountant.step(len(rep.client_infos),
+                                         noise_multiplier=sigma_arg)
+            metrics = {
+                "d_loss": (float(np.mean(d_losses)) if d_losses
+                           else float("nan")),
+                "g_loss": float(np.mean(g_losses)),
+                "num_clients": float(len(rep.participated)),
+                "round_time_s": rep.round_time_s,
+                "clock_s": rep.clock_s,
+                "up_mbytes": rep.traffic.total_up / 1e6,
+                "down_mbytes": rep.traffic.total_down / 1e6,
+                "stragglers": float(len(rep.stragglers)),
+                "mean_staleness": rep.mean_staleness,
+            }
+            if rep.traffic.total_edge:
+                metrics["edge_mbytes"] = rep.traffic.total_edge / 1e6
+            loads: Dict[str, float] = {}
+            if self.split_execs:
+                # executed split: measured boundary bytes that crossed the LAN
+                # this round, and the compute load each device carried
+                loads = self.device_load_report()
+                metrics["lan_mbytes"] = rep.traffic.total_lan / 1e6
+                metrics["max_device_load"] = max(loads.values())
+                metrics["mean_device_load"] = float(np.mean(list(
+                    loads.values())))
+            if self.accountant is not None:
+                metrics["dp_epsilon"] = self.accountant.epsilon(
+                    self.cfg.privacy.delta)[0]
+            cerrs = list(rep.codec_error.values())
+            if cerrs:
+                metrics["codec_error"] = float(np.mean(cerrs))
+            # the round's measurements as ONE typed record — what the
+            # controllers consume next round (and what frozen runs still log)
+            probe: Dict[str, Tuple[float, ...]] = {}
+            if self._adaptive() and "split" in self.cfg.control.controllers \
+                    and self.split_execs:
+                probe = self._probe_boundary_dcor()
+            fb = RoundFeedback(
+                round_index=st.step - 1,
+                backend=backend,
+                codec=eng.codec_name,
+                sigma=self.knobs.sigma,
+                deadline_s=eng.deadline_s,
+                split_strategy=self.knobs.split_strategy,
+                up_bytes=int(rep.traffic.total_up),
+                down_bytes=int(rep.traffic.total_down),
+                lan_bytes=int(rep.traffic.total_lan),
+                codec_error=float(np.mean(cerrs)) if cerrs else float("nan"),
+                uplink_bps=float(self.cfg.fed.uplink_bps),
+                round_time_s=float(rep.round_time_s),
+                clock_s=float(rep.clock_s),
+                client_finish_s=dict(rep.finish_s),
+                num_clients=len(rep.participated),
+                stragglers=len(rep.stragglers),
+                d_loss=metrics["d_loss"],
+                g_loss=metrics["g_loss"],
+                dp_epsilon=metrics.get("dp_epsilon", float("nan")),
+                dp_steps=(self.accountant.steps - acct_steps_before
+                          if self.accountant else 0),
+                device_loads=loads,
+                boundary_dcor=probe,
+                pipeline_microbatches=self._pipeline_k(),
+                pipeline_speedup=self._pipeline_speedup,
+                backend_probe_us=probe_us,
+                edge_bytes=int(rep.traffic.total_edge),
+                cohorts=int(self.cfg.fed.hierarchy_cohorts),
+                shards=self._num_shards(backend))
+            self.feedback.append(fb)
 
-        # watchtower: check the round, act per policy, THEN digest the
-        # committed state — so a rolled-back round's committed digest
-        # equals the last healthy one while RoundReport.global_digest
-        # (stamped before any action by the engine's digester) keeps what
-        # the poisoned aggregate actually was
-        alerts: List[HealthAlert] = []
-        rolled_back, state_healthy, abort_alert = False, True, None
-        if self.monitor is not None:
-            alerts = self.monitor.check_round(fb, params=d_avg,
-                                              update_base=global_d)
-            self.health_alerts.extend(alerts)
-            if alerts:
-                rolled_back, state_healthy, abort_alert = \
-                    self._apply_health_policy(alerts)
-        digest: Optional[RoundDigest] = None
-        if self.recorder is not None and self.recorder.wants("digests"):
-            digest = state_digest(
-                st.d_params[self._active_clients()[0]], st.d_opt,
-                st.g_params, st.g_opt, round_index=fb.round_index,
-                aggregated=rep.global_digest or "",
-                rolled_back=rolled_back)
-        if self.recorder is not None:
-            # feedback + the knobs in force during this round (the
-            # decision the offline replay must reproduce), then re-export
-            # the trace so a killed run still leaves a loadable file
-            self.recorder.on_round(fb, self.knobs)
-            for a in alerts:
-                self.recorder.on_alert(a)
-            if digest is not None:
-                self.recorder.on_digest(digest)
-            self.recorder.flush()
-        if self.monitor is not None \
-                and self.cfg.obs.health.policy == "rollback" \
-                and state_healthy:
-            # refresh the rollback point: the state now committed is
-            # healthy (genuinely, or because it was just restored)
-            self._healthy_snapshot = self._snapshot_state()
-        if abort_alert is not None:
-            raise HealthAbort(abort_alert)
-        return self._record(metrics)
+            # watchtower: check the round, act per policy, THEN digest the
+            # committed state — so a rolled-back round's committed digest
+            # equals the last healthy one while RoundReport.global_digest
+            # (stamped before any action by the engine's digester) keeps what
+            # the poisoned aggregate actually was
+            alerts: List[HealthAlert] = []
+            rolled_back, state_healthy, abort_alert = False, True, None
+            if self.monitor is not None:
+                alerts = self.monitor.check_round(fb, params=d_avg,
+                                                  update_base=global_d)
+                self.health_alerts.extend(alerts)
+                if alerts:
+                    rolled_back, state_healthy, abort_alert = \
+                        self._apply_health_policy(alerts)
+            digest: Optional[RoundDigest] = None
+            if self.recorder is not None and self.recorder.wants("digests"):
+                digest = state_digest(
+                    st.d_params[self._active_clients()[0]], st.d_opt,
+                    st.g_params, st.g_opt, round_index=fb.round_index,
+                    aggregated=rep.global_digest or "",
+                    rolled_back=rolled_back)
+            if self.recorder is not None:
+                # feedback + the knobs in force during this round (the
+                # decision the offline replay must reproduce), then re-export
+                # the trace so a killed run still leaves a loadable file
+                self.recorder.on_round(fb, self.knobs)
+                for a in alerts:
+                    self.recorder.on_alert(a)
+                if digest is not None:
+                    self.recorder.on_digest(digest)
+                self.recorder.flush()
+            if self.monitor is not None \
+                    and self.cfg.obs.health.policy == "rollback" \
+                    and state_healthy:
+                # refresh the rollback point: the state now committed is
+                # healthy (genuinely, or because it was just restored)
+                self._healthy_snapshot = self._snapshot_state()
+            if abort_alert is not None:
+                raise HealthAbort(abort_alert)
+            return self._record(metrics)
 
     # ------------------------------------------------------------------
     @fp32_convolutions()

@@ -47,6 +47,13 @@ batch/segment/boundary -> uplink -> aggregate), a digester
 (:meth:`set_digester`) stamps ``RoundReport.global_digest``, and the
 ledger's observers see every byte it records.  With none attached,
 scheduling and numerics are the same.
+
+Host spans (``repro_torch/obs/trace.py``, recorded under an active
+tracer): ``engine`` is one :meth:`FederationEngine.run_round`; inside it
+the client program's ``client``, one ``uplink`` a client (the encode and,
+where it is measured apart from the fold, the codec error) and ``reduce``
+for the server reduce (the stream accumulator and its folds, the staged
+decode and FedAvg, the batched reduce, the edge pre-reduce).
 """
 from __future__ import annotations
 
@@ -64,6 +71,7 @@ from repro_torch.fed.programs import as_program
 from repro_torch.fed.transport import (LinkModel, TrafficLedger, apply_delta,
                                       delta_tree, make_codec, tree_bytes,
                                       tree_rel_error)
+from repro_torch.obs.trace import span
 
 
 @dataclass(frozen=True)
@@ -277,28 +285,29 @@ class FederationEngine:
         (``core/split.SplitExecution.round_timeline``), read only when a
         tracer is attached, to subdivide client-execution spans."""
         program = as_program(program)
-        down_by = dict(down_bytes_by_client or {})
-        db = lambda cid: down_by.get(cid, down_bytes)  # noqa: E731
-        self._lan_by = dict(lan_bytes_by_client or {})
-        self._timelines = dict(timeline_by_client or {})
-        if self.cfg.mode != "sync":
-            rep = self._run_async(global_tree, program, db)
-        elif self.hierarchy is not None:
-            rep = self._run_sync_hier(global_tree, program, db)
-        else:
-            rep = self._run_sync(global_tree, program, db)
-        self.round_idx += 1
-        if self._digester is not None:
-            rep.global_digest = self._digester(rep.global_params)
-        for cid in rep.traffic.up_bytes:
-            self.ledger.record(cid, up=rep.traffic.up_bytes[cid])
-        for cid in rep.traffic.down_bytes:
-            self.ledger.record(cid, down=rep.traffic.down_bytes[cid])
-        for cid in rep.traffic.lan_bytes:
-            self.ledger.record(cid, lan=rep.traffic.lan_bytes[cid])
-        for cid in rep.traffic.edge_bytes:
-            self.ledger.record_edge(cid, rep.traffic.edge_bytes[cid])
-        self.last_report = rep
+        with span("engine"):
+            down_by = dict(down_bytes_by_client or {})
+            db = lambda cid: down_by.get(cid, down_bytes)  # noqa: E731
+            self._lan_by = dict(lan_bytes_by_client or {})
+            self._timelines = dict(timeline_by_client or {})
+            if self.cfg.mode != "sync":
+                rep = self._run_async(global_tree, program, db)
+            elif self.hierarchy is not None:
+                rep = self._run_sync_hier(global_tree, program, db)
+            else:
+                rep = self._run_sync(global_tree, program, db)
+            self.round_idx += 1
+            if self._digester is not None:
+                rep.global_digest = self._digester(rep.global_params)
+            for cid in rep.traffic.up_bytes:
+                self.ledger.record(cid, up=rep.traffic.up_bytes[cid])
+            for cid in rep.traffic.down_bytes:
+                self.ledger.record(cid, down=rep.traffic.down_bytes[cid])
+            for cid in rep.traffic.lan_bytes:
+                self.ledger.record(cid, lan=rep.traffic.lan_bytes[cid])
+            for cid in rep.traffic.edge_bytes:
+                self.ledger.record_edge(cid, rep.traffic.edge_bytes[cid])
+            self.last_report = rep
         return rep
 
     def _run_clients(self, rep: RoundReport, global_tree, program, db,
@@ -515,19 +524,21 @@ class FederationEngine:
         staged: List[Tuple[Any, float]] = []      # batched: (enc, weight)
         is_delta = False
         if reduce_mode == "stream":
-            agg = StreamingAggregator(self.codec_name,
-                                      use_kernel=self.cfg.kernel_aggregation)
-            agg.init(global_tree)
+            with span("reduce"):
+                agg = StreamingAggregator(
+                    self.codec_name, use_kernel=self.cfg.kernel_aggregation)
+                agg.init(global_tree)
 
         for res in results:
             cid = res.client_id
             spec = self.specs[cid]
-            if reduce_mode == "decode":
-                decoded, up_b, cerr = self._codec_roundtrip(
-                    cid, global_tree, res.params)
-            else:
-                enc, up_b, delta, is_delta = self._encode_uplink(
-                    cid, global_tree, res.params)
+            with span("uplink", client=cid):
+                if reduce_mode == "decode":
+                    decoded, up_b, cerr = self._codec_roundtrip(
+                        cid, global_tree, res.params)
+                else:
+                    enc, up_b, delta, is_delta = self._encode_uplink(
+                        cid, global_tree, res.params)
             finish = down_t[cid] + spec.compute_time_s \
                 + self.uplink.transfer_time(up_b)
             rep.traffic.record(cid, up=up_b, down=db(cid),
@@ -540,8 +551,9 @@ class FederationEngine:
                 if reduce_mode != "decode":
                     # ran but never folds: the codec's cost without
                     # decoding the dropped update
-                    rep.codec_error[cid] = codec_rel_error(
-                        self.codec_name, enc, delta)
+                    with span("uplink", client=cid):
+                        rep.codec_error[cid] = codec_rel_error(
+                            self.codec_name, enc, delta)
                 rep.stragglers.append(cid)     # ran, but its update is late
                 continue                       # nothing commits — not even
                                                # its optimizer state
@@ -549,36 +561,40 @@ class FederationEngine:
             finishes.append(finish)
             if reduce_mode == "stream":
                 # fold now; the error rides the same sweep
-                err = agg.fold(enc, self._weight(cid), delta=delta)
+                with span("reduce"):
+                    err = agg.fold(enc, self._weight(cid), delta=delta)
                 rep.codec_error[cid] = 0.0 if err is None else err
             elif reduce_mode == "batched":
                 staged.append((enc, self._weight(cid)))
-                rep.codec_error[cid] = codec_rel_error(
-                    self.codec_name, enc, delta)
+                with span("uplink", client=cid):
+                    rep.codec_error[cid] = codec_rel_error(
+                        self.codec_name, enc, delta)
             else:
-                self.policy.on_update(
-                    global_tree, ClientUpdate(cid, decoded, spec.weight,
-                                              0, self.clock + finish))
+                with span("reduce"):
+                    self.policy.on_update(
+                        global_tree, ClientUpdate(cid, decoded, spec.weight,
+                                                  0, self.clock + finish))
 
-        if reduce_mode == "decode":
-            new_global = self.policy.on_round_end(global_tree)
-            rep.peak_live_trees = len(rep.participated)
-        else:
-            if reduce_mode == "stream":
-                mean = agg.finalize()
-            elif staged:
-                mean = batched_reduce(
-                    self.codec_name, [e for e, _ in staged],
-                    [w for _, w in staged], global_tree,
-                    use_kernel=self.cfg.kernel_aggregation, mesh=self.mesh)
+        with span("reduce"):
+            if reduce_mode == "decode":
+                new_global = self.policy.on_round_end(global_tree)
+                rep.peak_live_trees = len(rep.participated)
             else:
-                mean = None
-            if mean is None:
-                new_global = global_tree
-            else:
-                new_global = apply_delta(global_tree, mean) if is_delta \
-                    else mean
-            rep.peak_live_trees = 1 if rep.participated else 0
+                if reduce_mode == "stream":
+                    mean = agg.finalize()
+                elif staged:
+                    mean = batched_reduce(
+                        self.codec_name, [e for e, _ in staged],
+                        [w for _, w in staged], global_tree,
+                        use_kernel=self.cfg.kernel_aggregation, mesh=self.mesh)
+                else:
+                    mean = None
+                if mean is None:
+                    new_global = global_tree
+                else:
+                    new_global = apply_delta(global_tree, mean) if is_delta \
+                        else mean
+                rep.peak_live_trees = 1 if rep.participated else 0
         self._close_round(rep, new_global, finishes)
         if self.tracer is not None:
             self._emit_sync_spans(rep, t0, down_t)
@@ -613,13 +629,14 @@ class FederationEngine:
         for res in results:
             cid = res.client_id
             spec = self.specs[cid]
-            if reduce_mode == "decode":
-                payload, up_b, cerr = self._codec_roundtrip(
-                    cid, global_tree, res.params)
-            else:
-                payload, up_b, delta, is_delta = self._encode_uplink(
-                    cid, global_tree, res.params)
-                cerr = codec_rel_error(self.codec_name, payload, delta)
+            with span("uplink", client=cid):
+                if reduce_mode == "decode":
+                    payload, up_b, cerr = self._codec_roundtrip(
+                        cid, global_tree, res.params)
+                else:
+                    payload, up_b, delta, is_delta = self._encode_uplink(
+                        cid, global_tree, res.params)
+                    cerr = codec_rel_error(self.codec_name, payload, delta)
             finish = down_t[cid] + spec.compute_time_s \
                 + self.edge_link.transfer_time(up_b)
             rep.traffic.record(cid, down=db(cid),
@@ -635,41 +652,42 @@ class FederationEngine:
             landed[cid] = (payload, spec.weight)
             edge_finish[cid] = finish
 
-        # per cohort: edge pre-reduce, then ONE WAN uplink per cohort
-        if reduce_mode == "decode":
-            reductions = self.hierarchy.reduce_all(landed)
-        else:
-            reductions = self.hierarchy.reduce_all_streaming(
-                landed, global_tree, codec_name=self.codec_name)
-        cohort_finishes: List[float] = []
-        cohort_trace: List[Dict[str, Any]] = []
-        for red in reductions:
-            aggregate = red.aggregate
-            if reduce_mode != "decode" and is_delta:
-                # the stream reduce yields the cohort's mean DELTA; rebase
-                # it so the WAN payload is the full tree the decode path
-                # ships
-                aggregate = apply_delta(global_tree, aggregate)
-            wan_b = tree_bytes(aggregate)
-            ready = max(edge_finish[m] for m in red.members)
-            finish = ready + self.uplink.transfer_time(wan_b)
-            ckey = f"cohort{red.cohort}"
-            rep.traffic.record(ckey, up=wan_b)
-            cohort_finishes.append(finish)
-            cohort_trace.append({"cohort": red.cohort, "ready": ready,
-                                 "finish": finish, "bytes": wan_b,
-                                 "members": list(red.members)})
-            self.policy.on_update(
-                global_tree, ClientUpdate(ckey, aggregate, red.weight,
-                                          0, self.clock + finish))
-        # decode: every landed member tree and the buffered cohort
-        # aggregates are live at once; stream: the cohort aggregates and
-        # ONE accumulator, whatever the cohort sizes
-        if reduce_mode == "decode":
-            rep.peak_live_trees = len(landed) + len(reductions)
-        else:
-            rep.peak_live_trees = len(reductions) + 1 if reductions else 0
-        new_global = self.policy.on_round_end(global_tree)
+        with span("reduce"):
+            # per cohort: edge pre-reduce, then ONE WAN uplink per cohort
+            if reduce_mode == "decode":
+                reductions = self.hierarchy.reduce_all(landed)
+            else:
+                reductions = self.hierarchy.reduce_all_streaming(
+                    landed, global_tree, codec_name=self.codec_name)
+            cohort_finishes: List[float] = []
+            cohort_trace: List[Dict[str, Any]] = []
+            for red in reductions:
+                aggregate = red.aggregate
+                if reduce_mode != "decode" and is_delta:
+                    # the stream reduce yields the cohort's mean DELTA; rebase
+                    # it so the WAN payload is the full tree the decode path
+                    # ships
+                    aggregate = apply_delta(global_tree, aggregate)
+                wan_b = tree_bytes(aggregate)
+                ready = max(edge_finish[m] for m in red.members)
+                finish = ready + self.uplink.transfer_time(wan_b)
+                ckey = f"cohort{red.cohort}"
+                rep.traffic.record(ckey, up=wan_b)
+                cohort_finishes.append(finish)
+                cohort_trace.append({"cohort": red.cohort, "ready": ready,
+                                     "finish": finish, "bytes": wan_b,
+                                     "members": list(red.members)})
+                self.policy.on_update(
+                    global_tree, ClientUpdate(ckey, aggregate, red.weight,
+                                              0, self.clock + finish))
+            # decode: every landed member tree and the buffered cohort
+            # aggregates are live at once; stream: the cohort aggregates and
+            # ONE accumulator, whatever the cohort sizes
+            if reduce_mode == "decode":
+                rep.peak_live_trees = len(landed) + len(reductions)
+            else:
+                rep.peak_live_trees = len(reductions) + 1 if reductions else 0
+            new_global = self.policy.on_round_end(global_tree)
         self._close_round(rep, new_global, cohort_finishes)
         if self.tracer is not None:
             self._emit_hier_spans(rep, t0, down_t, cohort_trace)
@@ -711,17 +729,20 @@ class FederationEngine:
             if ev.kind == FINISH:
                 snap_tree, snap_ver = snapshots[cid]
                 res = program.run([cid], snap_tree)[0]
+                with span("uplink", client=cid):
+                    if stream:
+                        enc, up_b, delta, is_delta = self._encode_uplink(
+                            cid, snap_tree, res.params)
+                        cerr = codec_rel_error(self.codec_name, enc, delta)
+                    else:
+                        decoded, up_b, cerr = self._codec_roundtrip(
+                            cid, snap_tree, res.params)
                 if stream:
-                    enc, up_b, delta, is_delta = self._encode_uplink(
-                        cid, snap_tree, res.params)
-                    cerr = codec_rel_error(self.codec_name, enc, delta)
                     # the snapshot rides along: the delta rebases onto it,
                     # and snapshots[cid] may advance before this arrives
                     payload = {"enc": enc, "is_delta": is_delta,
                                "snap_tree": snap_tree}
                 else:
-                    decoded, up_b, cerr = self._codec_roundtrip(
-                        cid, snap_tree, res.params)
                     payload = {"decoded": decoded}
                     live_payloads += 1
                     peak_payloads = max(peak_payloads, live_payloads)
@@ -758,19 +779,21 @@ class FederationEngine:
                 continue
             rep.staleness[cid] = staleness
             rep.staleness_events.append(staleness)
-            if not stream:
-                update_tree = ev.payload["decoded"]
-            elif ev.payload["is_delta"]:
-                update_tree = fused_decode_apply(
-                    self.codec_name, ev.payload["snap_tree"],
-                    ev.payload["enc"])
-            else:
-                update_tree = decode_enc(self.codec_name, ev.payload["enc"],
-                                         ev.payload["snap_tree"])
-            global_tree, bumped = self.policy.on_update(
-                global_tree,
-                ClientUpdate(cid, update_tree, spec.weight, staleness,
-                             ev.time))
+            with span("reduce"):
+                if not stream:
+                    update_tree = ev.payload["decoded"]
+                elif ev.payload["is_delta"]:
+                    update_tree = fused_decode_apply(
+                        self.codec_name, ev.payload["snap_tree"],
+                        ev.payload["enc"])
+                else:
+                    update_tree = decode_enc(
+                        self.codec_name, ev.payload["enc"],
+                        ev.payload["snap_tree"])
+                global_tree, bumped = self.policy.on_update(
+                    global_tree,
+                    ClientUpdate(cid, update_tree, spec.weight, staleness,
+                                 ev.time))
             if bumped:
                 self.version += 1
             if cid not in rep.participated:
@@ -788,7 +811,8 @@ class FederationEngine:
                                 "t1": ev.time + down_t[cid],
                                 "bytes": db(cid), "cycle": cycle + 1})
 
-        global_tree = self.policy.on_round_end(global_tree)
+        with span("reduce"):
+            global_tree = self.policy.on_round_end(global_tree)
         self.version += 1 if rep.participated else 0
         rep.peak_live_trees = (1 if rep.client_infos else 0) if stream \
             else peak_payloads

@@ -29,6 +29,12 @@ so both backends draw the same noise.
 :func:`stack_trees` / :func:`unstack_tree` / :func:`fedavg_stacked` are the
 stacked-tree utilities and :func:`sequential_d_rounds` the per-client loop
 the vectorized round is held against.
+
+Host spans (``repro_torch/obs/trace.py``, recorded under an active
+tracer): ``client`` is one ``RoundExecutor.run``; inside it ``sample`` is
+one client's batches and ``group`` one dispatch (a signature group's
+stacked round under ``vectorized``, one client's round under ``loop``),
+and ``batch`` one step of it.
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ import torch
 
 from repro_torch import keys
 from repro_torch.kernels.fedavg.ops import fedavg_leaves, normalised_weights
+from repro_torch.obs.trace import span
 from repro_torch.tree import leaves, tree_map, unflatten_like, value_and_grad
 
 # loss_fn(params, real_batch, fake_batch) -> scalar loss
@@ -350,9 +357,10 @@ class LocalProgram:
                           else None)
         losses: List[float] = []
         for t in range(reals.shape[0]):
-            params, opt, l = step(params, opt, reals[t], fakes[t], lr,
-                                  keys.fold_in(key, t))
-            losses.append(float(l))
+            with span("batch"):
+                params, opt, l = step(params, opt, reals[t], fakes[t], lr,
+                                      keys.fold_in(key, t))
+                losses.append(float(l))
         return params, opt, losses
 
     def run_vectorized(self, stacked_params, stacked_opt, reals, fakes, *,
@@ -380,27 +388,28 @@ class LocalProgram:
         step = self._vstep(signature)
         params, opt, losses = stacked_params, stacked_opt, []
         for t in range(t_len):
-            step_keys = [_fold_in(k, t) for k in client_keys]
-            live = mask[:, t]
-            if bool(live.all()):
-                params, opt, l = step(params, opt, reals[:, t], fakes[:, t],
-                                      lrs, step_keys)
-            elif not bool(live.any()):
-                l = torch.zeros(c, dtype=torch.float32, device=dev)
-            else:
-                # only the clients whose slot is set take the step: a
-                # padding slot computes nothing and launches no kernel
-                idx = live.nonzero()[:, 0]
-                rows = idx.to(dev)
-                new_p, new_o, got = step(
-                    _rows(params, rows), _rows(opt, rows), reals[rows, t],
-                    fakes[rows, t], lrs[rows],
-                    [step_keys[i] for i in idx.tolist()])
-                params = _put_rows(params, rows, new_p)
-                opt = _put_rows(opt, rows, new_o)
-                l = torch.zeros(c, dtype=got.dtype, device=dev
-                                ).index_copy(0, rows, got)
-            losses.append(l)
+            with span("batch"):
+                step_keys = [_fold_in(k, t) for k in client_keys]
+                live = mask[:, t]
+                if bool(live.all()):
+                    params, opt, l = step(params, opt, reals[:, t],
+                                          fakes[:, t], lrs, step_keys)
+                elif not bool(live.any()):
+                    l = torch.zeros(c, dtype=torch.float32, device=dev)
+                else:
+                    # only the clients whose slot is set take the step: a
+                    # padding slot computes nothing and launches no kernel
+                    idx = live.nonzero()[:, 0]
+                    rows = idx.to(dev)
+                    new_p, new_o, got = step(
+                        _rows(params, rows), _rows(opt, rows), reals[rows, t],
+                        fakes[rows, t], lrs[rows],
+                        [step_keys[i] for i in idx.tolist()])
+                    params = _put_rows(params, rows, new_p)
+                    opt = _put_rows(opt, rows, new_o)
+                    l = torch.zeros(c, dtype=got.dtype, device=dev
+                                    ).index_copy(0, rows, got)
+                losses.append(l)
         return params, opt, torch.stack(losses, dim=1)
 
 
@@ -529,15 +538,22 @@ class RoundExecutor:
     def run(self, cids: List[str], start_params) -> List[ClientResult]:
         if not cids:
             return []
-        if self.backend == "vectorized":
-            return self._run_vectorized(cids, start_params)
+        with span("client"):
+            if self.backend == "vectorized":
+                return self._run_vectorized(cids, start_params)
+            return self._run_looped(cids, start_params)
+
+    def _run_looped(self, cids: List[str], start_params
+                    ) -> List[ClientResult]:
         out = []
         for cid in cids:
             steps = self.steps_for(cid)
-            reals, fakes = self.sample(cid, steps)
-            params, opt, losses = self.program.run_looped(
-                start_params, self._opt_for(cid), reals, fakes,
-                lr=self.lr_for(cid), key=self._key_for(cid), cid=cid)
+            with span("sample", client=cid):
+                reals, fakes = self.sample(cid, steps)
+            with span("group", client=cid):
+                params, opt, losses = self.program.run_looped(
+                    start_params, self._opt_for(cid), reals, fakes,
+                    lr=self.lr_for(cid), key=self._key_for(cid), cid=cid)
             self._opt_overlay[cid] = opt
             out.append(ClientResult(cid, params, opt,
                                     {"losses": losses, "steps": steps}))
@@ -549,15 +565,16 @@ class RoundExecutor:
         t_max = max(steps)
         reals_l, fakes_l = [], []
         for cid, s in zip(cids, steps):
-            # exactly `s` batches, the loop's host-RNG draws; padding
-            # slots are zeros under a False mask
-            r, f = self.sample(cid, s)
-            if s < t_max:
-                pad = lambda x: torch.cat([x, x.new_zeros(  # noqa: E731
-                    (t_max - s,) + tuple(x.shape[1:]))])
-                r, f = pad(r), pad(f)
-            reals_l.append(r)
-            fakes_l.append(f)
+            with span("sample", client=cid):
+                # exactly `s` batches, the loop's host-RNG draws; padding
+                # slots are zeros under a False mask
+                r, f = self.sample(cid, s)
+                if s < t_max:
+                    pad = lambda x: torch.cat([x, x.new_zeros(  # noqa: E731
+                        (t_max - s,) + tuple(x.shape[1:]))])
+                    r, f = pad(r), pad(f)
+                reals_l.append(r)
+                fakes_l.append(f)
         client_keys = [self._key_for(cid) for cid in cids]
         if client_keys[0] is None:
             client_keys = [_DEFAULT_KEY] * len(cids)
@@ -570,33 +587,34 @@ class RoundExecutor:
         home = leaves(start_params)[0].device
         out: List[Optional[ClientResult]] = [None] * len(cids)
         for sig, idxs in groups.items():
-            mask = torch.tensor([[t < steps[i] for t in range(t_max)]
-                                 for i in idxs], dtype=torch.bool)
-            stacked = (stack_trees([start_params] * len(idxs)),
-                       stack_trees([self._opt_for(cids[i]) for i in idxs]),
-                       torch.stack([reals_l[i] for i in idxs]),
-                       torch.stack([fakes_l[i] for i in idxs]))
-            parts = []
-            for dev, lo, hi, (p, o, r, f) in self._shard_stacked(stacked):
-                sub = idxs[lo:hi]
-                parts.append(self.program.run_vectorized(
-                    p, o, r, f, lrs=[self.lr_for(cids[i]) for i in sub],
-                    keys=[client_keys[i] for i in sub], mask=mask[lo:hi],
-                    signature=sig))
-            if len(parts) == 1:
-                new_p, new_o, losses = parts[0]
-            else:               # the chunks back on the trainer's device
-                new_p, new_o, losses = (tree_map(
-                    lambda *xs: torch.cat([x.to(home) for x in xs]), *got)
-                    for got in zip(*parts))
-            losses = losses.tolist()
-            for j, i in enumerate(idxs):
-                cid, s = cids[i], steps[i]
-                p = tree_map(lambda x: x[j], new_p)
-                o = tree_map(lambda x: x[j], new_o)
-                self._opt_overlay[cid] = o
-                out[i] = ClientResult(cid, p, o, {"losses": losses[j][:s],
-                                                  "steps": s})
+            with span("group", clients=len(idxs)):
+                mask = torch.tensor([[t < steps[i] for t in range(t_max)]
+                                     for i in idxs], dtype=torch.bool)
+                stacked = (stack_trees([start_params] * len(idxs)),
+                           stack_trees([self._opt_for(cids[i]) for i in idxs]),
+                           torch.stack([reals_l[i] for i in idxs]),
+                           torch.stack([fakes_l[i] for i in idxs]))
+                parts = []
+                for dev, lo, hi, (p, o, r, f) in self._shard_stacked(stacked):
+                    sub = idxs[lo:hi]
+                    parts.append(self.program.run_vectorized(
+                        p, o, r, f, lrs=[self.lr_for(cids[i]) for i in sub],
+                        keys=[client_keys[i] for i in sub], mask=mask[lo:hi],
+                        signature=sig))
+                if len(parts) == 1:
+                    new_p, new_o, losses = parts[0]
+                else:               # the chunks back on the trainer's device
+                    new_p, new_o, losses = (tree_map(
+                        lambda *xs: torch.cat([x.to(home) for x in xs]), *got)
+                        for got in zip(*parts))
+                losses = losses.tolist()
+                for j, i in enumerate(idxs):
+                    cid, s = cids[i], steps[i]
+                    p = tree_map(lambda x: x[j], new_p)
+                    o = tree_map(lambda x: x[j], new_o)
+                    self._opt_overlay[cid] = o
+                    out[i] = ClientResult(cid, p, o, {"losses": losses[j][:s],
+                                                      "steps": s})
         return out
 
 

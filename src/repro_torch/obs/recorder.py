@@ -13,7 +13,11 @@ Layout of one run directory (``<cfg.obs.out_dir>/<run_id>/``):
     round (the controller's decision sequence — what replay must
     reproduce bit-exactly);
   * ``metrics.jsonl``   — one metric-registry snapshot per round;
-  * ``trace.json``      — the Chrome-trace export, written at ``flush()``;
+  * ``trace.json``      — the Chrome-trace export, written at ``flush()``:
+    the engine's virtual-clock spans and, with ``trace_clock`` ``wall`` or
+    ``both``, the program's host spans (``obs/trace.py``) with absolute
+    system-clock timestamps and host-sync counts, to lay beside a
+    ``torch.profiler`` trace of the same run;
   * ``alerts.jsonl``    — typed :class:`~repro_torch.obs.health.HealthAlert`
     records, one per tripped health check;
   * ``digests.jsonl``   — one :class:`~repro_torch.obs.digest.RoundDigest` per
@@ -31,6 +35,7 @@ from __future__ import annotations
 
 import json
 import os
+from contextlib import nullcontext
 from dataclasses import asdict, dataclass, field
 from typing import Any, Dict, List, Optional
 
@@ -39,7 +44,7 @@ from repro_torch.obs.digest import RoundDigest, digest_from_dict, digest_to_dict
 from repro_torch.obs.health import HealthAlert, alert_from_dict, alert_to_dict
 from repro_torch.obs.metrics import (JsonlSink, MetricsRegistry, load_jsonl,
                                observe_round)
-from repro_torch.obs.trace import Tracer
+from repro_torch.obs.trace import Tracer, tracing
 
 MANIFEST = "manifest.json"
 FEEDBACK = "feedback.jsonl"
@@ -146,6 +151,15 @@ class FlightRecorder:
 
     def wants(self, sink: str) -> bool:
         return sink in self.sinks
+
+    def tracing(self):
+        """The program's host spans, with the host-device syncs made in
+        each on the card, recorded into this recorder's tracer while the
+        block runs (``obs/trace.tracing``), when the trace sink is on and
+        ``trace_clock`` is ``wall`` or ``both``; otherwise a no-op."""
+        if "trace" not in self.sinks or self.trace_clock == "virtual":
+            return nullcontext()
+        return tracing(self.tracer, count_syncs=True)
 
     # ------------------------------------------------------------------
     def set_manifest(self, cfg, *, leaf_sizes, steps_per_round_hint: int,

@@ -1,5 +1,6 @@
-"""Two-clock span tracing for the federated split engine.  Port of
-``repro/obs/trace.py`` (pure Python, copied).
+"""Two-clock span tracing for the federated split engine, and the host
+spans the program places where its work happens.  The virtual clock and the
+Chrome export are a port of ``repro/obs/trace.py``.
 
 The engine advances a *virtual* clock (the paper's analytic time model:
 download + segment compute + LAN hops + uplink), while the tensor math runs
@@ -9,6 +10,26 @@ and ``wall_start``/``wall_end`` in host seconds (NaN when the span was
 placed retroactively from priced times — the engine knows a client's whole
 virtual timeline the moment it schedules it, so most spans are recorded
 with :meth:`Tracer.record` rather than timed live).
+
+Wall time is the system clock (``time.time_ns()``), the clock a
+``torch.profiler`` trace counts from (its ``baseTimeNanoseconds``):
+``wall_start``/``wall_end`` are seconds from the tracer's ``wall0_ns``, and
+the Chrome export gives wall events absolute timestamps (microseconds since
+the epoch), so a profiler trace's events (``baseTimeNanoseconds`` + 1000 x
+their ``ts``) lie on the same timeline.
+
+The program's host spans come from the module-level :func:`span`: the
+FSL-GAN round (``core/gan.py``, ``fed/engine.py``, ``fed/programs.py``) is
+round > engine > client > sample / group > batch, with uplink and reduce
+under engine and commit, g_update and feedback under round; the LM train
+step (``runtime/train.py``) is step > microbatch / accumulate / optim.
+They record only while :func:`tracing` makes a tracer the process's active
+one; with none active, :func:`span` is one global read that returns a
+shared no-op context.  ``tracing(device_events=True)`` adds a CUDA event
+pair on the current stream around each span (its device extent,
+:meth:`Tracer.device_ms`); ``count_syncs=True`` charges each host-device
+synchronisation to the innermost open span (``Span.syncs``), as PyTorch's
+sync debug mode reports them.
 
 Hierarchy is explicit: every span holds its parent's id, so round ->
 client-execution -> split-segment -> boundary-crossing nests exactly the
@@ -26,9 +47,12 @@ from __future__ import annotations
 import json
 import math
 import time
-from contextlib import contextmanager
+import warnings
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Dict, Iterator, List, Optional, Tuple
+
+import torch
 
 NAN = float("nan")
 
@@ -38,6 +62,9 @@ PID_VIRTUAL = 1
 PID_WALL = 2
 
 TRACE_CLOCKS = ("virtual", "wall", "both")
+
+# what PyTorch's sync debug mode ("warn") says at each synchronising call
+SYNC_WARNING = "called a synchronizing CUDA operation"
 
 
 @dataclass(frozen=True)
@@ -50,9 +77,11 @@ class Span:
     track: str                    # viewer lane (client id, device id, server)
     v_start: float = NAN          # virtual seconds (engine clock)
     v_end: float = NAN
-    wall_start: float = NAN       # host seconds since tracer start
+    wall_start: float = NAN       # host seconds from the tracer's wall0_ns
     wall_end: float = NAN
     args: Dict[str, Any] = field(default_factory=dict)
+    index: Optional[int] = None   # the round or step a wall span belongs to
+    syncs: int = 0                # host-device syncs charged to a wall span
 
     @property
     def v_dur(self) -> float:
@@ -67,6 +96,15 @@ class Span:
         return math.isfinite(self.wall_start) and math.isfinite(self.wall_end)
 
 
+@dataclass
+class _Open:
+    """A wall span while it is open: what its children inherit and what
+    is charged to it."""
+    sid: int
+    index: Optional[int]
+    syncs: int = 0
+
+
 class Tracer:
     """Append-only span log with explicit parents and a wall-span stack.
 
@@ -78,8 +116,8 @@ class Tracer:
         the innermost open wall span so retroactive virtual spans still
         nest under the host phase that produced them.
       * :meth:`span` — a context manager that measures the WALL interval
-        of the enclosed host work (``program.run``, codec round-trips, kernel
-        builds) and maintains the nesting stack.
+        of the enclosed host work (the program's :func:`span` calls) and
+        maintains the nesting stack.
 
     ``set_virtual_offset`` re-bases subsequent virtual times: the trainer
     calls it when it rebuilds the engine (whose virtual clock restarts at
@@ -89,15 +127,16 @@ class Tracer:
     def __init__(self, run_id: str = "run"):
         self.run_id = run_id
         self.spans: List[Span] = []
-        self._stack: List[int] = []
+        self._stack: List[_Open] = []
         self._next_id = 0
-        self._wall0 = time.perf_counter()
+        self.wall0_ns = time.time_ns()
         self._v_offset = 0.0
+        # host-device syncs made while no wall span was open
+        self.syncs_outside = 0
+        self._events: Dict[int, Tuple[Any, Any]] = {}
+        self._device_ms: Dict[int, float] = {}
 
     # ------------------------------------------------------------------
-    def _now(self) -> float:
-        return time.perf_counter() - self._wall0
-
     def set_virtual_offset(self, offset_s: float) -> None:
         self._v_offset = float(offset_s)
 
@@ -119,7 +158,7 @@ class Tracer:
                wall_start: float = NAN, wall_end: float = NAN) -> int:
         """Append a virtually-timed span; returns its id (for children)."""
         if parent is None and self._stack:
-            parent = self._stack[-1]
+            parent = self._stack[-1].sid
         sid = self._next_id
         self._next_id += 1
         self.spans.append(Span(
@@ -132,21 +171,60 @@ class Tracer:
 
     @contextmanager
     def span(self, name: str, *, cat: str = "host", track: str = "host",
-             args: Optional[Dict[str, Any]] = None) -> Iterator[int]:
-        """Wall-clocked span around host work; nests via the stack."""
-        parent = self._stack[-1] if self._stack else None
+             args: Optional[Dict[str, Any]] = None,
+             index: Optional[int] = None,
+             device_events: bool = False) -> Iterator[int]:
+        """Wall-clocked span around host work; nests via the stack.
+        ``index`` (the round or step) defaults to the enclosing span's;
+        ``device_events`` records a CUDA event pair on the current stream
+        around the work (:meth:`device_ms`)."""
+        top = self._stack[-1] if self._stack else None
+        if index is None and top is not None:
+            index = top.index
         sid = self._next_id
         self._next_id += 1
-        self._stack.append(sid)
-        t0 = self._now()
+        frame = _Open(sid, None if index is None else int(index))
+        self._stack.append(frame)
+        t0 = time.time_ns()
+        start = _cuda_event() if device_events else None
         try:
             yield sid
         finally:
+            if start is not None:
+                self._events[sid] = (start, _cuda_event())
+            t1 = time.time_ns()
             self._stack.pop()
             self.spans.append(Span(
-                sid, parent, name, cat, track,
-                wall_start=t0, wall_end=self._now(),
-                args=dict(args or {})))
+                sid, top.sid if top is not None else None, name, cat, track,
+                wall_start=(t0 - self.wall0_ns) / 1e9,
+                wall_end=(t1 - self.wall0_ns) / 1e9,
+                args=dict(args or {}), index=frame.index,
+                syncs=frame.syncs))
+
+    def count_sync(self) -> None:
+        """Charge one host-device synchronisation to the innermost open
+        wall span (``syncs_outside`` when none is open)."""
+        if self._stack:
+            self._stack[-1].syncs += 1
+        else:
+            self.syncs_outside += 1
+
+    def device_ms(self) -> Dict[int, float]:
+        """Device extent in ms of each span recorded with device events,
+        by span id: the time from the stream reaching the span's start to
+        reaching its end.  Synchronises the device when an extent is not
+        read yet."""
+        if len(self._device_ms) < len(self._events):
+            torch.cuda.synchronize()
+            for sid, (a, b) in self._events.items():
+                if sid not in self._device_ms:
+                    self._device_ms[sid] = a.elapsed_time(b)
+        return dict(self._device_ms)
+
+    def wall_ns(self, s: Span) -> Tuple[int, int]:
+        """A wall span's start and end on the system clock, in ns."""
+        return (self.wall0_ns + round(s.wall_start * 1e9),
+                self.wall0_ns + round(s.wall_end * 1e9))
 
     # ------------------------------------------------------------------
     def children(self, span_id: Optional[int]) -> List[Span]:
@@ -193,12 +271,15 @@ class Tracer:
                     "dur": max(0.0, s.v_dur) * 1e6,
                     "args": args})
             if want_w and s.has_wall:
+                w0, w1 = self.wall_ns(s)
+                wargs = dict(args, syncs=s.syncs)
+                if s.index is not None:
+                    wargs["index"] = s.index
                 events.append({
                     "name": s.name, "cat": s.cat, "ph": "X",
                     "pid": PID_WALL, "tid": tid(s.track),
-                    "ts": s.wall_start * 1e6,
-                    "dur": max(0.0, s.wall_end - s.wall_start) * 1e6,
-                    "args": args})
+                    "ts": w0 / 1e3, "dur": max(0, w1 - w0) / 1e3,
+                    "args": wargs})
         meta: List[Dict[str, Any]] = []
         for pid, pname, on in ((PID_VIRTUAL, "virtual clock", want_v),
                                (PID_WALL, "wall clock", want_w)):
@@ -219,6 +300,93 @@ class Tracer:
             # allow_nan=False: a file Perfetto rejects must fail HERE
             json.dump(obj, f, allow_nan=False)
         return path
+
+
+def _cuda_event():
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+# ---------------------------------------------------------------------------
+# the process's active tracer: what the program's span() calls record into
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class _Active:
+    tracer: Tracer
+    device_events: bool
+
+
+_ACTIVE: Optional[_Active] = None
+_OFF = nullcontext()
+
+
+def span(name: str, **args):
+    """A wall span named ``name`` in the active tracer (:func:`tracing`):
+    ``index=`` sets the round or step it belongs to (nested spans inherit
+    it), other keywords become its args.  With no active tracer it returns
+    a shared no-op context: no clock read, no CUDA event, no record."""
+    act = _ACTIVE
+    if act is None:
+        return _OFF
+    index = args.pop("index", None)
+    return act.tracer.span(name, args=args, index=index,
+                           device_events=act.device_events)
+
+
+@contextmanager
+def tracing(tracer: Tracer, *, device_events: bool = False,
+            count_syncs: bool = False) -> Iterator[Tracer]:
+    """Make ``tracer`` the process's active tracer for the block, so the
+    program's :func:`span` calls record into it (the previous one, if any,
+    is active again after).  ``device_events`` gives each span a CUDA event
+    pair (the program must run on the card); ``count_syncs`` charges each
+    host-device synchronisation to the innermost open span.  Not for
+    concurrent use from several threads."""
+    global _ACTIVE
+    prev = _ACTIVE
+    _ACTIVE = _Active(tracer, bool(device_events))
+    try:
+        with _counting_syncs(tracer) if count_syncs else nullcontext():
+            yield tracer
+    finally:
+        _ACTIVE = prev
+
+
+@contextmanager
+def _counting_syncs(tracer: Tracer) -> Iterator[None]:
+    """PyTorch's sync debug mode set to ``warn`` for the block, and its
+    warnings counted on ``tracer`` instead of shown: it warns at every
+    call that waits for the device (``item``, ``tolist``, ``nonzero``, a
+    blocking copy either way), though not at an explicit
+    ``torch.cuda.synchronize`` (the round makes one only in the ``auto``
+    backend's probe).  The mode is left alone where it cannot be set: a
+    build without CUDA, or CUDA not initialised yet (setting it would
+    initialise CUDA)."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("always", message=SYNC_WARNING)
+        # said once when the mode is set
+        warnings.filterwarnings("ignore", message="Synchronization debug mode")
+        shown = warnings.showwarning
+
+        def show(message, category, filename, lineno, file=None,
+                 line=None):
+            if str(message).startswith(SYNC_WARNING):
+                tracer.count_sync()
+            else:
+                shown(message, category, filename, lineno, file, line)
+        warnings.showwarning = show
+        mode = None
+        if hasattr(torch._C, "_cuda_get_sync_debug_mode") \
+                and torch.cuda.is_initialized():
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield
+        finally:
+            if mode is not None:
+                torch.cuda.set_sync_debug_mode(mode)
 
 
 def validate_chrome_trace(obj: Any) -> int:

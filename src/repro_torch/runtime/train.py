@@ -31,6 +31,13 @@ attention and the plain WKV scan; a config that asks for the kernels
 
 Steps run where the parameters live; ``update`` returns new trees and the
 inputs are never written.
+
+Host spans (``repro_torch/obs/trace.py``, recorded under an active
+tracer): ``step`` is one standard step, indexed by its ``step_idx``;
+inside it ``microbatch`` is one micro-batch's forward and backward,
+``accumulate`` the accumulators' work (their zero fill, each
+micro-batch's adds, the final divide) and ``optim`` the schedule and the
+optimizer update.
 """
 from __future__ import annotations
 
@@ -40,6 +47,7 @@ import torch
 
 from repro_torch.config import RunConfig
 from repro_torch.models.transformer import lm_loss
+from repro_torch.obs.trace import span
 from repro_torch.optim import make_optimizer
 from repro_torch.optim.schedule import make_schedule
 from repro_torch.runtime.serve import _dtype
@@ -75,38 +83,46 @@ def make_train_step(cfg: RunConfig) -> Callable:
         if bsz % nmb:
             raise ValueError(f"batch {bsz} does not split into "
                              f"{nmb} micro-batches")
+        with span("step", index=step_idx):
+            return run_step(params, opt_state, batch, step_idx, bsz)
+
+    def run_step(params, opt_state, batch, step_idx, bsz):
         mbs = tree_map(lambda x: x.reshape(nmb, bsz // nmb, *x.shape[1:]),
                        batch)
         flat = leaves(params)
         live = [p.detach().requires_grad_(True) for p in flat]
         live_tree = unflatten_like(params, live)
-        gacc = [torch.zeros(p.shape, dtype=acc_dt, device=p.device)
-                for p in flat]
         dev = flat[0].device
-        lsum = torch.zeros((), dtype=torch.float32, device=dev)
-        auxsum = torch.zeros((), dtype=torch.float32, device=dev)
+        with span("accumulate"):
+            gacc = [torch.zeros(p.shape, dtype=acc_dt, device=p.device)
+                    for p in flat]
+            lsum = torch.zeros((), dtype=torch.float32, device=dev)
+            auxsum = torch.zeros((), dtype=torch.float32, device=dev)
         for i in range(nmb):
             mb = tree_map(lambda x: x[i], mbs)
-            with torch.enable_grad():
+            with span("microbatch"), torch.enable_grad():
                 loss, metrics = loss_fn(live_tree, mb)
                 grads = torch.autograd.grad(loss, live,
                                             materialize_grads=True)
-            for a, g in zip(gacc, grads):
-                a.add_(g.to(a.dtype))
-            del grads, loss
-            lsum = lsum + metrics["loss"].detach()
-            auxsum = auxsum + metrics["aux_loss"].detach()
+            with span("accumulate"):
+                for a, g in zip(gacc, grads):
+                    a.add_(g.to(a.dtype))
+                del grads, loss
+                lsum = lsum + metrics["loss"].detach()
+                auxsum = auxsum + metrics["aux_loss"].detach()
         del live, live_tree
-        # divided in place, by a tensor: CUDA divides by a Python number as
-        # a multiply by its rounded reciprocal
-        div = torch.tensor(float(nmb), dtype=acc_dt, device=dev)
-        grads = unflatten_like(params, [a.div_(div) for a in gacc])
-        del gacc
-        lr = sched(step_idx)
-        params, opt_state = opt.update(grads, opt_state, params, lr)
-        div = div.to(torch.float32)
-        metrics = {"loss": lsum / div, "aux_loss": auxsum / div, "lr": lr}
-        return params, opt_state, metrics
+        with span("accumulate"):
+            # divided in place, by a tensor: CUDA divides by a Python
+            # number as a multiply by its rounded reciprocal
+            div = torch.tensor(float(nmb), dtype=acc_dt, device=dev)
+            grads = unflatten_like(params, [a.div_(div) for a in gacc])
+            del gacc
+            div = div.to(torch.float32)
+            loss, aux = lsum / div, auxsum / div
+        with span("optim"):
+            lr = sched(step_idx)
+            params, opt_state = opt.update(grads, opt_state, params, lr)
+        return params, opt_state, {"loss": loss, "aux_loss": aux, "lr": lr}
 
     return train_step
 

@@ -14,6 +14,7 @@ relative (hashes cannot match across frameworks).  On the card
 """
 import json
 import os
+import time
 
 import jax
 import numpy as np
@@ -35,6 +36,7 @@ from repro_torch.obs import (FlightRecorder, JsonlSink, MetricsRegistry,
                              replay_decisions, replay_run, state_digest,
                              tree_digest, tree_sketch, validate_chrome_trace)
 from repro_torch.obs.replay import suite_from_manifest
+from repro_torch.obs.trace import PID_WALL
 
 SMALL = {"shape.global_batch": 8, "fsl.num_clients": 2,
          "model.dcgan.base_filters": 8}
@@ -291,9 +293,12 @@ def test_async_and_hierarchy_engines_emit_spans(tmp_path, parts, over):
 # ---------------------------------------------------------------------------
 
 def test_obs_on_is_bit_exact_with_obs_off(tmp_path, parts):
+    """Off, on, and on with the wall spans (``trace_clock="both"``: the
+    recorder's tracer active for each round) train the same bits."""
     losses, finals = {}, {}
-    for on in (False, True):
-        over = _obs(tmp_path, "x") if on else {}
+    for on in (None, "virtual", "both"):
+        over = {} if on is None else _obs(tmp_path, f"x-{on}",
+                                           **{"obs.trace_clock": on})
         tr = _trainer(parts, **{"split.enabled": True, **over})
         hist = []
         for _ in range(2):
@@ -301,8 +306,41 @@ def test_obs_on_is_bit_exact_with_obs_off(tmp_path, parts):
             hist.append((m["d_loss"], m["g_loss"], m["round_time_s"]))
         losses[on] = hist
         finals[on] = tree_digest((tr.state.d_params, tr.state.g_params))
-    assert losses[False] == losses[True]
-    assert finals[False] == finals[True]
+        if on == "both":
+            assert {"round", "client", "g_update"} <= {
+                s.name for s in tr.recorder.tracer.spans if s.has_wall}
+    assert losses[None] == losses["virtual"] == losses["both"]
+    assert finals[None] == finals["virtual"] == finals["both"]
+
+
+def test_recorder_exports_the_program_wall_spans(tmp_path, parts):
+    """``trace_clock="both"``: trace.json holds wall-pid events of the
+    program's round, client and g_update spans with absolute system-clock
+    timestamps (one round each, the engine's virtual spans nested under
+    them), and passes the schema check."""
+    t0 = time.time_ns()
+    tr = _trainer(parts, **_obs(tmp_path, "w", **{"obs.trace_clock": "both"}))
+    tr.train_epoch(batches_per_client=2)
+    t1 = time.time_ns()
+    with open(tr.recorder.flush()) as f:
+        obj = json.load(f)
+    assert validate_chrome_trace(obj) > 0
+    wall = [e for e in obj["traceEvents"]
+            if e["ph"] == "X" and e["pid"] == PID_WALL]
+    by_name = {}
+    for e in wall:
+        by_name.setdefault(e["name"], []).append(e)
+        assert t0 / 1e3 <= e["ts"] <= e["ts"] + e["dur"] <= t1 / 1e3
+        assert e["args"]["index"] == 0 and e["args"]["syncs"] == 0
+    for name in ("round", "client", "g_update"):
+        assert len(by_name[name]) == 1, name
+    tracer = tr.recorder.tracer
+    engine = next(s for s in tracer.spans if s.name == "engine")
+    virtual = [s for s in tracer.spans if s.has_virtual]
+    assert virtual and all(s.parent_id is not None for s in virtual
+                           if s.cat == "round")
+    assert {tracer.by_id(s.parent_id).name for s in virtual
+            if s.cat == "round"} == {engine.name}
 
 
 def test_profiling_gated_off_by_default(recorded_run):
