@@ -12,14 +12,16 @@ non-zero exit, and no result line:
    points compute their convolutions in float32 themselves, and the
    direct module calls that compare convolutions take the same guard;
 2. build — every kernel (fedavg, dp_clip, boundary_fuse, agg_fuse,
-   flash_attention, wkv6), from ``src/repro_torch/csrc``, one ``nvcc``
+   flash_attention, wkv6, adamw), from ``src/repro_torch/csrc``, one ``nvcc``
    (sm_90a) per source, all started together;
 3. kernel vs plain — each kernel on the card at the shapes the main paths
    give it, and at ragged sizes and edge cases, held against its plain
    PyTorch version (boundary_fuse also as the per-example int8+dp stage at
    the DP-SGD split path's crossings, one ``amax="row"`` launch each, and
    at the vectorized DP-SGD split's crossings: each signature group's
-   C x B rows, its clients' noise draws concatenated);
+   C x B rows, its clients' noise draws concatenated; adamw at an
+   OLMoE-1B-7B layer's leaves and the dcgan G tree, with the norm pass's
+   share of its time);
    kernel, plain and library-call times from CUDA events,
    beside the card's bound for the same work (fedavg's also with the L2
    flushed before every call);
@@ -68,7 +70,8 @@ non-zero exit, and no result line:
    launch an ``rwkv`` layer a forward, two forwards equal bit for bit;
    serving launches neither, as in the reference.  Then LM training at
    full width (``phase_train_paths``), which launches no hand-written
-   kernel (they are forward-only, as in the reference): ``train_loop``
+   kernel but adamw (the others are forward-only, as in the reference;
+   every leaf of every AdamW step through adamw): ``train_loop``
    on rwkv6-1.6b (24 layers, fp32 parameters and AdamW state, bf16
    compute, B 4 x T 1024, 2 steps), ``make_train_step`` on qwen3-14b (4
    of 40 layers, bf16, 8 micro-batches of 1 x 2048, 2 steps) and
@@ -1315,18 +1318,58 @@ def kernel_wrappers():
             "wkv6": wkv6_kernel}
 
 
+def adamw_want(tr):
+    """adamw's (launches, kernel leaves, plain leaves) over a drive_path
+    run of ROUNDS x BATCHES: the server's G steps and every client's D
+    steps through the kernels, none plain.  A D step is one call a client
+    under ``loop`` and one stacked call a signature group under
+    ``vectorized`` (a client's leaf counted as one either way); ``auto``
+    adds its probe's 1 + AUTO_PROBE_RUNS dispatches of each backend.  No
+    clip (dcgan-mnist's Adam): a call is one launch a table of
+    MAX_LEAVES entries."""
+    from collections import Counter
+
+    from repro_torch.core.gan import AUTO_PROBE_RUNS
+    from repro_torch.kernels.adamw.kernel import MAX_LEAVES
+    from repro_torch.tree import leaves
+    check(not tr.cfg.optim.grad_clip, f"adamw_want: clip "
+          f"{tr.cfg.optim.grad_clip}")
+
+    def per(n):
+        return -(-n // MAX_LEAVES)
+    n_g = len(leaves(tr.state.g_params))
+    n_d = len(leaves(tr.state.d_params[tr.client_ids[0]]))
+    groups = Counter(map(tr.program.signature_for, tr.client_ids))
+    d_round = {"loop": CLIENTS * BATCHES * per(n_d),
+               "vectorized": sum(BATCHES * per(c * n_d)
+                                 for c in groups.values())}
+    d_leaves = CLIENTS * BATCHES * n_d
+    launches = ROUNDS * (BATCHES * per(n_g)
+                         + d_round[tr._auto_backend or tr.cfg.fed.backend])
+    kernel_leaves = ROUNDS * (BATCHES * n_g + d_leaves)
+    if tr.cfg.fed.backend == "auto":
+        probes = 1 + AUTO_PROBE_RUNS
+        launches += probes * sum(d_round.values())
+        kernel_leaves += probes * 2 * d_leaves
+    return launches, kernel_leaves, 0
+
+
 def drive_path(dev, label, over, expect):
     """One main path: ``train_epoch`` at full width, ROUNDS x BATCHES, with
     every kernel's launch count set to 0 just before and read just after.
     Checks finite losses, every parameter finite on the card, and each
     kernel's launches: ``expect[name]`` for the kernels the path runs, 0
-    for every other (``expect`` may be a function of the trainer)."""
+    for every other (``expect`` may be a function of the trainer), and
+    adamw's launches and leaves as ``adamw_want`` counts them."""
     from repro_torch.tree import leaves
+
+    from repro_torch.kernels.adamw.kernel import adamw_leaves_kernel
 
     tr = full_width_trainer(over)
     wrappers = kernel_wrappers()
-    for w in wrappers.values():
+    for w in [*wrappers.values(), adamw_leaves_kernel]:
         w.launches = 0
+    adamw_leaves_kernel.kernel_leaves = adamw_leaves_kernel.plain_leaves = 0
     hist, walls = [], WALLS.setdefault(label, [])
     for r in range(ROUNDS):
         t0 = time.perf_counter()
@@ -1359,10 +1402,16 @@ def drive_path(dev, label, over, expect):
     want = {k: expect.get(k, 0) for k in counts}
     check(counts == want, f"{label}: kernel launches {counts}, expected "
           f"{want}")
+    k = adamw_leaves_kernel
+    adamw = (k.launches, k.kernel_leaves, k.plain_leaves)
+    check(adamw == adamw_want(tr), f"{label}: adamw (launches, kernel "
+          f"leaves, plain leaves) {adamw}, expected {adamw_want(tr)}")
+    ADAMW_BY_PATH[label] = adamw
     print(f"{label}: {ROUNDS} rounds x {BATCHES} batches x {CLIENTS} "
           f"clients, launches {counts} as expected, peak_live_trees "
           f"{tr.engine.last_report.peak_live_trees}, parameters finite on "
-          f"{dev}")
+          f"{dev}; adamw {adamw[0]} launches, {adamw[1]} leaves through "
+          f"the kernel, {adamw[2]} plain, as expected")
     return tr, hist, counts
 
 
@@ -3272,6 +3321,286 @@ def phase_wkv6(dev):
             "bound_by": by, "library_ms": None}
 
 
+# an AdamW element: the clip's multiply, m (3), v (4), the two bias
+# corrections, sqrt, + eps, the divide, the decay (2), lr and the subtract;
+# under a clip 2 more (the norm's square and sum)
+ADAMW_OPS = 17
+# the kernel's clip scale against the plain form's: the norm's partial
+# sums are added in another order
+ADAMW_CLIP_TOL = 2e-6
+# the olmoe-1b-7b.train_4k cell's stage: 4 layers, the embedding and the
+# head (perfbench/configs/olmoe-1b-7b.json)
+OLMOE_STAGE_LAYERS = 4
+# elements of a leaf the plain form takes at once in phase_adamw's
+# compare: the stage's plain form whole would not fit beside its inputs
+# and the kernel's result
+ADAMW_SLICE = 1 << 26
+# adamw (launches, kernel leaves, plain leaves) a main path ran
+# (drive_path), by path label
+ADAMW_BY_PATH = {}
+
+
+def _int_bits(x):
+    return x.view(torch.int16 if x.dtype == torch.bfloat16 else torch.int32)
+
+
+def bits_sum(ts):
+    """A fingerprint of tensors too large to copy: each one's sum of its
+    bit patterns."""
+    return [int(_int_bits(x).sum(dtype=torch.int64)) for x in ts]
+
+
+def adamw_trees(dev):
+    """phase_adamw's trees: (label, leaves of g, m, v, p, bc1, bc2, lr,
+    the optimizer config, rows) with rows 1 for one tree, CLIENTS for
+    the stacked D.  Gradients, moments and parameters at a trained
+    model's scales; bias corrections at step 3 (the D's clients at steps
+    1-5), lr as ``make_schedule`` gives it (the D's a device word a
+    client, as the vectorized programs give it)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.dcgan import disc_init, gen_init
+    from repro_torch.models.transformer import lm_param_shapes
+    from repro_torch.tree import leaves
+
+    olmoe = get_config("olmoe-1b-7b", "train_4k").override(
+        {"model.num_layers": OLMOE_STAGE_LAYERS})
+    qwen = get_config("qwen3-14b", "train_4k").override(
+        {"model.num_layers": 1})
+    dcgan = get_config("dcgan-mnist")
+    check(qwen.parallel.param_dtype == "bfloat16"
+          and qwen.parallel.accum_dtype == "float32"
+          and not qwen.optim.state_dtype, f"qwen3 dtypes {qwen.parallel}")
+    meta = torch.Generator().manual_seed(0)
+    cases = [
+        ("olmoe stage", leaves(lm_param_shapes(olmoe.model)), olmoe.optim,
+         torch.float32, torch.float32, 1),
+        ("qwen3 layer bf16", leaves(lm_param_shapes(qwen.model)["stack"]),
+         qwen.optim, torch.bfloat16, torch.float32, 1),
+        ("G tree", leaves(gen_init(meta, dcgan.model.dcgan, "meta")),
+         dcgan.optim, torch.float32, torch.float32, 1),
+        ("D stack", leaves(disc_init(meta, dcgan.model.dcgan, "meta")),
+         dcgan.optim, torch.float32, torch.float32, CLIENTS)]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for label, shapes, o, pd, gd, rows in cases:
+        shapes = [((rows,) if rows > 1 else ()) + tuple(x.shape)
+                  for x in shapes]
+
+        def draw(scale, dtype, positive=False):
+            out = []
+            for sh in shapes:
+                x = torch.randn(sh, generator=gen, device=dev)
+                x.mul_(scale)
+                out.append((x.abs_() if positive else x).to(dtype))
+            return out
+        g, m = draw(1e-4, gd), draw(1e-5, pd)
+        v, p = draw(1e-8, pd, True), draw(0.02, pd)
+        if rows > 1:
+            t = torch.arange(1, rows + 1, dtype=torch.float32, device=dev)
+            lr = o.lr * torch.linspace(0.5, 1.5, rows, device=dev)
+        else:
+            t = torch.tensor(3.0, device=dev)
+            lr = torch.tensor(o.lr)
+        yield (label, g, m, v, p, 1 - o.beta1 ** t, 1 - o.beta2 ** t, lr,
+               o, rows)
+        del g, m, v, p
+
+
+def phase_adamw(dev):
+    """The adamw kernels against the plain form (``ops.adamw_plain``: the
+    optimizer's global-norm clip, then ``ref.py`` a leaf) at the trees the
+    main paths update:
+      * olmoe stage: the olmoe-1b-7b.train_4k cell's whole tree (4 layers,
+        embedding, head, final norm: 15 leaves, 1.88 B fp32 parameters),
+        AdamW with clip 1.0 and decay 0.1 as its config sets them;
+      * qwen3 layer bf16: one qwen3-14b layer's stack (bf16 parameters and
+        state, fp32 gradients: the qwen3 train path's dtypes), clip 1.0,
+        decay 0.1;
+      * G tree: dcgan-mnist's generator, fp32, Adam, no clip;
+      * D stack: dcgan-mnist's discriminator stacked over CLIENTS clients
+        through ``ops.adamw_update_stacked`` (the vectorized programs'
+        path), each client its own step and lr.
+    Without a clip every element bit for bit the plain form's.  Under a
+    clip the kernel's scale (``clip_scale_kernel``, the norm pass the
+    update runs) within ``ADAMW_CLIP_TOL`` of the plain form's, and every
+    element bit for bit the plain form's given that scale (the gradient
+    clipped as ``clip_by_global_norm`` clips a leaf), leaf by leaf in
+    slices of ``ADAMW_SLICE``.  Each tree twice for the same bits, the
+    inputs unchanged (the stage by sums of bit patterns).  Then times
+    (not the qwen3 layer's): the kernels, the norm pass alone (its share
+    of the kernels' time), the plain form and, for one tree, the library
+    yardstick ``clip_grad_norm_`` + ``torch.optim.AdamW(fused=True)``
+    (in place; never called by the port), against the bound: 28 B a
+    parameter, 4 more under a clip."""
+    from repro_torch.kernels.adamw.kernel import (adamw_leaves_kernel,
+                                                  clip_scale_kernel)
+    from repro_torch.kernels.adamw.ops import (adamw_plain,
+                                               adamw_update_stacked)
+    from repro_torch.kernels.adamw.ref import adamw_ref
+    from repro_torch.optim.optimizers import global_norm
+
+    rows_out = {}
+    for (label, g, m, v, p, bc1, bc2, lr, o, rows) in adamw_trees(dev):
+        hp = dict(beta1=o.beta1, beta2=o.beta2, eps=o.eps,
+                  weight_decay=o.weight_decay, grad_clip=o.grad_clip)
+        trees = [{f"{i:03d}": x for i, x in enumerate(t)}
+                 for t in (g, m, v, p)]
+        if rows > 1:
+            def kernel():
+                out = adamw_update_stacked(*trees, bc1, bc2, lr, **hp)
+                return [list(t.values()) for t in out]
+
+            def plain():
+                return torch.func.vmap(functools.partial(adamw_plain, **hp))(
+                    *trees, bc1, bc2, lr)
+        else:
+            def kernel():
+                return adamw_leaves_kernel(g, m, v, p, bc1, bc2, lr, **hp)
+
+            def plain():
+                return adamw_plain(*trees, bc1, bc2, lr, **hp)
+        n = sum(x.numel() for x in p)
+        big = n > 10 ** 8
+        inputs = (g, m, v, p)
+        before = ([bits_sum(t) for t in inputs] if big else
+                  [[x.clone() for x in t] for t in inputs])
+        launches0 = adamw_leaves_kernel.launches
+        got = kernel()
+        per_call = adamw_leaves_kernel.launches - launches0
+        torch.cuda.synchronize()
+        # the plain form against the kernel's result
+        err = 0.0
+        if rows > 1:
+            for a, b in zip(got, plain()):
+                for x, y in zip(a, b.values()):
+                    check(torch.equal(_int_bits(x), _int_bits(y)),
+                          f"adamw {label}: not bit for bit")
+        else:
+            scale = None
+            if o.grad_clip:
+                scale = clip_scale_kernel(g, o.grad_clip)
+                norm = global_norm(trees[0])
+                want = torch.clamp(o.grad_clip / torch.clamp(norm, min=1e-9),
+                                   max=1.0)
+                err = float((scale - want).abs() / want)
+                check(err <= ADAMW_CLIP_TOL, f"adamw {label}: clip scale "
+                      f"{float(scale)} against the plain form's "
+                      f"{float(want)}")
+            leaf_hp = {k: x for k, x in hp.items() if k != "grad_clip"}
+            for i in range(len(p)):
+                flat = [t[i].reshape(-1) for t in (g, m, v, p)]
+                outs = [t[i].reshape(-1) for t in got]
+                for lo in range(0, flat[0].numel(), ADAMW_SLICE):
+                    sl = slice(lo, lo + ADAMW_SLICE)
+                    gs, ms, vs, ps = (x[sl] for x in flat)
+                    if scale is not None:
+                        gs = (gs.to(torch.float32) * scale).to(gs.dtype)
+                    want = adamw_ref(gs, ms, vs, ps, bc1, bc2, lr, **leaf_hp)
+                    for x, y in zip(outs, want):
+                        check(torch.equal(_int_bits(x[sl]), _int_bits(y)),
+                              f"adamw {label}: leaf {i} not bit for bit "
+                              f"the plain form's"
+                              + (" given the kernel's scale" if o.grad_clip
+                                 else ""))
+                    del want, gs
+        if big:
+            first = [bits_sum(t) for t in got]
+            del got
+            again = kernel()
+            check([bits_sum(t) for t in again] == first,
+                  f"adamw {label}: two calls differ")
+            del again
+            check([bits_sum(t) for t in inputs] == before,
+                  f"adamw {label}: an input was written")
+        else:
+            again = kernel()
+            for a, b in zip(got, again):
+                check(all(map(torch.equal, a, b)),
+                      f"adamw {label}: two calls differ")
+            for a, b in zip(inputs, before):
+                check(all(map(torch.equal, a, b)),
+                      f"adamw {label}: an input was written")
+            del got, again
+        del before
+        torch.cuda.empty_cache()
+        held = (f"clip scale within {err:.3e} of the plain form's, every "
+                f"element bit for bit given it" if o.grad_clip
+                else "bit for bit")
+        print(f"adamw {label}: {len(p)} leaves" +
+              (f" x {rows} clients" if rows > 1 else "") +
+              f", {n} parameters ({p[0].dtype}, gradients {g[0].dtype}), "
+              f"{per_call} launches a call; against the plain form: {held};"
+              f" two calls equal, inputs unchanged")
+        if label.startswith("qwen3"):
+            del g, m, v, p, trees, inputs
+            continue
+        nbytes = sum((g[i].element_size() + 2 * (m[i].element_size()
+                     + v[i].element_size() + p[i].element_size()))
+                     * x.numel() for i, x in enumerate(p))
+        if o.grad_clip:
+            nbytes += sum(x.element_size() * x.numel() for x in g)
+        bound, by = bound_ms(nbytes, (ADAMW_OPS + 2 * bool(o.grad_clip)) * n)
+        fns = {"kernel": kernel, "plain": plain}
+        if o.grad_clip:
+            fns["norm"] = lambda: clip_scale_kernel(g, o.grad_clip)
+        # the stage's calls take milliseconds: events around back-to-back
+        # calls are device time; the small trees' also from graph replay
+        t_dev = time_variants(fns, iters=5 if big else 200,
+                              modes=("eager",) if big else ("device",
+                                                            "eager"))
+        t_lib = None
+        if rows == 1:
+            live = [x.clone().requires_grad_(True) for x in p]
+            for x, y in zip(live, g):
+                x.grad = y.clone()
+            lib_opt = torch.optim.AdamW(live, lr=o.lr,
+                                        betas=(o.beta1, o.beta2), eps=o.eps,
+                                        weight_decay=o.weight_decay,
+                                        fused=True)
+
+            def library():
+                if o.grad_clip:
+                    torch.nn.utils.clip_grad_norm_(live, o.grad_clip,
+                                                   foreach=True)
+                lib_opt.step()
+            t_lib = time_variants({"library": library},
+                                  iters=5 if big else 200,
+                                  modes=("eager",))["eager"]["library"]
+            del live, lib_opt
+        mode = next(iter(t_dev))
+        tm = t_dev[mode]
+        share = tm["norm"] / tm["kernel"] if o.grad_clip else 0.0
+        lib = (f", clip_grad_norm_ + fused AdamW {t_lib:.4f} ms eager"
+               if t_lib is not None else "")
+        print(f"  {mode} kernel {tm['kernel']:.4f} ms "
+              f"({nbytes / tm['kernel'] / 1e9:.3f} TB/s), norm pass "
+              f"{tm.get('norm', 0.0):.4f} ms ({100 * share:.1f}%), plain "
+              f"{tm['plain']:.4f} ms, bound {bound:.4f} ms ({by}: {nbytes} B "
+              f"at 3.35 TB/s){lib}; eager kernel "
+              f"{t_dev['eager']['kernel']:.4f} ms, plain "
+              f"{t_dev['eager']['plain']:.4f} ms")
+        rows_out[label] = {"params": n, "leaves": len(p), "rows": rows,
+                           "launches_a_call": per_call, "mode": mode,
+                           "ms": tm["kernel"], "norm_ms": tm.get("norm"),
+                           "norm_share": share, "plain_ms": tm["plain"],
+                           "bound_ms": bound, "bound_by": by,
+                           "eager_ms": t_dev["eager"]["kernel"],
+                           "library_ms": t_lib, "clip_scale_rel_err": err}
+        del g, m, v, p, trees, inputs, fns
+        torch.cuda.empty_cache()
+    stage = rows_out["olmoe stage"]
+    return {"name": "adamw", "route": "cuda",
+            "source": "src/repro_torch/csrc/adamw.cu", "replaces": None,
+            "launches": None,
+            "launches_by_path": {f"{k} (a call)": r["launches_a_call"]
+                                 for k, r in rows_out.items()},
+            "max_abs_err": max(r["clip_scale_rel_err"]
+                               for r in rows_out.values()),
+            "ms": stage["ms"], "plain_ms": stage["plain_ms"],
+            "bound_ms": stage["bound_ms"], "bound_by": stage["bound_by"],
+            "library_ms": stage["library_ms"],
+            "norm_share": stage["norm_share"], "trees": rows_out}
+
+
 def lm_forward_batch(dev, m, b, s):
     """The forward's batch: synthetic tokens and next-token labels; for
     the VLM the tokens come from ``vlm_interleave`` (one 256-token image
@@ -3578,8 +3907,9 @@ def report_train(label, tokens, walls, losses, peak, counts):
 
 def phase_train_paths(dev):
     """LM training at full width, every kernel's launch count set to 0
-    just before each path and read just after (training runs none: the
-    kernels are forward-only, as in the reference):
+    just before each path and read just after (training runs none but
+    adamw, whose leaf counts show every leaf of every AdamW step through
+    it: the other kernels are forward-only, as in the reference):
     (a) ``launch.train.train_loop`` on rwkv6-1.6b, 24 layers, fp32
     parameters and AdamW state, bf16 compute, B 4 x T 1024, 2 steps;
     (b) ``make_train_step`` on qwen3-14b, 4 of 40 layers, bf16 parameters
@@ -3591,7 +3921,7 @@ def phase_train_paths(dev):
     Each prints its warm step's wall, tokens a second, peak memory and
     losses; every loss and parameter is finite and the warm step moves
     the parameters.  Then a step built with ``use_flash_kernel`` is
-    refused and launches nothing."""
+    refused and launches nothing.  Returns adamw's launches by path."""
     from repro_torch.configs.registry import get_config
     from repro_torch.data import synthetic_lm_batch
     from repro_torch.launch.train import train_loop
@@ -3602,16 +3932,40 @@ def phase_train_paths(dev):
     from repro_torch.runtime.serve import _dtype
     from repro_torch.tree import leaves, tree_map
 
+    from repro_torch.kernels.adamw.kernel import (MAX_LEAVES,
+                                                  adamw_leaves_kernel)
+
     wrappers = kernel_wrappers()
+    adamw_paths = {}
 
     def zero_counts():
-        for w in wrappers.values():
+        for w in [*wrappers.values(), adamw_leaves_kernel]:
             w.launches = 0
+        adamw_leaves_kernel.kernel_leaves = 0
+        adamw_leaves_kernel.plain_leaves = 0
 
     def read_counts(label):
         counts = {k: w.launches for k, w in wrappers.items() if w.launches}
         check(not counts, f"{label}: kernel launches {counts}, expected none")
         return counts
+
+    def adamw_counts(label, cfg, updates, tree):
+        """Every leaf of each of ``updates`` optimizer steps through the
+        adamw kernels, none plain: a step's launches one a table of
+        MAX_LEAVES leaves, twice that and the scale's under a clip."""
+        k = adamw_leaves_kernel
+        n = len(leaves(tree))
+        tables = -(-n // MAX_LEAVES)
+        per_step = (2 * tables + 1) if cfg.optim.grad_clip else tables
+        want = ((updates * per_step, updates * n, 0)
+                if cfg.optim.name in ("adam", "adamw") else (0, 0, 0))
+        got = (k.launches, k.kernel_leaves, k.plain_leaves)
+        check(got == want, f"{label}: adamw (launches, kernel leaves, "
+              f"plain leaves) {got}, expected {want}")
+        adamw_paths[label] = got
+        print(f"{label}: adamw {k.launches} launches, {k.kernel_leaves} "
+              f"leaves through the kernel ({cfg.optim.name}, clip "
+              f"{cfg.optim.grad_clip})")
 
     # (a) the launcher on rwkv6-1.6b
     t0 = time.perf_counter()
@@ -3636,6 +3990,7 @@ def phase_train_paths(dev):
                                 log_every=a["steps"])
     torch.cuda.synchronize()
     counts = read_counts("rwkv6-1.6b train_loop")
+    adamw_counts("rwkv6-1.6b train_loop", cfg, a["steps"], params)
     peak = torch.cuda.max_memory_allocated(dev)
     check(all(math.isfinite(x) for x in losses),
           f"rwkv6-1.6b train_loop: losses {losses}")
@@ -3685,6 +4040,7 @@ def phase_train_paths(dev):
         walls.append(time.perf_counter() - ts)
         digests.append(tree_digest(params))
     counts = read_counts("qwen3-14b train step")
+    adamw_counts("qwen3-14b train step", cfg, b["steps"], params)
     peak = torch.cuda.max_memory_allocated(dev)
     check(all(math.isfinite(x) for x in losses),
           f"qwen3-14b train step: losses {losses}")
@@ -3754,6 +4110,7 @@ def phase_train_paths(dev):
               f"whisper-base FSL step {i} moved nothing")
         prev = now
     counts = read_counts("whisper-base FSL step")
+    adamw_counts("whisper-base FSL step", cfg, c["steps"] * n, params)
     peak = torch.cuda.max_memory_allocated(dev)
     check(all(math.isfinite(x) for x in losses),
           f"whisper-base FSL step: losses {losses}")
@@ -3785,6 +4142,7 @@ def phase_train_paths(dev):
     read_counts("use_flash_kernel train step")
     print("a train step built with parallel.use_flash_kernel is refused "
           "(the kernels are forward-only), no kernel launched")
+    return adamw_paths
 
 
 def phase_train_small_reference(dev):
@@ -4073,7 +4431,7 @@ def main() -> int:
     t0 = time.perf_counter()
     rows = [phase_fedavg(dev), phase_dp_clip(dev),
             phase_boundary_fuse(dev), *phase_agg_fuse(dev),
-            phase_flash_attention(dev), phase_wkv6(dev)]
+            phase_flash_attention(dev), phase_wkv6(dev), phase_adamw(dev)]
     print(f"kernel vs plain: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     launches, by_path = phase_main_paths(dev)
@@ -4095,15 +4453,16 @@ def main() -> int:
     by_path.update(lm_by_path)
     print(f"LM paths: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    phase_train_paths(dev)
+    by_path["adamw"] = {**ADAMW_BY_PATH, **phase_train_paths(dev)}
     print(f"train paths: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_dryrun(dev)
     print(f"dry run: {time.perf_counter() - t0:.1f} s")
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        row["launches"] = launches.get(row["name"], row["launches"])
         if row["name"] in by_path:
-            row["launches_by_path"] = by_path[row["name"]]
+            row["launches_by_path"] = {**row.get("launches_by_path", {}),
+                                       **by_path[row["name"]]}
     t0 = time.perf_counter()
     phase_small_reference(dev)
     phase_small_split_reference(dev)

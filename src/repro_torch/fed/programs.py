@@ -10,7 +10,8 @@ Port of ``repro/fed/programs.py``.
   * :func:`make_vectorized_step` is the same step over a stacked client
     axis: the gradients from ``torch.func.vmap`` over clients, the kernels
     (dp_clip, boundary_fuse) called outside the vmap on each client's rows
-    (a ctypes call does not run inside ``vmap``), the optimizer vmapped;
+    (a ctypes call does not run inside ``vmap``), the optimizer's stacked
+    update over every client at once;
   * :class:`LocalProgram` runs a step as a per-client loop of steps
     (``loop``) or as one stacked step a batch for C clients
     (``vectorized``), one step definition per split signature;
@@ -205,11 +206,14 @@ def make_vectorized_step(optimizer, loss_fn: LossFn, privacy=None, *,
         the client axis), then ``dp_clip_noise_tree`` once per client
         outside the vmap with that client's key: the loop's launches and
         inputs, and ``privacy.use_kernel`` honoured;
-    (c) ``optimizer.update`` vmapped over clients, each with its own
-        learning rate (Adam's step counter becomes (C,)).
+    (c) ``optimizer.update_stacked`` over the stacked trees, each client
+        with its own learning rate (Adam's step counter becomes (C,)): for
+        AdamW one call of its kernels for every client, outside any vmap;
+        an optimizer without one (SGD) takes ``update`` vmapped over
+        clients.
     """
     vmap = torch.func.vmap
-    update = vmap(optimizer.update)
+    update = optimizer.update_stacked or vmap(optimizer.update)
 
     if not _is_dp(privacy):
         if split_exec is None:

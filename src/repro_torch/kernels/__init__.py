@@ -1,5 +1,5 @@
 """Hand-written Hopper kernels of the port, one package per TPU kernel of
-``repro/kernels``.
+``repro/kernels``, and one (adamw) that replaces no TPU kernel.
 
 Each kernel package: ``kernel.py`` (the CUDA kernel's wrapper: checks,
 launch, launch count), ``ops.py`` (the public op: layout glue, CUDA tensor
@@ -16,4 +16,7 @@ version).  Sources live in ``repro_torch/csrc`` and build with
   flash_attention blockwise online-softmax attention (GQA, causal and
                   sliding-window masks) for the LM substrate's forward
   wkv6            the RWKV-6 recurrence for the LM substrate's forward
+  adamw           the optimizer's global-norm clip and AdamW update over a
+                  whole parameter tree, or C clients' stacked trees at once
+                  (the JAX optimizer is plain JAX)
 """

@@ -4,7 +4,11 @@ computes (not ``torch.optim``): fp32 moments, bias corrections from a
 float32 step count, the same order of operations.
 
 AdamW and SGD+momentum, with global-norm clipping and a state-dtype knob.
-``update`` returns new trees and never writes into its inputs.
+``update`` returns new trees and never writes into its inputs.  AdamW's
+clip and update go through ``kernels/adamw`` (hand-written kernels on the
+card, the plain form on the CPU), and so does its ``update_stacked``, the
+update of C clients' stacked trees that the vectorized client programs
+take.
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.adamw.ops import adamw_update, adamw_update_stacked
 from repro_torch.tree import leaves, tree_map
 
 
@@ -21,6 +26,11 @@ class Optimizer:
     init: Callable[[Any], Any]
     update: Callable[[Any, Any, Any, float], Tuple[Any, Any]]
     # update(grads, state, params, lr) -> (new_params, new_state)
+    update_stacked: Optional[Callable[[Any, Any, Any, torch.Tensor],
+                                      Tuple[Any, Any]]] = None
+    # update_stacked(grads, state, params, lrs): ``update`` of C clients
+    # at once, every leaf and ``lrs`` with a leading client axis; None:
+    # ``torch.func.vmap(update)`` serves
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -56,31 +66,23 @@ def adamw(beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.0,
                 "v": _zeros_like_tree(params, state_dtype),
                 "step": _step0(params)}
 
-    def update(grads, state, params, lr):
-        if grad_clip:
-            grads, _ = clip_by_global_norm(grads, grad_clip)
-        step = state["step"] + 1
-        t = step.to(torch.float32)
-        bc1 = 1 - beta1 ** t
-        bc2 = 1 - beta2 ** t
+    def stepped(op):
+        # the step counter ((C,) for stacked trees) and its bias
+        # corrections, then ``op``
+        def update(grads, state, params, lr):
+            step = state["step"] + 1
+            t = step.to(torch.float32)
+            bc1 = 1 - beta1 ** t
+            bc2 = 1 - beta2 ** t
+            new_params, new_m, new_v = op(
+                grads, state["m"], state["v"], params, bc1, bc2, lr,
+                beta1=beta1, beta2=beta2, eps=eps, weight_decay=weight_decay,
+                grad_clip=grad_clip)
+            return new_params, {"m": new_m, "v": new_v, "step": step}
+        return update
 
-        def upd(g, m, v, p):
-            g32 = g.to(torch.float32)
-            m32 = beta1 * m.to(torch.float32) + (1 - beta1) * g32
-            v32 = beta2 * v.to(torch.float32) + (1 - beta2) * g32 * g32
-            mh = m32 / bc1
-            vh = v32 / bc2
-            delta = mh / (torch.sqrt(vh) + eps)
-            if weight_decay:
-                delta = delta + weight_decay * p.to(torch.float32)
-            newp = p.to(torch.float32) - lr * delta
-            return (newp.to(p.dtype), m32.to(m.dtype), v32.to(v.dtype))
-
-        new_params, new_m, new_v = _split3(
-            tree_map(upd, grads, state["m"], state["v"], params))
-        return new_params, {"m": new_m, "v": new_v, "step": step}
-
-    return Optimizer(init=init, update=update)
+    return Optimizer(init=init, update=stepped(adamw_update),
+                     update_stacked=stepped(adamw_update_stacked))
 
 
 def sgd(momentum=0.9, grad_clip=0.0, state_dtype=None) -> Optimizer:
