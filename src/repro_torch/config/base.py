@@ -100,10 +100,21 @@ class MoEConfig:
     router_aux_coef: float = 0.01         # load-balance loss coefficient
     router_jitter: float = 0.0
     capacity_factor: float = 0.0          # 0 => dropless (dense one-hot dispatch)
+    # port only (the defaults are the reference's behaviour)
+    norm_topk_prob: bool = True           # renormalise the top-k weights
+    expert_shards: int = 1                # the experts' shards, of equal size
+    expert_shard: int = 0                 # the shard this device holds
 
     @property
     def enabled(self) -> bool:
         return self.num_experts > 0
+
+    @property
+    def held_experts(self) -> Tuple[int, int]:
+        """(first, count) of the routed experts this device holds: the
+        ``expert_shard``-th of ``expert_shards`` equal shards."""
+        n = self.num_experts // self.expert_shards
+        return self.expert_shard * n, n
 
 
 @dataclass
@@ -113,10 +124,17 @@ class MLAConfig:
     q_lora_rank: int = 0                  # 0 => full-rank queries (V2-Lite)
     rope_head_dim: int = 64               # decoupled rope sub-dim per head
     v_head_dim: int = 0                   # value head dim (defaults to head_dim)
+    # port only: YaRN on the rope part at this factor, with DeepSeek-V2's
+    # other rope_scaling settings (models/mla.py); 1 or less is plain RoPE
+    yarn_factor: float = 0.0
 
     @property
     def enabled(self) -> bool:
         return self.kv_lora_rank > 0
+
+    @property
+    def yarn(self) -> bool:
+        return self.yarn_factor > 1.0
 
 
 @dataclass
@@ -192,6 +210,9 @@ class ModelConfig:
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
     act: str = "silu"                     # mlp activation (silu => SwiGLU)
+    # port only: leading dense layers of an MLA + MoE model (DeepSeek-V2's
+    # first_k_dense_replace), MLA attention + a SwiGLU of d_ff
+    first_dense_layers: int = 0
     # family sub-configs
     moe: MoEConfig = field(default_factory=MoEConfig)
     mla: MLAConfig = field(default_factory=MLAConfig)
@@ -275,6 +296,13 @@ class ModelConfig:
             return emb + total_layers + norms
         norms = L * 2 * d + d
         total = emb + L * per_layer + norms
+        if self.first_dense_layers:
+            # the leading layers' dense SwiGLU in place of their MoE MLP
+            e = self.moe
+            moe_mlp = ((e.num_experts + e.num_shared_experts) * 3 * d
+                       * e.d_ff_expert + d * e.num_experts)
+            dense = 3 * d * self.d_ff
+            total += self.first_dense_layers * (dense - moe_mlp)
         if self.encdec.enabled:
             # encoder layers (full self-attn + mlp) + decoder cross-attn
             enc_l = (d * self.q_dim * 2 + 2 * d * self.kv_dim + 2 * d * self.d_ff)
@@ -288,7 +316,8 @@ class ModelConfig:
             return self.param_count()
         d, L = self.d_model, self.num_layers
         e = self.moe
-        inactive = (e.num_experts - e.top_k) * 3 * d * e.d_ff_expert * L
+        inactive = (e.num_experts - e.top_k) * 3 * d * e.d_ff_expert \
+            * (L - self.first_dense_layers)
         return int(self.param_count() - inactive)
 
     def _layer_pattern(self) -> List[str]:
@@ -745,6 +774,18 @@ class RunConfig:
                 raise ValueError("num_heads must be divisible by num_kv_heads")
             if m.moe.enabled and m.moe.top_k > m.moe.num_experts:
                 raise ValueError("top_k > num_experts")
+            e = m.moe
+            if e.expert_shards < 1 or (e.num_experts % e.expert_shards) \
+                    or not 0 <= e.expert_shard < e.expert_shards:
+                raise ValueError(
+                    f"expert shard {e.expert_shard} of {e.expert_shards} "
+                    f"does not divide {e.num_experts} experts")
+            if m.first_dense_layers and not (
+                    m.moe.enabled and m.mla.enabled
+                    and m.first_dense_layers < m.num_layers):
+                raise ValueError(
+                    "first_dense_layers leads an MLA + MoE stack and leaves "
+                    "at least one MoE layer")
         if self.shape.mode == "decode" and m.family in (DENSE, MOE, VLM) \
                 and self.shape.seq_len > 65536 and m.attention != ATTN_SLIDING:
             raise ValueError(

@@ -6,6 +6,7 @@ A *block kind* is one residual block:
   attn    GQA attention + dense MLP        (dense / vlm / hybrid-attn)
   moe     GQA attention + MoE MLP          (olmoe)
   mla     MLA attention + MoE MLP          (deepseek-v2)
+  mla_dense  MLA attention + dense SwiGLU  (deepseek-v2's leading layers)
   rwkv    RWKV-6 time-mix + channel-mix    (ssm)
   rglru   RG-LRU recurrent block + MLP     (hybrid-recurrent)
   enc     bidirectional attention + MLP    (whisper encoder)
@@ -18,7 +19,10 @@ decoder, and all of prefill and decode) takes the plain attention.
 
 Layer stacks are organised in *periods* (the smallest repeating kind
 tuple); the parameters of one period are stacked across periods, as in the
-reference, and the stack runs as a Python loop over periods.
+reference, and the stack runs as a Python loop over periods.  An MLA +
+MoE model's ``first_dense_layers`` (a setting the reference lacks) come
+before the stack as *leading* layers of their own kind (``mla_dense``,
+:func:`lead_kinds`); the period is taken from the layers after them.
 """
 from __future__ import annotations
 
@@ -54,21 +58,29 @@ def layer_kinds(m: ModelConfig) -> List[str]:
     if m.family == AUDIO:
         return ["dec"] * m.num_layers          # encoder handled separately
     if m.moe.enabled:
-        return ["mla" if m.mla.enabled else "moe"] * m.num_layers
+        lead = lead_kinds(m)
+        return lead + ["mla" if m.mla.enabled else "moe"] * (
+            m.num_layers - len(lead))
     return ["attn"] * m.num_layers
+
+
+def lead_kinds(m: ModelConfig) -> List[str]:
+    """The kinds of the leading layers that run before the period stack."""
+    return ["mla_dense"] * m.first_dense_layers
 
 
 def period_of(m: ModelConfig) -> Tuple[str, ...]:
     if m.family == HYBRID and m.rglru.enabled:
         return tuple(m.rglru.pattern)
-    kinds = layer_kinds(m)
+    kinds = layer_kinds(m)[m.first_dense_layers:]
     return (kinds[0],) if kinds else ()
 
 
 def split_periods(m: ModelConfig) -> Tuple[int, List[str]]:
-    """-> (num_full_periods, remainder_kinds)."""
+    """-> (num_full_periods, remainder_kinds) of the layers after the
+    leading ones."""
     period = period_of(m)
-    kinds = layer_kinds(m)
+    kinds = layer_kinds(m)[m.first_dense_layers:]
     n_full = len(kinds) // len(period)
     return n_full, kinds[n_full * len(period):]
 
@@ -113,12 +125,14 @@ def block_init(gen: torch.Generator, kind: str, m: ModelConfig, dtype
                     if kind == "moe" else
                     L.mlp_init(gen, m.d_model, m.d_ff, m.act, dtype))
         return p
-    if kind == "mla":
+    if kind in ("mla", "mla_dense"):
         return {"ln1": norm_init(m, dtype, dev),
                 "attn": MLA.mla_init(gen, m.d_model, m.num_heads, m.head_dim,
                                      m.mla, dtype),
                 "ln2": norm_init(m, dtype, dev),
-                "mlp": MOE_M.moe_init(gen, m.d_model, m.moe, dtype)}
+                "mlp": (MOE_M.moe_init(gen, m.d_model, m.moe, dtype)
+                        if kind == "mla" else
+                        L.mlp_init(gen, m.d_model, m.d_ff, m.act, dtype))}
     if kind == "rwkv":
         return {"ln1": norm_init(m, dtype, dev),
                 "time": RW.timemix_init(gen, m.d_model, m.rwkv, dtype),
@@ -148,9 +162,11 @@ def block_specs(kind: str, m: ModelConfig) -> Dict[str, Any]:
         p["mlp"] = (MOE_M.moe_specs(m.moe) if kind == "moe"
                     else L.mlp_specs(m.act))
         return p
-    if kind == "mla":
+    if kind in ("mla", "mla_dense"):
         return {"ln1": norm_specs(m), "attn": MLA.mla_specs(m.mla),
-                "ln2": norm_specs(m), "mlp": MOE_M.moe_specs(m.moe)}
+                "ln2": norm_specs(m),
+                "mlp": (MOE_M.moe_specs(m.moe) if kind == "mla"
+                        else L.mlp_specs(m.act))}
     if kind == "rwkv":
         return {"ln1": norm_specs(m), "time": RW.timemix_specs(m.rwkv),
                 "ln2": norm_specs(m), "chan": RW.channelmix_specs()}
@@ -232,7 +248,7 @@ def block_apply(kind: str, p, x, m: ModelConfig, positions, cd,
         else:
             y = L.mlp_apply(p["mlp"], h, m.act, cd)
         return x + y, aux, cache
-    if kind == "mla":
+    if kind in ("mla", "mla_dense"):
         h = norm_apply(m, p["ln1"], x)
         a, (c_kv, k_rope) = MLA.mla_apply(p["attn"], h, m.num_heads,
                                           m.head_dim, m.mla, positions,
@@ -244,7 +260,10 @@ def block_apply(kind: str, p, x, m: ModelConfig, positions, cd,
                                        cache_dtype)[:, :, 0]}
         x = x + a
         h = norm_apply(m, p["ln2"], x)
-        y, aux = MOE_M.moe_apply(p["mlp"], h, m.moe, cd)
+        if kind == "mla":
+            y, aux = MOE_M.moe_apply(p["mlp"], h, m.moe, cd)
+        else:
+            y = L.mlp_apply(p["mlp"], h, m.act, cd)
         return x + y, aux, cache
     if kind == "rwkv":
         h = norm_apply(m, p["ln1"], x)
@@ -319,7 +338,7 @@ def block_state_init(kind: str, m: ModelConfig, batch: int, cache_len: int,
             else cache_len
         return {"k": zeros(batch, c, m.num_kv_heads, m.head_dim),
                 "v": zeros(batch, c, m.num_kv_heads, m.head_dim)}
-    if kind == "mla":
+    if kind in ("mla", "mla_dense"):
         return {"ckv": zeros(batch, cache_len, m.mla.kv_lora_rank),
                 "krope": zeros(batch, cache_len, m.mla.rope_head_dim)}
     if kind == "rwkv":
@@ -352,7 +371,7 @@ def block_state_specs(kind: str, m: ModelConfig) -> Dict[str, Any]:
     if kind in ("attn", "moe"):
         return {"k": Lg("batch", "seq", "kv", None),
                 "v": Lg("batch", "seq", "kv", None)}
-    if kind == "mla":
+    if kind in ("mla", "mla_dense"):
         return {"ckv": Lg("batch", "seq", None),
                 "krope": Lg("batch", "seq", None)}
     if kind == "rwkv":
@@ -385,14 +404,17 @@ def block_decode(kind: str, p, x, state, index: int, m: ModelConfig, cd
         else:
             y = L.mlp_apply(p["mlp"], h, m.act, cd)
         return x + y, {"k": ck, "v": cv}
-    if kind == "mla":
+    if kind in ("mla", "mla_dense"):
         h = norm_apply(m, p["ln1"], x)
         a, (ckv, krope) = MLA.mla_decode(p["attn"], h, state["ckv"],
                                          state["krope"], index, m.num_heads,
                                          m.head_dim, m.mla, m.rope_theta, cd)
         x = x + a
         h = norm_apply(m, p["ln2"], x)
-        y, _ = MOE_M.moe_apply(p["mlp"], h, m.moe, cd)
+        if kind == "mla":
+            y, _ = MOE_M.moe_apply(p["mlp"], h, m.moe, cd)
+        else:
+            y = L.mlp_apply(p["mlp"], h, m.act, cd)
         return x + y, {"ckv": ckv, "krope": krope}
     if kind == "rwkv":
         h = norm_apply(m, p["ln1"], x)

@@ -17,6 +17,7 @@ the JAX parameters across with :mod:`repro_torch.bridge`.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -152,15 +153,50 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
                                          device=device) / head_dim))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
-               ) -> torch.Tensor:
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention scale ``0.1 * mscale * ln(factor) + 1`` (1 where
+    the factor does not stretch)."""
+    if factor <= 1.0:
+        return 1.0
+    return 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_freqs(head_dim: int, theta: float, factor: float,
+               original_max_position: int, beta_fast: float,
+               beta_slow: float, device=None) -> torch.Tensor:
+    """YaRN's inverse frequencies (DeepSeek-V2's rotary embedding): the
+    plain ones below the correction range, the plain ones over ``factor``
+    above it, and a linear ramp between.  The range is the dims that turn
+    ``beta_fast`` and ``beta_slow`` times over ``original_max_position``."""
+    def corr(rotations):
+        return (head_dim * math.log(original_max_position
+                                    / (rotations * 2 * math.pi))
+                / (2 * math.log(theta)))
+    low = max(math.floor(corr(beta_fast)), 0)
+    high = min(math.ceil(corr(beta_slow)), head_dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = torch.clamp((torch.arange(head_dim // 2, dtype=torch.float32,
+                                     device=device) - low) / (high - low),
+                       0, 1)
+    keep = 1.0 - ramp                   # the share of the plain frequency
+    extra = rope_freqs(head_dim, theta, device)
+    inter = 1.0 / (factor * theta ** (torch.arange(
+        0, head_dim, 2, dtype=torch.float32, device=device) / head_dim))
+    return inter * (1 - keep) + extra * keep
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               freqs: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x: (..., seq, heads, head_dim); positions: (..., seq).  Half-split
     rotation (the first and second halves of head_dim pair up), as the
-    reference, not interleaved."""
+    reference, not interleaved.  ``freqs`` replaces the plain inverse
+    frequencies (YaRN's)."""
     if theta <= 0:
         return x
     hd = x.shape[-1]
-    freqs = rope_freqs(hd, theta, x.device)                 # (hd/2,)
+    if freqs is None:
+        freqs = rope_freqs(hd, theta, x.device)             # (hd/2,)
     ang = positions[..., :, None].to(torch.float32) * freqs  # (..., seq, hd/2)
     cos = torch.cos(ang)[..., None, :]                      # (..., seq, 1, hd/2)
     sin = torch.sin(ang)[..., None, :]
@@ -232,12 +268,15 @@ def attention_scores_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
 
 
 def attention_full(q, k, v, q_pos, k_pos, window: int = 0,
-                   kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain softmax attention. q: (B,Lq,H,hd); k,v: (B,Lk,Hkv,hd)."""
+                   kv_valid: Optional[torch.Tensor] = None,
+                   scale: Optional[float] = None) -> torch.Tensor:
+    """Plain softmax attention. q: (B,Lq,H,hd); k,v: (B,Lk,Hkv,hd).  The
+    scores are scaled by ``scale`` (default ``hd ** -0.5``)."""
     groups = q.shape[2] // k.shape[2]
     k = _repeat_kv(k, groups)
     v = _repeat_kv(v, groups)
-    scale = q.shape[-1] ** -0.5
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
     logits = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
                           k.to(torch.float32)) * scale
     mask = attention_scores_mask(q_pos, k_pos, window)            # (Lq, Lk)
@@ -252,7 +291,8 @@ def attention_full(q, k, v, q_pos, k_pos, window: int = 0,
 
 def attention_chunked(q, k, v, q_pos, k_pos, window: int = 0,
                       kv_valid: Optional[torch.Tensor] = None,
-                      kv_chunk: int = 1024) -> torch.Tensor:
+                      kv_chunk: int = 1024,
+                      scale: Optional[float] = None) -> torch.Tensor:
     """Online-softmax attention, looping over KV chunks: O(Lq * kv_chunk)
     live scores instead of O(Lq * Lk)."""
     b, lq, h, hd = q.shape
@@ -269,7 +309,8 @@ def attention_chunked(q, k, v, q_pos, k_pos, window: int = 0,
             kv_valid = F.pad(kv_valid, (0, pad), value=False)
         lk += pad
     groups = q.shape[2] // k.shape[2]
-    scale = hd ** -0.5
+    if scale is None:
+        scale = hd ** -0.5
     vd = v.shape[-1]
     m = torch.full((b, h, lq), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, h, lq), dtype=torch.float32, device=q.device)
@@ -301,12 +342,14 @@ def attention_chunked(q, k, v, q_pos, k_pos, window: int = 0,
 
 def attention(q, k, v, q_pos, k_pos, window: int = 0,
               kv_valid: Optional[torch.Tensor] = None,
-              kv_chunk: int = 1024, force_full: bool = False) -> torch.Tensor:
+              kv_chunk: int = 1024, force_full: bool = False,
+              scale: Optional[float] = None) -> torch.Tensor:
     """Dispatch: full einsum for short KV, chunked online-softmax beyond."""
     if force_full or k.shape[1] <= kv_chunk:
-        return attention_full(q, k, v, q_pos, k_pos, window, kv_valid)
+        return attention_full(q, k, v, q_pos, k_pos, window, kv_valid,
+                              scale)
     return attention_chunked(q, k, v, q_pos, k_pos, window, kv_valid,
-                             kv_chunk)
+                             kv_chunk, scale)
 
 
 # ---------------------------------------------------------------------------

@@ -9,16 +9,40 @@ decoupled-RoPE key k_rope.  Two execution forms:
   * **absorbed** (decode): W_uk is absorbed into the query and W_uv into the
     output so attention runs *in latent space* against the cached
     (S, kv_lora + rope_dim) latents, in fp32.
+
+With ``cfg.yarn`` the rope part takes YaRN's frequencies at
+``cfg.yarn_factor`` and DeepSeek-V2's other ``rope_scaling`` settings
+(``YARN_*`` below), and the scores are scaled by ``(head_dim + rope_dim)
+** -0.5 x mscale(factor, mscale_all_dim) ** 2``, as DeepSeek-V2's
+attention; in all three paths (expanded, latents, absorbed), so that
+serving agrees with training.  DeepSeek-V2 also scales cos and sin by
+``mscale(factor, mscale) / mscale(factor, mscale_all_dim)``, which is 1
+where the two are equal, as they are.  The rope part rotates half-split pairs where the released
+DeepSeek-V2 weights pair interleaved columns: a fixed permutation of the
+rope columns of ``wq`` and ``w_dkv``.
+
+Each call of :func:`mla_apply` and :func:`mla_decode` is an ``mla`` span
+(``repro_torch/obs/trace.py``).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.models.layers import (NEG_INF, _normal, apply_rope,
                                        attention, dense_apply, dense_init,
                                        dense_specs, rmsnorm_apply,
-                                       rmsnorm_init, rmsnorm_specs)
+                                       rmsnorm_init, rmsnorm_specs,
+                                       yarn_freqs, yarn_mscale)
+from repro_torch.obs.trace import span
 from repro_torch.sharding.specs import Lg
+
+# DeepSeek-V2's rope_scaling besides its factor (mscale = mscale_all_dim)
+YARN_ORIGINAL_MAX_POSITION = 4096
+YARN_BETA_FAST = 32.0
+YARN_BETA_SLOW = 1.0
+YARN_MSCALE_ALL_DIM = 0.707
 
 
 def mla_init(gen, d: int, num_heads: int, head_dim: int, cfg,
@@ -55,19 +79,51 @@ def _split_q(q, num_heads, head_dim, rh):
     return q[..., :head_dim], q[..., head_dim:]
 
 
+def rope_freqs_of(cfg, rope_theta: float, device=None
+                  ) -> Optional[torch.Tensor]:
+    """The rope part's inverse frequencies (None: the plain ones)."""
+    if not cfg.yarn:
+        return None
+    return yarn_freqs(cfg.rope_head_dim, rope_theta, cfg.yarn_factor,
+                      YARN_ORIGINAL_MAX_POSITION, YARN_BETA_FAST,
+                      YARN_BETA_SLOW, device)
+
+
+def softmax_scale(cfg, head_dim: int) -> float:
+    """The scores' scale: ``(head_dim + rope_dim) ** -0.5``, under YaRN
+    times ``mscale(factor, mscale_all_dim) ** 2``."""
+    scale = (head_dim + cfg.rope_head_dim) ** -0.5
+    if cfg.yarn:
+        m = yarn_mscale(cfg.yarn_factor, YARN_MSCALE_ALL_DIM)
+        scale = scale * m * m
+    return scale
+
+
+def _rope(x, positions, cfg, rope_theta):
+    return apply_rope(x, positions, rope_theta,
+                      rope_freqs_of(cfg, rope_theta, x.device))
+
+
 def mla_latents(p, x, positions, cfg, rope_theta, compute_dtype=None):
     """Compress x -> (c_kv normalized, k_rope with rope applied)."""
     rk = cfg.kv_lora_rank
     dkv = dense_apply(p["w_dkv"], x, compute_dtype)
     c_kv, k_rope = dkv[..., :rk], dkv[..., rk:]
     c_kv = rmsnorm_apply(p["kv_norm"], c_kv)
-    k_rope = apply_rope(k_rope[:, :, None, :], positions, rope_theta)[:, :, 0]
+    k_rope = _rope(k_rope[:, :, None, :], positions, cfg, rope_theta)[:, :, 0]
     return c_kv, k_rope
 
 
 def mla_apply(p, x, num_heads, head_dim, cfg, positions=None,
               rope_theta=10000.0, compute_dtype=None):
     """Expanded-form self-attention for train/prefill. x: (B, S, d)."""
+    with span("mla"):
+        return _mla_apply(p, x, num_heads, head_dim, cfg, positions,
+                          rope_theta, compute_dtype)
+
+
+def _mla_apply(p, x, num_heads, head_dim, cfg, positions, rope_theta,
+               compute_dtype):
     b, s, _ = x.shape
     rh = cfg.rope_head_dim
     vh = cfg.v_head_dim or head_dim
@@ -75,7 +131,7 @@ def mla_apply(p, x, num_heads, head_dim, cfg, positions=None,
         positions = torch.arange(s, device=x.device)
     q = dense_apply(p["wq"], x, compute_dtype)
     q_nope, q_rope = _split_q(q, num_heads, head_dim, rh)
-    q_rope = apply_rope(q_rope, positions, rope_theta)
+    q_rope = _rope(q_rope, positions, cfg, rope_theta)
     c_kv, k_rope = mla_latents(p, x, positions, cfg, rope_theta,
                                compute_dtype)
 
@@ -88,7 +144,8 @@ def mla_apply(p, x, num_heads, head_dim, cfg, positions=None,
     qf = torch.cat([q_nope, q_rope], dim=-1)
     kf = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         *k_nope.shape[:3], rh).to(cd)], dim=-1)
-    out = attention(qf, kf, v, positions, positions)
+    out = attention(qf, kf, v, positions, positions,
+                    scale=softmax_scale(cfg, head_dim))
     out = out.reshape(b, s, num_heads * vh)
     return dense_apply(p["wo"], out, compute_dtype), (c_kv, k_rope)
 
@@ -103,13 +160,20 @@ def mla_decode(p, x, cache_ckv, cache_krope, index: int, num_heads,
     c_kv) @ W_uv.  The new latents are written into the caches in place,
     at ``index`` clamped to the last slot (as ``dynamic_update_slice``
     clamps), and the caches are returned."""
+    with span("mla"):
+        return _mla_decode(p, x, cache_ckv, cache_krope, index, num_heads,
+                           head_dim, cfg, rope_theta, compute_dtype)
+
+
+def _mla_decode(p, x, cache_ckv, cache_krope, index, num_heads, head_dim,
+                cfg, rope_theta, compute_dtype):
     b = x.shape[0]
     rh = cfg.rope_head_dim
     vh = cfg.v_head_dim or head_dim
     pos = torch.full((1,), index, dtype=torch.int64, device=x.device)
     q = dense_apply(p["wq"], x, compute_dtype)
     q_nope, q_rope = _split_q(q, num_heads, head_dim, rh)     # (B,1,H,*)
-    q_rope = apply_rope(q_rope, pos, rope_theta)
+    q_rope = _rope(q_rope, pos, cfg, rope_theta)
     c_kv, k_rope = mla_latents(p, x, pos, cfg, rope_theta, compute_dtype)
 
     s_cache = cache_ckv.shape[1]
@@ -121,7 +185,7 @@ def mla_decode(p, x, cache_ckv, cache_krope, index: int, num_heads,
     f32 = torch.float32
     # absorb W_uk into q: (B,1,H,dh) x (H,rk,dh) -> (B,H,rk)
     q_lat = torch.einsum("bqhd,hrd->bhr", q_nope.to(f32), p["w_uk"].to(f32))
-    scale = (head_dim + rh) ** -0.5
+    scale = softmax_scale(cfg, head_dim)
     logits = (torch.einsum("bhr,bsr->bhs", q_lat, cache_ckv.to(f32))
               + torch.einsum("bqhd,bsd->bhs", q_rope.to(f32),
                              cache_krope.to(f32))) * scale

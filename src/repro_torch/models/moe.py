@@ -20,6 +20,23 @@ reference and deterministic on the GPU:
   * the combine gathers each token's k expert outputs back and adds them
     in ascending expert order, the order of the reference's scatter-add,
     instead of ``index_add_`` (float atomics on CUDA).
+
+Two settings the reference lacks (``MoEConfig``; their defaults are its
+behaviour): ``norm_topk_prob=False`` takes the top-k weights as the
+softmax gives them (DeepSeek-V2, OLMoE) instead of renormalising them,
+and ``expert_shards`` / ``expert_shard`` make this device hold one equal
+shard of the E routed experts, the local half of expert parallelism.  The
+layer still routes over all E (the router keeps its E outputs), and the
+capacity and the aux loss are reckoned over all E; only the token-slots
+routed to the held experts enter the (G, n, C, d) slab, and the result
+is their part of the output (plus the shared experts, which every device
+runs).  Nothing stands in for the absent experts.  Holding every expert
+is the unsharded path, launch for launch.
+
+Each :func:`moe_apply` call is a ``moe`` span, and under an active tracer
+it counts its token-slots (``repro_torch/obs/trace.py`` ``count``):
+``moe_routed`` (routed to a held expert), ``moe_kept``, ``moe_dropped``
+(past an expert's capacity) and ``moe_capacity`` (slab rows computed).
 """
 from __future__ import annotations
 
@@ -28,18 +45,21 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import _normal, dense_apply, dense_init, \
     dense_specs, mlp_apply, mlp_init, mlp_specs
+from repro_torch.obs.trace import count, counting, span
 from repro_torch.sharding.specs import Lg, constrain
 
 
 def moe_init(gen, d: int, cfg, dtype=torch.float32):
-    """cfg: MoEConfig.  Expert weights are (E, d, ff) / (E, ff, d)."""
+    """cfg: MoEConfig.  Expert weights are (n, d, ff) / (n, ff, d) for the
+    n experts held (all E unless sharded); the router is (d, E)."""
     e, ff = cfg.num_experts, cfg.d_ff_expert
+    _, n = cfg.held_experts
     p = {
         "router": dense_init(gen, d, e, dtype, scale=0.02),
         "experts": {
-            "gate": _normal(gen, (e, d, ff), d ** -0.5, dtype),
-            "up": _normal(gen, (e, d, ff), d ** -0.5, dtype),
-            "down": _normal(gen, (e, ff, d), ff ** -0.5, dtype),
+            "gate": _normal(gen, (n, d, ff), d ** -0.5, dtype),
+            "up": _normal(gen, (n, d, ff), d ** -0.5, dtype),
+            "down": _normal(gen, (n, ff, d), ff ** -0.5, dtype),
         },
     }
     if cfg.num_shared_experts:
@@ -104,13 +124,15 @@ def _local_moe(xt, p, cfg, cd):
     xt: (G, Tg, d) -> (y (G, Tg, d), aux (G,))."""
     g, tg, d = xt.shape
     e, k = cfg.num_experts, cfg.top_k
+    e0, ne = cfg.held_experts
     cf = cfg.capacity_factor or 2.0
     cap = int(max(k, ((tg * k * cf) / e) // 1 + 1))
     dev = xt.device
 
     probs, _ = router_probs(p, xt, cfg, cd)             # (G, Tg, E)
     top_p, top_i = top_k(probs, k)                      # (G, Tg, k)
-    top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)
+    if cfg.norm_topk_prob:
+        top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)
     aux = load_balance_loss(probs, top_i, e) * cfg.router_aux_coef
 
     # sort each group's token-slots by expert id
@@ -126,29 +148,41 @@ def _local_moe(xt, p, cfg, cd):
     first_of_e.scatter_reduce_(1, se, ar, "amin", include_self=True)
     pos_in_e = ar - torch.gather(first_of_e, 1, se)
     keep = pos_in_e < cap                               # overflow drop
-    slot = se * cap + torch.where(keep, pos_in_e, 0)
+    if ne == e:
+        mine = keep
+        slot = se * cap + torch.where(keep, pos_in_e, 0)
+    else:
+        # kept and held; every other slot points at row 0 (weight 0)
+        held = (se >= e0) & (se < e0 + ne)
+        mine = keep & held
+        slot = torch.where(mine, (se - e0) * cap + pos_in_e, 0)
+    if counting():
+        routed = n * g if ne == e else held.sum()
+        kept = mine.sum()
+        count(moe_routed=routed, moe_kept=kept, moe_dropped=routed - kept,
+              moe_capacity=g * ne * cap)
 
     # each kept token-slot lands in its own row; dropped ones in a spare
     # row past the end
-    rows = torch.where(keep, slot + torch.arange(g, device=dev)[:, None]
-                       * (e * cap), g * e * cap)
-    buf = xt.new_zeros((g * e * cap + 1, d))
+    rows = torch.where(mine, slot + torch.arange(g, device=dev)[:, None]
+                       * (ne * cap), g * ne * cap)
+    buf = xt.new_zeros((g * ne * cap + 1, d))
     buf.index_copy_(0, rows.reshape(-1),
                     torch.gather(xt, 1, stok[..., None].expand(g, n, d))
                     .reshape(g * n, d))
-    xe = buf[:-1].reshape(g, e, cap, d)
+    xe = buf[:-1].reshape(g, ne, cap, d)
 
     we = p["experts"]
     gt = torch.einsum("gecd,edf->gecf", xe.to(cd), we["gate"].to(cd))
     u = torch.einsum("gecd,edf->gecf", xe.to(cd), we["up"].to(cd))
     h = F.silu(gt) * u
     ye = torch.einsum("gecf,efd->gecd", h, we["down"].to(cd))
-    ye = ye.reshape(g, e * cap, d)
+    ye = ye.reshape(g, ne * cap, d)
 
     # the combine: token-slot (t, j) sits at sorted position inv[t*k + j];
     # its k contributions are added in the sorted (ascending expert) order
     contrib = (torch.gather(ye, 1, slot[..., None].expand(g, n, d))
-               .to(torch.float32) * (sw * keep)[..., None])
+               .to(torch.float32) * (sw * mine)[..., None])
     inv = torch.argsort(order, dim=-1)
     pos = inv.reshape(g, tg, k)
     pos, _ = torch.sort(pos, dim=-1)
@@ -165,6 +199,11 @@ def moe_apply(p, x, cfg, compute_dtype=None):
     Hierarchical (GShard-style) dispatch: tokens are split into G groups
     (G <= 32, a divisor of T) and each group routes, sorts and scatters
     locally."""
+    with span("moe"):
+        return _moe_apply(p, x, cfg, compute_dtype)
+
+
+def _moe_apply(p, x, cfg, compute_dtype):
     b, s, d = x.shape
     t = b * s
     cd = compute_dtype or x.dtype

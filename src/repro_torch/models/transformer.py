@@ -5,7 +5,11 @@ Every family of the reference: decoder-only (dense / moe / ssm / hybrid /
 vlm) and encoder-decoder (whisper).  Layers are stacked per *period* as in
 the reference; the stack runs as a Python loop over periods (the
 reference's ``lax.scan`` and its unrolled loop compute the same values, so
-``scan_layers`` is accepted and changes nothing).  ``remat`` is the
+``scan_layers`` is accepted and changes nothing).  Leading dense layers
+(``first_dense_layers``, a setting the reference lacks) sit under
+``lead`` as ``l0``, ``l1``, ... and run before the stack, each under
+``remat`` as a period; their decode state is under ``lead`` too, and a
+model without them has neither.  ``remat`` is the
 reference's: where autograd records the forward, ``"full"`` checkpoints
 each period (``jax.checkpoint(period_fn)``: only the period's input is
 kept, the rest recomputed in the backward) and ``"dots"`` keeps the
@@ -51,9 +55,9 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.blocks import (block_apply, block_decode, block_init,
                                        block_specs, block_state_init,
-                                       block_state_specs, norm_apply,
-                                       norm_init, norm_specs, period_of,
-                                       split_periods)
+                                       block_state_specs, lead_kinds,
+                                       norm_apply, norm_init, norm_specs,
+                                       period_of, split_periods)
 from repro_torch.sharding.specs import Lg, constrain
 from repro_torch.tree import shapes_of, tree_map
 
@@ -112,6 +116,9 @@ def lm_init(seed: int, m: ModelConfig, dtype=torch.float32, device=None
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     p: Dict[str, Any] = {}
     p["embed"] = L.embedding_init(gen, m.vocab_size, m.d_model, dtype)
+    if m.first_dense_layers:
+        p["lead"] = {f"l{i}": block_init(gen, kind, m, dtype)
+                     for i, kind in enumerate(lead_kinds(m))}
     p["stack"], p["tail"] = _stack_init(gen, m, dtype)
     p["final_norm"] = norm_init(m, dtype, dev)
     if not m.tie_embeddings:
@@ -135,6 +142,9 @@ def lm_specs(m: ModelConfig) -> Dict[str, Any]:
     """The logical axes of :func:`lm_init`'s tree, leaf for leaf."""
     p: Dict[str, Any] = {}
     p["embed"] = L.embedding_specs()
+    if m.first_dense_layers:
+        p["lead"] = {f"l{i}": block_specs(kind, m)
+                     for i, kind in enumerate(lead_kinds(m))}
     p["stack"], p["tail"] = _stack_specs(m)
     p["final_norm"] = norm_specs(m)
     if not m.tie_embeddings:
@@ -187,13 +197,23 @@ def _period_slices(stack, n: int):
 
 def _run_stack(stack, tail, x, m: ModelConfig, positions, cd, enc_out,
                use_kernel: bool, cache_len: int = 0,
-               cache_dtype=torch.bfloat16, remat: str = "none"):
-    """Run the period-stacked blocks, each period under ``remat`` (see
+               cache_dtype=torch.bfloat16, remat: str = "none", lead=None):
+    """Run the leading blocks (``lead``), then the period-stacked blocks,
+    each leading block and each period under ``remat`` (see
     :func:`_checkpointed`; not with a cache), then the tail. If
     cache_len > 0, also collect the decode cache produced by prefill
     (returned in init_decode_state layout)."""
     period = period_of(m)
     n_full, rem = split_periods(m)
+    lead_cache = {}
+    lead_aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, kind in enumerate(lead_kinds(m)):
+        def lead_fn(x, lp, kind=kind):
+            return block_apply(kind, lp, x, m, positions, cd, enc_out,
+                               use_kernel, cache_len, cache_dtype)
+        f = lead_fn if cache_len else _checkpointed(lead_fn, remat)
+        x, a, lead_cache[f"l{i}"] = f(x, lead[f"l{i}"])
+        lead_aux = lead_aux + a
 
     def period_fn(x, pparams):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -210,7 +230,7 @@ def _run_stack(stack, tail, x, m: ModelConfig, positions, cd, enc_out,
         return x, aux, caches
 
     f = period_fn if cache_len else _checkpointed(period_fn, remat)
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux_total = lead_aux
     per_caches = []
     for pparams in _period_slices(stack, n_full):
         x, a, caches = f(x, pparams)
@@ -225,7 +245,10 @@ def _run_stack(stack, tail, x, m: ModelConfig, positions, cd, enc_out,
     if cache_len:
         stack_cache = (tree_map(lambda *xs: torch.stack(xs), *per_caches)
                        if per_caches else {})
-        return x, aux_total, {"stack": stack_cache, "tail": tail_cache}
+        state = {"stack": stack_cache, "tail": tail_cache}
+        if lead_cache:
+            state["lead"] = lead_cache
+        return x, aux_total, state
     return x, aux_total, None
 
 
@@ -286,7 +309,8 @@ def lm_apply(params, batch: Dict[str, torch.Tensor], m: ModelConfig,
         positions = torch.arange(s, device=x.device)
     enc_out = _encoder_out(params, batch, m, cd, remat, scan_layers)
     x, aux, _ = _run_stack(params["stack"], params["tail"], x, m, positions,
-                           cd, enc_out, use_kernel, remat=remat)
+                           cd, enc_out, use_kernel, remat=remat,
+                           lead=params.get("lead"))
     return _head(params, x, m), aux
 
 
@@ -333,7 +357,11 @@ def init_decode_state(m: ModelConfig, batch: int, cache_len: int,
         stack = tree_map(lambda x: x[None].repeat(n_full, *([1] * x.dim())),
                          one_p)
     tail = {f"t{i}": one(kind) for i, kind in enumerate(rem)}
-    return {"stack": stack, "tail": tail}
+    state = {"stack": stack, "tail": tail}
+    if m.first_dense_layers:
+        state["lead"] = {f"l{i}": one(kind)
+                         for i, kind in enumerate(lead_kinds(m))}
+    return state
 
 
 def decode_state_shapes(m: ModelConfig, batch: int, cache_len: int,
@@ -354,7 +382,11 @@ def decode_state_specs(m: ModelConfig):
         stack = _with_layers_axis({f"b{i}": block_state_specs(kind, m)
                                    for i, kind in enumerate(period)})
     tail = {f"t{i}": block_state_specs(kind, m) for i, kind in enumerate(rem)}
-    return {"stack": stack, "tail": tail}
+    state = {"stack": stack, "tail": tail}
+    if m.first_dense_layers:
+        state["lead"] = {f"l{i}": block_state_specs(kind, m)
+                         for i, kind in enumerate(lead_kinds(m))}
+    return state
 
 
 def _write_back(dst, src):
@@ -384,6 +416,10 @@ def lm_decode_step(params, token: torch.Tensor, state, index: int,
         pos_emb = L.sinusoidal_positions(mtp, m.d_model, x.device)[
             min(index, mtp - 1)]
         x = x + pos_emb.to(x.dtype)
+    for i, kind in enumerate(lead_kinds(m)):
+        x, s = block_decode(kind, params["lead"][f"l{i}"], x,
+                            state["lead"][f"l{i}"], index, m, cd)
+        _write_back(state["lead"][f"l{i}"], s)
     for i in range(n_full):
         pparams = tree_map(lambda a: a[i], params["stack"])
         pstate = tree_map(lambda a: a[i], state["stack"])
@@ -413,5 +449,6 @@ def lm_prefill(params, batch: Dict[str, torch.Tensor], m: ModelConfig,
     positions = torch.arange(s, device=x.device)
     x, _, state = _run_stack(params["stack"], params["tail"], x, m,
                              positions, cd, enc_out, False,
-                             cache_len=cache_len, cache_dtype=cache_dtype)
+                             cache_len=cache_len, cache_dtype=cache_dtype,
+                             lead=params.get("lead"))
     return _head(params, x[:, -1:], m)[:, 0], state, s

@@ -22,10 +22,21 @@ The program's host spans come from the module-level :func:`span`: the
 FSL-GAN round (``core/gan.py``, ``fed/engine.py``, ``fed/programs.py``) is
 round > engine > client > sample / group > batch, with uplink and reduce
 under engine and commit, g_update and feedback under round; the LM train
-step (``runtime/train.py``) is step > microbatch / accumulate / optim.
+step (``runtime/train.py``) is step > microbatch / accumulate / optim, with
+an ``mla`` span around each MLA attention call (``models/mla.py``) and a
+``moe`` span around each MoE layer call (``models/moe.py``) inside a
+micro-batch's forward.  Code that autograd's backward runs (a remat
+recompute) opens no span, so these cover the forward passes alone.
 They record only while :func:`tracing` makes a tracer the process's active
 one; with none active, :func:`span` is one global read that returns a
-shared no-op context.  ``tracing(device_events=True)`` adds a CUDA event
+shared no-op context.
+
+The program's counters (:func:`count`; the MoE layer's token-slots) are
+added up on the device while a tracer is active and read on the host in
+one transfer when the outermost open span closes (a step), into
+:attr:`Tracer.counters` by the span's index; the program computes them
+only where :func:`counting` says so, so with no tracer they cost no
+launch and no sync.  ``tracing(device_events=True)`` adds a CUDA event
 pair on the current stream around each span (its device extent,
 :meth:`Tracer.device_ms`); ``count_syncs=True`` charges each host-device
 synchronisation to the innermost open span (``Span.syncs``), as PyTorch's
@@ -135,6 +146,10 @@ class Tracer:
         self.syncs_outside = 0
         self._events: Dict[int, Tuple[Any, Any]] = {}
         self._device_ms: Dict[int, float] = {}
+        # the program's counters (:func:`count`): added up on the device,
+        # read on the host when an outermost span closes, by its index
+        self._pending: Dict[str, Any] = {}
+        self.counters: Dict[Optional[int], Dict[str, int]] = {}
 
     # ------------------------------------------------------------------
     def set_virtual_offset(self, offset_s: float) -> None:
@@ -200,6 +215,32 @@ class Tracer:
                 wall_end=(t1 - self.wall0_ns) / 1e9,
                 args=dict(args or {}), index=frame.index,
                 syncs=frame.syncs))
+            if not self._stack:
+                self.flush_counters(frame.index)
+
+    def add_count(self, name: str, value) -> None:
+        """Add ``value`` (a device tensor, or a host number) to the
+        counter ``name``; nothing is read on the host here."""
+        have = self._pending.get(name)
+        self._pending[name] = value if have is None else have + value
+
+    def flush_counters(self, index: Optional[int] = None) -> None:
+        """Read the counters added since the last read on the host, in
+        one transfer, and add them to ``counters[index]``."""
+        if not self._pending:
+            return
+        names = list(self._pending)
+        vals = [self._pending[n] for n in names]
+        dev = [i for i, v in enumerate(vals) if torch.is_tensor(v)]
+        if dev:
+            got = torch.stack([vals[i].to(torch.int64) for i in dev]
+                              ).tolist()
+            for i, g in zip(dev, got):
+                vals[i] = g
+        self._pending = {}
+        into = self.counters.setdefault(index, {})
+        for n, v in zip(names, vals):
+            into[n] = into.get(n, 0) + int(v)
 
     def count_sync(self) -> None:
         """Charge one host-device synchronisation to the innermost open
@@ -322,17 +363,43 @@ _ACTIVE: Optional[_Active] = None
 _OFF = nullcontext()
 
 
+def _in_backward() -> bool:
+    """Whether autograd's backward is running this code: a checkpointed
+    (remat) layer's forward recomputed for its gradient."""
+    return torch._C._current_graph_task_id() != -1
+
+
 def span(name: str, **args):
     """A wall span named ``name`` in the active tracer (:func:`tracing`):
     ``index=`` sets the round or step it belongs to (nested spans inherit
     it), other keywords become its args.  With no active tracer it returns
-    a shared no-op context: no clock read, no CUDA event, no record."""
+    a shared no-op context: no clock read, no CUDA event, no record.  Code
+    that autograd's backward runs (a remat recompute, on the backward's
+    own thread for CUDA tensors) opens no span either: spans cover the
+    forward passes the program runs itself."""
     act = _ACTIVE
-    if act is None:
+    if act is None or _in_backward():
         return _OFF
     index = args.pop("index", None)
     return act.tracer.span(name, args=args, index=index,
                            device_events=act.device_events)
+
+
+def counting() -> bool:
+    """Whether :func:`count` records: a tracer is active and the caller is
+    not autograd's backward.  The program computes its counters only
+    then, so with tracing off they cost no launch and no sync."""
+    return _ACTIVE is not None and not _in_backward()
+
+
+def count(**values) -> None:
+    """Add each keyword's value (a device tensor or a host number) to the
+    active tracer's counter of that name (:meth:`Tracer.add_count`); read
+    on the host once, when the outermost open span closes."""
+    if not counting():
+        return
+    for name, v in values.items():
+        _ACTIVE.tracer.add_count(name, v)
 
 
 @contextmanager

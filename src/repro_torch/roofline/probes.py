@@ -45,7 +45,8 @@ def _probe_cfg(cfg: RunConfig, depth_periods: int, nmb: int,
                include_tail: bool = False) -> RunConfig:
     period_len = len(period_of(cfg.model))
     n_full, rem = split_periods(cfg.model)
-    depth = depth_periods * period_len + (len(rem) if include_tail else 0)
+    depth = cfg.model.first_dense_layers + depth_periods * period_len \
+        + (len(rem) if include_tail else 0)
     pmb_batch = cfg.shape.global_batch // max(1, cfg.parallel.microbatches)
     d = cfg.to_dict()
     d["model"]["num_layers"] = depth

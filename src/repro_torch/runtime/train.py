@@ -37,7 +37,9 @@ tracer): ``step`` is one standard step, indexed by its ``step_idx``;
 inside it ``microbatch`` is one micro-batch's forward and backward,
 ``accumulate`` the accumulators' work (their zero fill, each
 micro-batch's adds, the final divide) and ``optim`` the schedule and the
-optimizer update.
+optimizer update; inside ``microbatch`` the layers' own spans (``mla``,
+``moe``).  The MoE layers' counters are read once a step, when ``step``
+closes.
 """
 from __future__ import annotations
 

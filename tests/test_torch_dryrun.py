@@ -26,6 +26,7 @@ from repro.config import reduce_for_smoke as jreduce
 from repro.configs.registry import get_config as jget
 from repro.launch.mesh import make_host_mesh as jhost
 from repro.roofline import probes as jprobes
+from _torch_config import reference_dict
 from repro_torch.config import reduce_for_smoke
 from repro_torch.configs.registry import SkippedShape, get_config
 from repro_torch.launch import dryrun as D
@@ -68,7 +69,7 @@ def test_probe_algebra_matches_reference(arch, shape, monkeypatch):
     monkeypatch.setattr(tprobes, "_measure", _stub)
     jcfg, tcfg = jget(arch, shape), get_config(arch, shape)
     for d, m, tail in ((1, 1, False), (2, 2, False), (1, 2, True)):
-        assert tprobes._probe_cfg(tcfg, d, m, tail).to_dict() == \
+        assert reference_dict(tprobes._probe_cfg(tcfg, d, m, tail)) == \
             jprobes._probe_cfg(jcfg, d, m, tail).to_dict()
     want = jprobes.probe_costs(jcfg, None)
     got = tprobes.probe_costs(tcfg, None)

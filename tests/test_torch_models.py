@@ -23,6 +23,7 @@ from repro.models import dcgan as jdcgan
 from repro.optim.optimizers import adamw as jadamw
 from repro.optim.optimizers import clip_by_global_norm as jclip
 from repro.optim.optimizers import sgd as jsgd
+from _torch_config import reference_dict
 from repro_torch.bridge import params_from_numpy, params_to_numpy
 from repro_torch.config import DCGANConfig
 from repro_torch.configs.registry import get_config
@@ -261,7 +262,7 @@ def test_synthetic_data_and_partition_are_identical():
 def test_config_is_the_reference_config():
     over = {"shape.global_batch": 8, "fsl.num_clients": 2,
             "model.dcgan.base_filters": 8, "fed.kernel_aggregation": True}
-    assert get_config("dcgan-mnist").override(over).to_dict() == \
+    assert reference_dict(get_config("dcgan-mnist").override(over)) == \
         jget_config("dcgan-mnist").override(over).to_dict()
 
 

@@ -35,6 +35,7 @@ from repro.optim import make_optimizer as jmake_optimizer
 from repro.optim.schedule import make_schedule as jmake_schedule
 from repro.runtime import make_fsl_train_step as jmake_fsl_train_step
 from repro.runtime import make_train_step as jmake_train_step
+from _torch_config import reference_dict
 from repro_torch.bridge import params_from_numpy
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.config import reduce_for_smoke
@@ -83,7 +84,7 @@ def _configs(arch, seq=SEQ, batch=BATCH, over=None):
                            batch=batch)
     if over:
         jcfg, cfg = jcfg.override(over), cfg.override(over)
-    assert cfg.to_dict() == jcfg.to_dict()
+    assert reference_dict(cfg) == jcfg.to_dict()
     return jcfg, cfg
 
 
