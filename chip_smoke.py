@@ -12,7 +12,8 @@ non-zero exit, and no result line:
    points compute their convolutions in float32 themselves, and the
    direct module calls that compare convolutions take the same guard;
 2. build — every kernel (fedavg, dp_clip, boundary_fuse, agg_fuse,
-   flash_attention, wkv6, adamw), from ``src/repro_torch/csrc``, one ``nvcc``
+   flash_attention, flash_attention_train, wkv6, adamw), from
+   ``src/repro_torch/csrc``, one ``nvcc``
    (sm_90a) per source, all started together;
 3. kernel vs plain — each kernel on the card at the shapes the main paths
    give it, and at ragged sizes and edge cases, held against its plain
@@ -66,12 +67,16 @@ non-zero exit, and no result line:
    qwen3-14b, rwkv6-1.6b, olmoe-1b-7b, deepseek-v2-lite-16b,
    recurrentgemma-9b, whisper-base, chameleon-34b, granite-20b,
    qwen2-72b (32 of its 80 layers) and llama3-405b (8 of 126): one
-   flash_attention launch an ``attn`` / ``moe`` layer and one wkv6
-   launch an ``rwkv`` layer a forward, two forwards equal bit for bit;
-   serving launches neither, as in the reference.  Then LM training at
-   full width (``phase_train_paths``), which launches no hand-written
-   kernel but adamw (the others are forward-only, as in the reference;
-   every leaf of every AdamW step through adamw): ``train_loop``
+   flash_attention launch an ``attn`` / ``moe`` layer, one wkv6
+   launch an ``rwkv`` layer and one training flash forward an MLA layer
+   a forward, two forwards equal bit for bit; serving launches neither
+   of the first two, as in the reference, and the training flash
+   forward once a bf16 self-attention layer at an instantiated head_dim
+   in its prefill.  Then LM training at
+   full width (``phase_train_paths``), which launches adamw (every leaf
+   of every AdamW step) and, on qwen3-14b's bf16 attention, the training
+   flash kernels (the others are forward-only, as in the reference):
+   ``train_loop``
    on rwkv6-1.6b (24 layers, fp32 parameters and AdamW state, bf16
    compute, B 4 x T 1024, 2 steps), ``make_train_step`` on qwen3-14b (4
    of 40 layers, bf16, 8 micro-batches of 1 x 2048, 2 steps) and
@@ -110,7 +115,10 @@ non-zero exit, and no result line:
    the probes' prediction at the traced depth against its direct count),
    ``lower_one`` of qwen3-14b at 4 of 40 layers on the one-card host mesh
    against the same step on the card (flops under ``FlopCounterMode``,
-   the parameter and optimizer bytes the allocator took, the activation
+   where the training flash op counts by its registered formula, the
+   plain path's full square, so attention matches the dry run by
+   construction and the check covers the step's other operations; the
+   parameter and optimizer bytes the allocator took, the activation
    estimate beside the warm step's peak), and ``fedavg_collective`` over
    a one-rank NCCL group bit for bit against ``fedavg``.  Every launch
    count is set to 0 just before a path and read just after it, and must
@@ -121,7 +129,8 @@ non-zero exit, and no result line:
    same on the three split paths), the server's peak of live trees,
    generated tokens in the vocabulary, the rwkv6-1.6b, recurrentgemma-9b
    and granite-20b losses through the kernels against the plain path's
-   at full depth; and on small inputs the kernel
+   at full depth (the plain forward under ``plain_attention``, no kernel
+   launched); and on small inputs the kernel
    round against the sequential round with the host FedAvg, the DP-SGD
    engine round against the sequential one, the identity-stage split round
    against the unsplit one (and, under deterministic cuDNN, bit for bit in
@@ -3239,6 +3248,122 @@ def phase_flash_attention(dev):
             "bound_by": by, "library_ms": d["library"]}
 
 
+# the training attention core's shapes: (B, S, H, Hkv, Dqk, Dv) of a
+# deepseek-v2-lite-16b.train_8k micro-batch's MLA and an
+# olmoe-1b-7b.train_4k micro-batch's attention
+FLASH_TRAIN_SHAPES = {"MLA 8192": (1, 8192, 16, 16, 192, 128),
+                      "GQA 4096": (1, 4096, 16, 16, 128, 128)}
+# kernel vs plain chunked path, relative norm of each output's difference:
+# both carry bf16 roundings of ~2e-3 against the exact result
+FLASH_TRAIN_TOL = 1e-2
+
+
+def phase_flash_train(dev):
+    """The training flash-attention kernels (forward, Delta + dK/dV + dQ
+    backward) at the two LM training cells' shapes: ptxas's registers,
+    spills and shared memory; output and gradients against the plain
+    chunked path's (relative norm within ``FLASH_TRAIN_TOL``; the float64
+    oracle is the ``gpu`` tests' job); device times of the forward and of
+    the backward beside their bounds (causal operations at 989 TFLOP/s:
+    the function's, and the kernels' own, which recompute S and dP in both
+    backward launches), the chunked path's and SDPA's (a library yardstick
+    that the port never calls)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import train as FT
+    from repro_torch.models import layers as L
+
+    names = {"fwd": 0, "dkdv": 1, "dq": 2}
+    for line in build.build_log("flash_attention_train").splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+            kind = next((k for k in names if f"flash_train_{k}_kernel"
+                         in entry), None)
+            dims = re.search(r"ILi(\d+)ELi(\d+)E", entry)
+            label = (f"flash_train_{kind}<{dims.group(1)}, {dims.group(2)}>"
+                     if kind and dims else entry)
+        elif "registers" in line or "spill" in line:
+            smem = (f"; {FT.smem_bytes(names[kind], *map(int, dims.groups()))}"
+                    f" B dynamic shared memory"
+                    if "registers" in line and kind and dims else "")
+            print(f"flash_attention_train {label}: {line.strip()}{smem}")
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    row = None
+    for label, (b, s, h, hkv, dqk, dv) in FLASH_TRAIN_SHAPES.items():
+        q, k = (torch.randn((b, s, n, dqk), generator=gen, device=dev)
+                .to(torch.bfloat16) for n in (h, hkv))
+        v = torch.randn((b, s, hkv, dv), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        do = torch.randn((b, s, h, dv), generator=gen,
+                         device=dev).to(torch.bfloat16)
+        pos = torch.arange(s, device=dev)
+        scale = dqk ** -0.5
+        runs = {}
+        for name, fn in (("kernel", lambda *t: FT.flash_attention_train(
+                *t, pos, scale=scale)),
+                         ("plain", lambda *t: L.attention_chunked(
+                             *t, pos, pos, 0, scale=scale))):
+            leaves_ = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            out = fn(*leaves_)
+            out.backward(do)
+            runs[name] = [out.detach()] + [t.grad for t in leaves_]
+        torch.cuda.synchronize()
+        errs = [float((a.double() - c.double()).norm() / c.double().norm())
+                for a, c in zip(runs["kernel"], runs["plain"])]
+        check(max(errs) <= FLASH_TRAIN_TOL,
+              f"flash_attention_train {label}: o, dq, dk, dv differ from the "
+              f"chunked path's by {errs} (relative norms)")
+        o, o32, lse, bounds = FT.flash_train_fwd_kernel(q, k, v, pos, 0,
+                                                        scale)
+
+        def chunked_both():
+            leaves_ = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            L.attention_chunked(*leaves_, pos, pos, 0,
+                                scale=scale).backward(do)
+
+        def sdpa_both():
+            leaves_ = [t.transpose(1, 2).clone().requires_grad_(True)
+                       for t in (q, k, v)]
+            F.scaled_dot_product_attention(*leaves_, is_causal=True,
+                                           scale=scale).backward(
+                do.transpose(1, 2))
+        fwd = time_ms(lambda: FT.flash_train_fwd_kernel(q, k, v, pos, 0,
+                                                        scale), iters=20)
+        bwd = time_ms(lambda: FT.flash_train_bwd_kernel(
+            q, k, v, o32, lse, pos, bounds, do, 0, scale), iters=20)
+        plain = time_ms(chunked_both, iters=3)
+        plain_fwd = time_ms(lambda: L.attention_chunked(q, k, v, pos, pos, 0,
+                                                        scale=scale), iters=3)
+        lib = time_ms(sdpa_both, iters=10)
+        lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+            *(t.transpose(1, 2) for t in (q, k, v)), is_causal=True,
+            scale=scale), iters=10)
+        pairs = b * h * causal_pairs(s)
+        f_fwd = 2 * pairs * (dqk + dv)
+        f_bwd = 2 * pairs * (3 * dqk + 2 * dv)      # S, dP, dV, dK, dQ
+        f_own = 2 * pairs * (4 * dqk + 3 * dv)      # S, dP twice
+        b_fwd, b_bwd = 1e3 * f_fwd / BF16_FLOPS, 1e3 * f_bwd / BF16_FLOPS
+        print(f"flash_attention_train {label} (B {b}, S {s}, H {h}/{hkv}, "
+              f"Dqk {dqk}, Dv {dv}, causal): forward {fwd:.4f} ms (bound "
+              f"{b_fwd:.4f}: {f_fwd:.4g} flops at 989 TFLOP/s; "
+              f"{f_fwd / fwd / 1e9:.1f} TFLOP/s), backward {bwd:.4f} ms "
+              f"(bound {b_bwd:.4f}: {f_bwd:.4g} flops; the kernels' own "
+              f"{f_own:.4g} at {f_own / bwd / 1e9:.1f} TFLOP/s); chunked "
+              f"forward {plain_fwd:.4f} ms, forward + backward {plain:.4f} "
+              f"ms; SDPA forward {lib_fwd:.4f} ms, forward + backward "
+              f"{lib:.4f} ms; o, dq, dk, dv vs chunked "
+              + ", ".join(f"{e:.2e}" for e in errs))
+        if row is None:
+            row = {"name": "flash_attention_train", "route": "cuda",
+                   "source": "src/repro_torch/csrc/flash_attention_train.cu",
+                   "replaces": None, "launches": None,
+                   "max_rel_err": max(errs), "ms": fwd + bwd,
+                   "plain_ms": plain, "bound_ms": b_fwd + b_bwd,
+                   "bound_by": "operations", "library_ms": lib}
+    return row
+
+
 def phase_wkv6(dev):
     """The wkv6 kernel against its plain version: the rwkv6-1.6b forward's
     (4, 2048, 32, 64) with a random state0 and with none; the four cases of
@@ -3636,6 +3761,33 @@ def check_full_width(arch, cfg):
     check(got == want, f"{arch} is not at full width: {got}")
 
 
+def flash_train_layers(m, kinds, cd, use_kernel=False):
+    """How many layers of ``kinds`` send their self-attention through the
+    training flash op in a forward at compute dtype ``cd`` on the card
+    (``layers.attention``'s rule): bf16, and (Dqk, Dv) instantiated, GQA's
+    (head_dim, head_dim) in ``attn`` / ``moe`` layers (unless
+    ``use_kernel`` sends them to the forward-only flash_attention) and
+    MLA's (head_dim + rope_head_dim, v_head_dim) in ``mla`` /
+    ``mla_dense`` layers."""
+    from repro_torch.kernels.flash_attention.train import HEAD_DIMS
+    if cd != torch.bfloat16:
+        return 0
+    gqa = (not use_kernel and (m.head_dim, m.head_dim) in HEAD_DIMS)
+    mla = ((m.head_dim + m.mla.rope_head_dim,
+            m.mla.v_head_dim or m.head_dim) in HEAD_DIMS)
+    return (gqa * sum(k in ("attn", "moe") for k in kinds)
+            + mla * sum(k in ("mla", "mla_dense") for k in kinds))
+
+
+def plain_attention():
+    """A context in which ``models.layers.attention`` takes its plain path
+    on every call (the training flash op's rule answers no): the plain
+    forward the kernels' forward is held against."""
+    from unittest import mock
+    from repro_torch.kernels.flash_attention import train as FT
+    return mock.patch.object(FT, "takes", lambda *a: False)
+
+
 def drive_lm(dev, arch, path):
     """One LM at full width (``path``: its entry of ``LM_PATHS``):
     ``lm_loss`` forward under ``torch.no_grad`` with
@@ -3643,13 +3795,19 @@ def drive_lm(dev, arch, path):
     ``serve_batch`` (4 requests of the path's prompt lengths, 16 greedy
     tokens, bf16 cache).  Every kernel's launch count is set to 0 just
     before each of the two and read just after: the forward must launch
-    flash_attention once an ``attn`` / ``moe`` layer and wkv6 once an
-    ``rwkv`` layer at the depth run and nothing else, serving nothing at
-    all.  With ``path["plain"]``, the forward also runs once on the plain
-    path, and the two losses must agree within ``PLAIN_LOSS_TOL``.
-    Returns the forward's launches of each kernel."""
+    flash_attention once an ``attn`` / ``moe`` layer, wkv6 once an
+    ``rwkv`` layer and the training flash op's forward once an MLA layer
+    at the depth run (``flash_train_layers``) and nothing else; serving
+    launches only the training flash op's forward, once a layer that
+    ``flash_train_layers`` counts, in its one prefill (decode keeps the
+    plain attention / scan).  No call launches the op's backward.  With
+    ``path["plain"]``, the forward also runs once on the plain path
+    (``plain_attention``: no kernel launches), and the two losses must
+    agree within ``PLAIN_LOSS_TOL``.  Returns the forward's launches of
+    each kernel."""
     from repro_torch.configs.registry import get_config
     from repro_torch.data import synthetic_tokens
+    from repro_torch.kernels.flash_attention import train as FT
     from repro_torch.launch.serve import Request, serve_batch
     from repro_torch.models.blocks import layer_kinds
     from repro_torch.models.transformer import lm_init, lm_loss
@@ -3663,7 +3821,9 @@ def drive_lm(dev, arch, path):
         cfg = cfg.override({"model.num_layers": path["layers"]})
     m = cfg.model
     kinds = layer_kinds(m)
-    wrappers = kernel_wrappers()
+    wrappers = {**kernel_wrappers(),
+                "flash_attention_train": FT.flash_train_fwd_kernel,
+                "flash_attention_train_bwd": FT.flash_train_bwd_kernel}
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     params = lm_init(0, m, _dtype(cfg.parallel.param_dtype), dev)
@@ -3688,6 +3848,8 @@ def drive_lm(dev, arch, path):
     want = {k: 0 for k in wrappers}
     want["flash_attention"] = sum(k in ("attn", "moe") for k in kinds)
     want["wkv6"] = kinds.count("rwkv")
+    want["flash_attention_train"] = flash_train_layers(
+        m, kinds, cd, cfg.parallel.use_flash_kernel)
     for w in wrappers.values():
         w.launches = 0
     t0 = time.perf_counter()
@@ -3714,9 +3876,14 @@ def drive_lm(dev, arch, path):
           f"{launched or 'none'} as expected; peak memory "
           f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
     if path.get("plain"):
+        for w in wrappers.values():
+            w.launches = 0
         t0 = time.perf_counter()
-        plain, _ = forward(use_kernel=False)
+        with plain_attention():
+            plain, _ = forward(use_kernel=False)
         torch.cuda.synchronize()
+        counts = {k: w.launches for k, w in wrappers.items() if w.launches}
+        check(not counts, f"{arch} plain forward: launches {counts}")
         gap = abs(float(loss) - float(plain))
         check(gap <= PLAIN_LOSS_TOL, f"{arch} forward: loss through the "
               f"kernel {float(loss)}, plain {float(plain)}: {gap} > "
@@ -3743,17 +3910,22 @@ def drive_lm(dev, arch, path):
                 verbose=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {k: w.launches for k, w in wrappers.items()}
-    check(not any(counts.values()), f"{arch} serve: launches {counts}")
+    counts = {k: w.launches for k, w in wrappers.items() if w.launches}
+    prefill = flash_train_layers(m, kinds, _dtype(scfg.parallel.compute_dtype))
+    serve_want = {"flash_attention_train": prefill} if prefill else {}
+    check(counts == serve_want, f"{arch} serve: launches {counts}, "
+          f"expected {serve_want}")
     for r in reqs:
         check(len(r.generated) == SERVE_TOKENS and all(
             0 <= t < m.vocab_size for t in r.generated),
               f"{arch} serve: request {r.rid} generated {r.generated}")
     print(f"{arch} serve_batch: prompts {lens}, {SERVE_TOKENS} tokens each, "
           f"wall {wall:.3f} s, peak memory "
-          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB, no kernel "
-          f"launched (prefill and decode take the plain attention / scan, "
-          f"as in the reference)")
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB, launches "
+          f"{counts or 'none'} as expected (prefill's bf16 self-attention "
+          f"at an instantiated head_dim through the training flash op's "
+          f"forward, once a layer; the rest of prefill and decode on the "
+          f"plain attention / scan, as in the reference)")
     del params
     torch.cuda.empty_cache()
     return {k: n for k, n in want.items() if n}
@@ -3901,15 +4073,17 @@ def report_train(label, tokens, walls, losses, peak, counts):
     print(f"{label}: losses {[round(x, 6) for x in losses]}, step walls "
           f"{[round(w, 3) for w in walls]} s (cold first), warm step "
           f"{warm:.3f} s = {tokens / warm:.0f} tokens/s, peak memory "
-          f"{peak / 1e9:.2f} GB, hand-written kernel launches "
-          f"{counts or 'none'}")
+          f"{peak / 1e9:.2f} GB, hand-written kernel launches besides "
+          f"adamw {counts or 'none'}")
 
 
 def phase_train_paths(dev):
     """LM training at full width, every kernel's launch count set to 0
-    just before each path and read just after (training runs none but
-    adamw, whose leaf counts show every leaf of every AdamW step through
-    it: the other kernels are forward-only, as in the reference):
+    just before each path and read just after (training runs adamw, whose
+    leaf counts show every leaf of every AdamW step through it, and the
+    training attention kernels on bf16 attention at an instantiated
+    head_dim: qwen3-14b's, once a layer a micro-batch; the other kernels
+    are forward-only, as in the reference):
     (a) ``launch.train.train_loop`` on rwkv6-1.6b, 24 layers, fp32
     parameters and AdamW state, bf16 compute, B 4 x T 1024, 2 steps;
     (b) ``make_train_step`` on qwen3-14b, 4 of 40 layers, bf16 parameters
@@ -3938,15 +4112,29 @@ def phase_train_paths(dev):
     wrappers = kernel_wrappers()
     adamw_paths = {}
 
+    from repro_torch.kernels.flash_attention import train as FT
+    flash_train = (FT.flash_train_fwd_kernel, FT.flash_train_bwd_kernel)
+
     def zero_counts():
-        for w in [*wrappers.values(), adamw_leaves_kernel]:
+        for w in [*wrappers.values(), adamw_leaves_kernel, *flash_train]:
             w.launches = 0
         adamw_leaves_kernel.kernel_leaves = 0
         adamw_leaves_kernel.plain_leaves = 0
 
-    def read_counts(label):
+    def read_counts(label, attn_calls=0, remat="none"):
+        """No forward-only kernel launched; the training attention kernels
+        once a bf16 attention call forward and backward (the forward again
+        under ``remat="full"``)."""
         counts = {k: w.launches for k, w in wrappers.items() if w.launches}
         check(not counts, f"{label}: kernel launches {counts}, expected none")
+        got = tuple(w.launches for w in flash_train)
+        want = ((2 if remat == "full" else 1) * attn_calls, attn_calls)
+        check(got == want, f"{label}: flash_attention_train (forward, "
+              f"backward) launches {got}, expected {want}")
+        if attn_calls:
+            print(f"{label}: flash_attention_train {got[0]} forward and "
+                  f"{got[1]} backward launches (remat {remat})")
+            counts["flash_attention_train"] = got
         return counts
 
     def adamw_counts(label, cfg, updates, tree):
@@ -4039,7 +4227,9 @@ def phase_train_paths(dev):
         losses.append(float(met["loss"]))
         walls.append(time.perf_counter() - ts)
         digests.append(tree_digest(params))
-    counts = read_counts("qwen3-14b train step")
+    counts = read_counts("qwen3-14b train step", m.num_layers
+                         * cfg.parallel.microbatches * b["steps"],
+                         cfg.parallel.remat)
     adamw_counts("qwen3-14b train step", cfg, b["steps"], params)
     peak = torch.cuda.max_memory_allocated(dev)
     check(all(math.isfinite(x) for x in losses),
@@ -4227,8 +4417,10 @@ def phase_dryrun(dev):
     (b) ``lower_one`` of qwen3-14b at 4 of 40 layers, 8 micro-batches of
     1 x 2048, on ``make_host_mesh()`` (one card: (1, 1)), against the same
     step on the card: its flops under ``FlopCounterMode`` on the warm step
-    (within ``DRYRUN_FLOPS_TOL``), the parameter and optimizer bytes
-    against what the caching allocator's stats say ``lm_init`` and the
+    (within ``DRYRUN_FLOPS_TOL``; the step's attention runs the training
+    flash op, counted by its registered formula as the plain path's full
+    square, so that part matches by construction), the parameter and
+    optimizer bytes against what the caching allocator's stats say ``lm_init`` and the
     optimizer's init took (the bytes the tensors requested within
     ``ALLOC_ROUND`` a leaf; the blocks allocated, which the allocator
     rounds, printed beside), and the activation estimate beside the warm
@@ -4398,8 +4590,10 @@ def phase_dryrun(dev):
     check(not counts_now, f"dry run phase: kernel launches {counts_now}")
     print(f"fedavg_collective on a one-rank NCCL group: bit for bit "
           f"fedavg's ({len(leaves(tree))} leaves, fp32 and bf16); the "
-          f"weighted form within {werr:.3e}; no kernel launched in the "
-          f"dry-run phase")
+          f"weighted form within {werr:.3e}; none of the forward-only "
+          f"and GAN kernels launched in the dry-run phase (its card step "
+          f"trains attention through the training flash op, which the "
+          f"flop count sees as the plain path's products)")
 
 
 def main() -> int:
@@ -4431,7 +4625,8 @@ def main() -> int:
     t0 = time.perf_counter()
     rows = [phase_fedavg(dev), phase_dp_clip(dev),
             phase_boundary_fuse(dev), *phase_agg_fuse(dev),
-            phase_flash_attention(dev), phase_wkv6(dev), phase_adamw(dev)]
+            phase_flash_attention(dev), phase_flash_train(dev),
+            phase_wkv6(dev), phase_adamw(dev)]
     print(f"kernel vs plain: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     launches, by_path = phase_main_paths(dev)

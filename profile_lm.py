@@ -60,6 +60,7 @@ AdamW update,
 timed inside the warm step by CUDA events around each update call.
 """
 import argparse
+import contextlib
 import functools
 import inspect
 import json
@@ -369,7 +370,7 @@ def profile_wkv6(dev):
 
 def profile_arch(arch, dev):
     from torch.profiler import ProfilerActivity, profile
-    from chip_smoke import LM_FWD, LM_PATHS, lm_forward_batch
+    from chip_smoke import LM_FWD, LM_PATHS, lm_forward_batch, plain_attention
     from repro_torch.configs.registry import get_config
     from repro_torch.data import synthetic_tokens
     from repro_torch.models.frontends import audio_frame_embeddings
@@ -436,11 +437,13 @@ def profile_arch(arch, dev):
         fwd = lm_forward_batch(dev, m, b, s)
         losses = {}
         for use_kernel in (True, False):
-            lm_loss(params, fwd, m, cd, use_kernel=use_kernel)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            loss, _ = lm_loss(params, fwd, m, cd, use_kernel=use_kernel)
-            torch.cuda.synchronize()
+            with (contextlib.nullcontext() if use_kernel
+                  else plain_attention()):
+                lm_loss(params, fwd, m, cd, use_kernel=use_kernel)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss, _ = lm_loss(params, fwd, m, cd, use_kernel=use_kernel)
+                torch.cuda.synchronize()
             losses[use_kernel] = float(loss)
             print(f"{arch} lm_loss forward B {b} x S {s}, use_kernel="
                   f"{use_kernel}: loss {float(loss):.6f}, warm wall "

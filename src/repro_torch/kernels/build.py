@@ -23,7 +23,8 @@ SOURCES: Dict[str, str] = {"fedavg": "fedavg.cu", "dp_clip": "dp_clip.cu",
                            "boundary_fuse": "boundary_fuse.cu",
                            "agg_fuse": "agg_fuse.cu",
                            "flash_attention": "flash_attention.cu",
-                           "wkv6": "wkv6.cu", "adamw": "adamw.cu"}
+                           "wkv6": "wkv6.cu", "adamw": "adamw.cu",
+                           "flash_attention_train": "flash_attention_train.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

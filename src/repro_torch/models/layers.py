@@ -23,6 +23,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.flash_attention import train as flash_train
+from repro_torch.obs.trace import count
 from repro_torch.sharding.specs import Lg, constrain
 
 # ---------------------------------------------------------------------------
@@ -344,7 +346,20 @@ def attention(q, k, v, q_pos, k_pos, window: int = 0,
               kv_valid: Optional[torch.Tensor] = None,
               kv_chunk: int = 1024, force_full: bool = False,
               scale: Optional[float] = None) -> torch.Tensor:
-    """Dispatch: full einsum for short KV, chunked online-softmax beyond."""
+    """Dispatch.  CUDA bf16 self-attention at an instantiated head_dim
+    (``kernels/flash_attention/train.py`` ``takes``) goes through the
+    training flash kernels, under autograd or not (training, no-grad
+    forwards, serving's prefill); every other call runs the plain path:
+    the full einsum for short KV, chunked online softmax beyond.  A
+    self-attention caller passes one position tensor as both ``q_pos`` and
+    ``k_pos`` (or views of the same memory): equal positions in two
+    distinct tensors take the plain path.  Under a tracer each call counts
+    ``attn_kernel`` or ``attn_plain``."""
+    kernel = flash_train.takes(q, k, v, q_pos, k_pos, kv_valid)
+    count(attn_kernel=int(kernel), attn_plain=int(not kernel))
+    if kernel:
+        return flash_train.flash_attention_train(q, k, v, q_pos,
+                                                 window=window, scale=scale)
     if force_full or k.shape[1] <= kv_chunk:
         return attention_full(q, k, v, q_pos, k_pos, window, kv_valid,
                               scale)

@@ -441,7 +441,10 @@ def lm_prefill(params, batch: Dict[str, torch.Tensor], m: ModelConfig,
     """Process the full prompt, returning (last-token logits, decode state,
     next index). The cache is populated inside the forward pass (each
     block contributes its K/V / recurrent state), so prefill is one pass.
-    Attention takes the plain path, as in the reference."""
+    Attention goes through ``layers.attention``: bf16 self-attention at an
+    instantiated head_dim on the card takes the training flash op's
+    forward (``kernels/flash_attention/train.py``), every other call the
+    plain path, as in the reference."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = _embed(params, tokens, m, cd)

@@ -24,10 +24,15 @@ loop that writes each client's result into fresh stacked leaves; both are
 the same arithmetic, and a client's slice equals a lone step on it bit for
 bit.
 
-The hand-written kernels are forward-only (the reference's define no VJP,
-and ``jax.grad`` through its flash op fails), so training runs the plain
-attention and the plain WKV scan; a config that asks for the kernels
-(``parallel.use_flash_kernel``) is refused when the step is built.
+The reference's hand-written kernels are forward-only (they define no
+VJP, and ``jax.grad`` through its flash op fails), and so are the port's
+flash_attention and wkv6 kernels: a config that asks for them
+(``parallel.use_flash_kernel``) is refused when the step is built, and
+training runs the plain WKV scan.  Attention goes through
+``models.layers.attention``, which sends bf16 self-attention at an
+instantiated head_dim on the card to the training flash op
+(``kernels/flash_attention/train.py``, forward and backward) and every
+other call to the plain path.
 
 Steps run where the parameters live; ``update`` returns new trees and the
 inputs are never written.
