@@ -7,7 +7,6 @@ A test module takes it by importing it by name, as it imports the
 """
 from __future__ import annotations
 
-import jax
 import numpy as np
 
 from repro_torch.tree import leaves
@@ -54,6 +53,7 @@ def close_to_reference(got, want, start, drift: float,
     function between two parameter sets 2.3e-5 apart (ROADMAP Queue C).
     Such elements may exceed 1e-4, at most one in 10,000 of a leaf, each
     within 2 x ``drift`` (the most two Adam walks can part)."""
+    import jax   # here, so that test_torch_lm_gpu.py imports no JAX
     for path, g, w, s in zip(paths(got), leaves(got), jax.tree.leaves(want),
                              jax.tree.leaves(start)):
         if path[-2:] in BN_FED_BIASES:

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_fixtures import cuda, one_thread  # noqa: F401
 
 from repro.fed.aggregate import StreamingAggregator as JStreamingAggregator
 from repro.fed.aggregate import batched_reduce as jbatched_reduce
@@ -652,13 +653,6 @@ def test_key_for_without_hierarchy_keeps_cohort_zero():
 # ---------------------------------------------------------------------------
 # the CUDA kernels (GPU only)
 # ---------------------------------------------------------------------------
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU: the agg_fuse kernels have no CPU mode")
-    return torch.device("cuda")
-
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("wire", WIRES)

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_fixtures import cuda_fp32, one_thread  # noqa: F401
 
 from repro.config import DCGANConfig as JDCGANConfig
 from repro.core import split as js
@@ -51,22 +52,11 @@ from repro_torch.privacy import (distance_correlation, membership_inference,
                                  psnr)
 from repro_torch.tree import leaves
 
-from _torch_gpu import cuda_fp32  # noqa: F401
 
 JC, C = JDCGANConfig(base_filters=8), DCGANConfig(base_filters=8)
 CPU = torch.device("cpu")
 # the activation shapes of the D's three conv boundaries at base_filters 8
 ACT_SHAPES = [(14, 14, 8), (7, 7, 16), (4, 4, 32)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: the tensors are small and the suite's workers
-    share the cores (see tests/test_torch_vectorized.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_fixtures import cuda, one_thread  # noqa: F401
 
 from repro.checkpoint import load_pytree as jload_pytree
 from repro.checkpoint import save_pytree as jsave_pytree
@@ -21,16 +22,6 @@ from repro_torch.checkpoint import (CheckpointManager, load_pytree,
                                     save_pytree)
 from repro_torch.data import BatchIterator
 from repro_torch.tree import leaves
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: the tensors are small and the suite's workers
-    share the cores (see tests/test_torch_vectorized.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _bits(t):
@@ -180,9 +171,7 @@ def test_load_with_like_takes_its_dtypes_and_raises_on_missing(tmp_path):
 
 
 @pytest.mark.gpu
-def test_checkpoint_restores_onto_the_card(tmp_path):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU")
+def test_checkpoint_restores_onto_the_card(cuda, tmp_path):
     p = os.path.join(tmp_path, "x.npz")
     tree = _tree()
     save_pytree(p, tree)

@@ -22,7 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_gpu import cuda_fp32  # noqa: F401  (a fixture)
+from _torch_fixtures import cuda_fp32, one_thread  # noqa: F401
 
 from repro.configs.registry import get_config as jget_config
 from repro.control import CodecController as JCodecController
@@ -60,16 +60,6 @@ def _cfg(**over):
 
 def _trainer(parts, **over):
     return FSLGANTrainer(_cfg(**over), parts, seed=0, device="cpu")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: the tensors are small and the suite's workers
-    share the cores (see tests/test_torch_vectorized.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -17,6 +17,7 @@ import sys
 
 import pytest
 import torch
+from _torch_fixtures import cuda, one_thread  # noqa: F401
 
 from repro_torch.config import reduce_for_smoke
 from repro_torch.configs.registry import get_config
@@ -35,14 +36,6 @@ CPU = torch.device("cpu")
 PUBLISHED = {"model.mla.yarn_factor": 40.0, "model.first_dense_layers": 1,
              "model.d_ff": 96, "model.moe.norm_topk_prob": False,
              "model.norm_eps": 1e-6}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfg(seq=16, batch=2, layers=3, **over):
@@ -289,15 +282,6 @@ def test_expert_shares_add_up_to_the_whole_layer(shards, norm):
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU: the published form's step is held "
-                    "against the CPU's on the card")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda")
-
 
 @pytest.mark.gpu
 def test_published_form_train_step_on_gpu_matches_cpu(cuda):

@@ -19,6 +19,7 @@ import os
 import numpy as np
 import pytest
 import torch
+from _torch_fixtures import one_thread  # noqa: F401
 
 import jax
 
@@ -37,14 +38,6 @@ from repro_torch.roofline import probes as tprobes
 from repro_torch.tree import leaves
 
 REL = 1e-9
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 def _stub(cfg, mesh):

@@ -7,6 +7,7 @@ import os
 import numpy as np
 import pytest
 import torch
+from _torch_fixtures import one_thread  # noqa: F401
 
 from repro_torch.examples import (adaptive_control_demo,
                                   device_selection_demo, fed_async_demo,
@@ -17,16 +18,6 @@ from repro_torch.examples import (adaptive_control_demo,
 from repro_torch.obs import load_run
 
 SMALL = ["--batch-size", "8", "--base-filters", "8", "--device", "cpu"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: the tensors are small and the suite's workers
-    share the cores (see tests/test_torch_vectorized.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _out(tmp_path):

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_fixtures import cuda, one_thread  # noqa: F401
 
 from repro.core.fedavg import fedavg as jfedavg
 from repro.kernels.fedavg.ops import fedavg_flat as jfedavg_flat
@@ -345,14 +346,6 @@ def test_build_tables_of_empty_leaves_launch_nothing():
 # ---------------------------------------------------------------------------
 # the CUDA kernel (GPU only)
 # ---------------------------------------------------------------------------
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU: the fedavg kernel has no CPU mode")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda")
-
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("c", [1, 2, 5])

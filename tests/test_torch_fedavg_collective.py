@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_fixtures import one_thread  # noqa: F401
 
 from repro.data import partition_iid as jpartition_iid
 from repro_torch.data import partition_iid
@@ -39,7 +40,6 @@ from repro_torch.core.fedavg import (fedavg_collective,
 rank, world, port, out, weight = (int(sys.argv[1]), int(sys.argv[2]),
                                   sys.argv[3], sys.argv[4],
                                   float(sys.argv[5]))
-torch.set_num_threads(1)
 dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                         world_size=world, rank=rank)
 try:
@@ -98,7 +98,7 @@ def test_collective_fedavg_matches_host_fedavg(world, tmp_path):
         np.savez(tmp_path / f"in{r}.npz", w=t["w"], x=t["b"]["x"],
                  h=t["b"]["h"])
     port = _free_port()
-    env = {**os.environ, "PYTHONPATH": SRC}
+    env = {**os.environ, "PYTHONPATH": SRC, "OMP_NUM_THREADS": "1"}
     procs = [subprocess.Popen(
         [sys.executable, "-c", WORKER, str(r), str(world), str(port),
          str(tmp_path), str(WEIGHTS[r])], env=env) for r in range(world)]

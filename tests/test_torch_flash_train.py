@@ -15,6 +15,7 @@ imports no JAX.
 """
 import pytest
 import torch
+from _torch_fixtures import cuda, one_thread  # noqa: F401
 
 from repro_torch.config import reduce_for_smoke
 from repro_torch.configs.registry import get_config
@@ -165,15 +166,6 @@ def test_train_step_still_refuses_the_forward_only_kernel():
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU: the flash_attention_train kernels "
-                    "have no CPU mode")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda")
-
 
 def positions(kind: str, s: int, device) -> torch.Tensor:
     """A position vector: ``arange``, the encoder's ``zeros``, a

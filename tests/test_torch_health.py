@@ -17,6 +17,7 @@ from dataclasses import asdict, fields
 import numpy as np
 import pytest
 import torch
+from _torch_fixtures import one_thread  # noqa: F401
 
 from repro.config import HealthConfig as JHealthConfig
 from repro.control.feedback import RoundFeedback as JRoundFeedback
@@ -54,16 +55,6 @@ def _poison(tr):
     aggregated global D all go non-finite."""
     tr.state.g_params = tree_map(lambda x: x * float("nan"),
                                  tr.state.g_params)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: the tensors are small and the suite's workers
-    share the cores (see tests/test_torch_vectorized.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

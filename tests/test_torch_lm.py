@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_fixtures import one_thread  # noqa: F401
 
 from repro.config import reduce_for_smoke as jreduce_for_smoke
 from repro.configs.registry import SkippedShape as JSkippedShape
@@ -32,7 +33,6 @@ from repro_torch.models import transformer as T
 from repro_torch.runtime import cache_length, make_decode_step, \
     make_prefill_step
 
-torch.backends.cuda.matmul.allow_tf32 = False
 ARCHS = ["qwen3-14b", "rwkv6-1.6b"]
 TOL = dict(rtol=0, atol=1e-4)
 CPU = torch.device("cpu")

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_fixtures import one_thread  # noqa: F401
 
 from repro.config import reduce_for_smoke as jreduce_for_smoke
 from repro.configs.registry import get_config as jget_config
@@ -36,16 +37,6 @@ from repro_torch.models import transformer as T
 
 CPU = torch.device("cpu")
 TOL = dict(rtol=0, atol=1e-5)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: small tensors, and the suite's workers share
-    the cores (see ``tests/test_torch_vectorized.py``)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(tree):

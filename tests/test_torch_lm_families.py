@@ -24,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_fixtures import one_thread  # noqa: F401
 
 from repro.config import reduce_for_smoke as jreduce_for_smoke
 from repro.configs.registry import SkippedShape as JSkippedShape
@@ -47,16 +48,6 @@ SEQ, PRE, GEN = 12, 8, 4
 TOL = dict(rtol=0, atol=1e-4)
 DECODE_PIN = dict(rtol=0, atol=5e-4)
 CPU = torch.device("cpu")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: small tensors, and the suite's workers share
-    the cores (see ``tests/test_torch_vectorized.py``)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @functools.lru_cache(maxsize=None)

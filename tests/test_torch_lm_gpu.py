@@ -15,6 +15,8 @@ results are held against the port's plain versions and the CPU.
 """
 import pytest
 import torch
+from _torch_fixtures import cuda, one_thread  # noqa: F401
+from _torch_parity import paths as _paths
 
 from repro_torch.config import MoEConfig, reduce_for_smoke
 from repro_torch.configs.registry import get_config
@@ -37,15 +39,6 @@ TOL = {torch.float32: dict(rtol=0, atol=2e-5),
 # llama3-405b
 SHAPES = {"recurrentgemma-9b": (16, 1, 256, 2048), "granite-20b":
           (48, 1, 128, 0), "llama3-405b": (128, 8, 128, 0)}
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU: the flash_attention kernel has no "
-                    "CPU mode")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda")
 
 
 @pytest.mark.gpu
@@ -91,12 +84,6 @@ def test_two_moe_forwards_on_gpu_are_equal_bit_for_bit(cuda, dtype):
 # ---------------------------------------------------------------------------
 # LM training on the card
 # ---------------------------------------------------------------------------
-
-def _paths(tree, prefix=()):
-    if not isinstance(tree, dict):
-        return [prefix]
-    return [p for k in sorted(tree) for p in _paths(tree[k], prefix + (k,))]
-
 
 def _train_setup(arch, dev, over=None, seq=32, batch=4):
     cfg = reduce_for_smoke(get_config(arch, "train_4k"), seq_len=seq,

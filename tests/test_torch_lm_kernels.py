@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_fixtures import cuda, one_thread  # noqa: F401
 
 from repro.kernels.flash_attention.ops import flash_attention as jflash
 from repro.kernels.wkv6.ops import wkv6 as jwkv6
@@ -41,7 +42,6 @@ from repro_torch.kernels.wkv6.kernel import wkv6_kernel
 from repro_torch.kernels.wkv6.ops import wkv6
 from repro_torch.kernels.wkv6.ref import wkv6_ref
 
-torch.backends.cuda.matmul.allow_tf32 = False
 
 # the cases of tests/test_kernels.py
 FLASH_CASES = [
@@ -414,15 +414,6 @@ def test_new_sources_are_built():
 # ---------------------------------------------------------------------------
 # the CUDA kernels (GPU only)
 # ---------------------------------------------------------------------------
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU: the flash_attention and wkv6 kernels "
-                    "have no CPU mode")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda")
-
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", FLASH_CASES)

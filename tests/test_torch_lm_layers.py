@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_fixtures import one_thread  # noqa: F401
 
 from repro.config import RWKVConfig as JRWKVConfig
 from repro.models import layers as JL
@@ -23,7 +24,6 @@ from repro_torch.config import RWKVConfig
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv6 as RW
 
-torch.backends.cuda.matmul.allow_tf32 = False
 TOL = dict(rtol=0, atol=1e-5)
 KEY = jax.random.PRNGKey(3)
 

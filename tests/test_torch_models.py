@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_fixtures import one_thread  # noqa: F401
 
 from repro.config import DCGANConfig as JDCGANConfig
 from repro.configs.registry import get_config as jget_config

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_fixtures import one_thread  # noqa: F401
 
 from repro.config import MoEConfig as JMoEConfig
 from repro.models import moe as JM
@@ -27,16 +28,6 @@ from repro_torch.models.layers import mlp_apply
 CPU = torch.device("cpu")
 Y_TOL = dict(rtol=0, atol=1e-5)
 AUX_TOL = dict(rtol=0, atol=1e-6)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: small tensors, and the suite's workers share
-    the cores (see ``tests/test_torch_vectorized.py``)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _setup(d, x_shape, seed=0, **cfg):

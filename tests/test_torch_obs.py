@@ -20,6 +20,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from _torch_fixtures import cuda, one_thread  # noqa: F401
 
 from repro.models.dcgan import disc_init as jdisc_init
 from repro.obs.digest import tree_sketch as jtree_sketch
@@ -56,16 +57,6 @@ def _trainer(parts, **over):
 def _obs(out, run_id, **over):
     return {"obs.enabled": True, "obs.out_dir": str(out),
             "obs.run_id": run_id, **over}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: the tensors are small and the suite's workers
-    share the cores (see tests/test_torch_vectorized.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -496,11 +487,9 @@ def test_recorder_from_config_names_its_run_dir(tmp_path):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.gpu
-def test_profile_engine_kernels_launches_each_kernel_on_gpu():
+def test_profile_engine_kernels_launches_each_kernel_on_gpu(cuda):
     """On the card each profile launches its hand-written kernel: the
     first call and each timed one (``runs``), and nothing else."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
     from repro_torch.kernels.agg_fuse.kernel import \
         dequant_reduce_leaves_kernel
     from repro_torch.kernels.boundary_fuse.kernel import boundary_fuse_kernel
@@ -514,7 +503,7 @@ def test_profile_engine_kernels_launches_each_kernel_on_gpu():
                   "split.boundary_stage": "int8+dp", "fed.codec": "int8",
                   "fed.kernel_aggregation": True})
     before = {k: w.launches for k, w in kernels.items()}
-    prof = profile_engine_kernels(cfg, device="cuda", runs=2)
+    prof = profile_engine_kernels(cfg, device=cuda, runs=2)
     torch.cuda.synchronize()
     assert {n.split("_")[0] for n in prof} == set(kernels)
     for name, p in prof.items():

@@ -9,6 +9,7 @@ No JAX here.
 """
 import pytest
 import torch
+from _torch_fixtures import one_thread  # noqa: F401
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.config import MoEConfig, reduce_for_smoke
@@ -23,14 +24,6 @@ from repro_torch.runtime import make_train_step
 # the operators that read a device value on the host (a sync on the card)
 HOST_READS = ("aten._local_scalar_dense.default", "aten.nonzero.default",
               "aten.item.default")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _deepseek(nmb=2):

@@ -13,6 +13,7 @@ import warnings
 
 import pytest
 import torch
+from _torch_fixtures import cuda, one_thread  # noqa: F401
 
 from repro_torch.config import reduce_for_smoke
 from repro_torch.configs.registry import get_config
@@ -33,14 +34,6 @@ GAN_TREE = {"engine": "round", "commit": "round", "g_update": "round",
             "reduce": "engine", "sample": "client", "group": "client",
             "batch": "group"}
 LM_TREE = {"microbatch": "step", "accumulate": "step", "optim": "step"}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -225,14 +218,6 @@ def test_lm_step_emits_microbatch_accumulate_optim():
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU: device extents and sync counts are "
-                    "the card's")
-    return torch.device("cuda")
-
 
 @pytest.mark.gpu
 def test_device_extents_nest_on_gpu(cuda):

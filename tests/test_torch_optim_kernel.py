@@ -19,8 +19,8 @@ from pathlib import Path
 
 import pytest
 import torch
+from _torch_fixtures import cuda_fp32, one_thread  # noqa: F401
 
-from _torch_gpu import cuda_fp32  # noqa: F401
 from repro_torch.kernels.adamw import kernel as K
 from repro_torch.kernels.adamw.kernel import (adamw_leaves_kernel,
                                               build_tables,

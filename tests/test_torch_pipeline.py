@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 from _hyp import given, settings, st
-from _torch_gpu import cuda_fp32  # noqa: F401  (a fixture)
+from _torch_fixtures import cuda_fp32, one_thread  # noqa: F401
 
 from repro.config import DCGANConfig as JDCGANConfig
 from repro.config import SplitConfig as JSplitConfig

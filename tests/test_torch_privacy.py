@@ -17,7 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_gpu import cuda_fp32  # noqa: F401  (a fixture)
+from _torch_fixtures import cuda, cuda_fp32, one_thread  # noqa: F401
 
 from repro.config import DCGANConfig as JDCGANConfig
 from repro.config import OptimConfig as JOptimConfig
@@ -703,13 +703,6 @@ def test_dp_epsilon_grows_with_rounds(parts):
 # ---------------------------------------------------------------------------
 # the CUDA kernel (GPU only)
 # ---------------------------------------------------------------------------
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU: the dp_clip kernel has no CPU mode")
-    return torch.device("cuda")
-
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,n", [(1, 1), (1, 4097), (256, 4097),

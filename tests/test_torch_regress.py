@@ -9,6 +9,7 @@ import json
 import os
 
 import pytest
+from _torch_fixtures import one_thread  # noqa: F401
 
 from repro.obs import regress as jregress
 from repro_torch.obs import regress as tregress

@@ -12,6 +12,7 @@ import time
 import numpy as np
 import pytest
 import torch
+from _torch_fixtures import cuda, one_thread  # noqa: F401
 
 from repro.fed.hierarchy import assign_cohorts as jassign_cohorts
 from repro.fed.roster import Roster as JRoster
@@ -27,16 +28,6 @@ from repro_torch.tree import leaves, unflatten_like
 
 GRID = [(1, 1, 1, 1.0), (100, 100, 1, 1.0), (10_000, 16, 4, 1.0),
         (10_007, 33, 5, 0.7), (1_000_000, 64, 8, 0.25), (17, 9, 9, 0.5)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: the tensors are small and the suite's workers
-    share the cores (see tests/test_torch_vectorized.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ---------------------------------------------------------------------------
@@ -264,13 +255,11 @@ def test_cohort_of_cid_groups_like_jax_and_two_tier_equals_flat():
 
 
 @pytest.mark.gpu
-def test_two_tier_reduce_through_the_kernel_on_gpu():
+def test_two_tier_reduce_through_the_kernel_on_gpu(cuda):
     from repro_torch.kernels.fedavg.kernel import fedavg_leaves_kernel
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU: the fedavg kernel has no CPU mode")
     r = Roster(1_000_000, participants=16, cohorts=4, seed=0)
     ids = [f"v{i}" for i in r.sample_round(0).client_ids]
-    trees = _client_trees(ids, "cuda")
+    trees = _client_trees(ids, cuda)
     weights = {cid: float(1 + i % 3) for i, cid in enumerate(ids)}
     before = fedavg_leaves_kernel.launches
     _, two_tier = _two_tier(r, trees, weights, use_kernel=True)

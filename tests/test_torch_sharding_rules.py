@@ -10,6 +10,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+from _torch_fixtures import one_thread  # noqa: F401
 from jax.sharding import AbstractMesh
 
 from repro.configs import registry as jreg

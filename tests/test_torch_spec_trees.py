@@ -10,6 +10,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from _torch_fixtures import one_thread  # noqa: F401
 from jax.sharding import AbstractMesh
 
 from repro.configs import registry as jreg
@@ -28,14 +29,6 @@ from repro_torch.tree import leaves, shapes_of
 ARCHS = treg.ASSIGNED_ARCHS
 MESHES = {"pod16x16": ((16, 16), ("data", "model"), False),
           "pod2x16x16": ((2, 16, 16), ("pod", "data", "model"), True)}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 def _jpaths(tree, is_leaf=None):

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_fixtures import cuda, one_thread  # noqa: F401
 
 from repro.config import DCGANConfig as JDCGANConfig
 from repro.config import SplitConfig as JSplitConfig
@@ -567,14 +568,6 @@ def test_noisy_stage_runs_repeat_and_lan_bytes_are_measured(parts):
 # ---------------------------------------------------------------------------
 # the CUDA kernel (GPU only)
 # ---------------------------------------------------------------------------
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU: the boundary_fuse kernel has no CPU "
-                    "mode")
-    return torch.device("cuda")
-
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("codec", FUSABLE)

@@ -27,6 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_fixtures import one_thread  # noqa: F401
 
 from repro.config import reduce_for_smoke as jreduce_for_smoke
 from repro.configs.registry import get_config as jget_config
@@ -64,16 +65,6 @@ GRAD_TOL_ARCH = {"rwkv6-1.6b": 1e-4}
 # cancels: its analytic gradient is 0, and both packages give rounding
 # noise (~1e-9); such leaves are held against the whole tree's scale
 ZERO_GRAD_LEAVES = ("['wk']['b']",)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: small tensors, and the suite's workers share
-    the cores (see ``tests/test_torch_vectorized.py``)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _configs(arch, seq=SEQ, batch=BATCH, over=None):

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_fixtures import one_thread  # noqa: F401
 from _torch_parity import BN_FED_BIASES, close_to_reference
 from _torch_parity import paths as _paths
 

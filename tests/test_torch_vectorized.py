@@ -18,7 +18,7 @@ import jax
 import numpy as np
 import pytest
 import torch
-from _torch_gpu import cuda_fp32  # noqa: F401  (a fixture)
+from _torch_fixtures import cuda_fp32, one_thread  # noqa: F401
 from _torch_parity import close_to_reference
 from _torch_parity import paths as _paths
 from jax.sharding import AbstractMesh
@@ -53,18 +53,6 @@ CPU = torch.device("cpu")
 
 def _np(tree):
     return jax.tree.map(np.asarray, tree)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread for this module: its tensors are small, and
-    the suite runs several worker processes on a few cores, where
-    PyTorch's spinning thread pools starve each other (a round took ~8x
-    longer with a thread a core than with one thread there)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
