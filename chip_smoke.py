@@ -3364,6 +3364,101 @@ def phase_flash_train(dev):
     return row
 
 
+# the LM head's products: (tokens, d, vocab) of a deepseek-v2-lite-16b
+# .train_8k micro-batch (14) and an olmoe-1b-7b.train_4k one (15)
+HEAD_SHAPES = {"(14) deepseek 8192": (8192, 2048, 102400),
+               "(15) olmoe 4096": (4096, 2048, 50304)}
+FP32_FLOPS = 67e12
+# the split kernels' largest float64-oracle error over cuBLAS fp32's (the
+# tests' bound)
+HEAD_ERR_RATIO = 1.5
+
+
+def phase_head_gemm(dev):
+    """The LM head's split-bf16 GEMM (forward x.w, dX = G.w^T, dW = x^T.G,
+    and the split pass) at the two LM training cells' micro-batch shapes:
+    ptxas's registers and spills (none allowed); each product's float64-
+    oracle error beside the plain cuBLAS fp32 product's (within
+    ``HEAD_ERR_RATIO``); device times beside their bounds (the split's own
+    bf16 work at 989 TFLOP/s, the fp32 work at 67), the plain fp32
+    product's and, as a yardstick the port never calls, one bf16 cuBLAS
+    product of the same shape (x . w_hi)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.head_gemm import kernel as HK, ref
+
+    for line in build.build_log("head_gemm").splitlines():
+        if "Compiling entry function" in line:
+            label = line.split("'")[1]
+        elif "registers" in line or "spill" in line:
+            check("spill" not in line or " 0 bytes spill stores" in line,
+                  f"head_gemm {label}: {line.strip()}")
+            print(f"head_gemm {label}: {line.strip()}")
+    print("head_gemm dynamic shared memory: "
+          + ", ".join(f"{k} {HK.smem_bytes(k)} B"
+                      for k in ("fwd", "dw", "dx")))
+    row = None
+    for label, (t, d, v) in HEAD_SHAPES.items():
+        gen = torch.Generator(device=dev).manual_seed(11)
+        x = torch.randn((t, d), generator=gen, device=dev).to(torch.bfloat16)
+        w = torch.randn((d, v), generator=gen, device=dev) * 0.02
+        g = torch.randn((t, v), generator=gen, device=dev) * 1e-6
+        wp, gp = HK.head_split_kernel(w), HK.head_split_kernel(g)
+        runs = {"forward": (lambda: HK.head_fwd_kernel(x, wp),
+                            lambda: x.float() @ w, 3),
+                "dX": (lambda: HK.head_dx_kernel(gp, wp),
+                       lambda: g @ w.T, 6),
+                "dW": (lambda: HK.head_dw_kernel(x, gp),
+                       lambda: x.float().T @ g, 3)}
+        operands = {"forward": (x, w), "dX": (g, w.T), "dW": (x.T, g)}
+        flops = 2 * t * d * v
+        split_ms = {"w": time_ms(lambda: HK.head_split_kernel(w), iters=10),
+                    "G": time_ms(lambda: HK.head_split_kernel(g), iters=10)}
+        w_hi = wp[0]
+        lib = time_ms(lambda: x @ w_hi, iters=10)
+        total = {"ms": 0.0, "plain": 0.0, "bound": 0.0}
+        errs = {}
+        for name, (kernel, plain, terms) in runs.items():
+            oracle, scale = ref.oracle(*operands[name])
+            err = ref.row_err(kernel(), oracle, scale)
+            perr = ref.row_err(plain(), oracle, scale)
+            del oracle, scale
+            torch.cuda.empty_cache()
+            check(err <= HEAD_ERR_RATIO * perr,
+                  f"head_gemm {label} {name}: error {err:.3e} against the "
+                  f"float64 oracle, cuBLAS fp32 {perr:.3e}")
+            errs[name] = (err, perr)
+            ms = time_ms(kernel, iters=10)
+            pms = time_ms(plain, iters=3)
+            bound = 1e3 * terms * flops / BF16_FLOPS
+            total["ms"] += ms
+            total["plain"] += pms
+            total["bound"] += bound
+            print(f"head_gemm {label} {name} ({terms} terms): {ms:.4f} ms "
+                  f"({terms * flops / ms / 1e9:.1f} TFLOP/s of its own bf16 "
+                  f"work; bound {bound:.4f} ms at 989 TFLOP/s, the fp32 work "
+                  f"{1e3 * flops / FP32_FLOPS:.4f} ms at 67), plain fp32 "
+                  f"{pms:.4f} ms ({flops / pms / 1e9:.1f} TFLOP/s); float64 "
+                  f"oracle error {err:.3e}, cuBLAS fp32 {perr:.3e} (ratio "
+                  f"{err / perr:.2f})")
+        print(f"head_gemm {label}: split pass w {split_ms['w']:.4f} ms, G "
+              f"{split_ms['G']:.4f} ms; one bf16 cuBLAS product of the same "
+              f"shape (x . w_hi, a yardstick) {lib:.4f} ms; a micro-batch's "
+              f"head with its splits (w twice, G once) "
+              f"{total['ms'] + 2 * split_ms['w'] + split_ms['G']:.4f} ms, "
+              f"plain {total['plain']:.4f} ms")
+        del x, w, g, wp, gp, w_hi
+        torch.cuda.empty_cache()
+        if row is None:
+            row = {"name": "head_gemm", "route": "cuda",
+                   "source": "src/repro_torch/csrc/head_gemm.cu",
+                   "replaces": None, "launches": None,
+                   "max_rel_err": max(e for e, _ in errs.values()),
+                   "ms": total["ms"] + 2 * split_ms["w"] + split_ms["G"],
+                   "plain_ms": total["plain"], "bound_ms": total["bound"],
+                   "bound_by": "operations", "library_ms": lib}
+    return row
+
+
 def phase_wkv6(dev):
     """The wkv6 kernel against its plain version: the rwkv6-1.6b forward's
     (4, 2048, 32, 64) with a random state0 and with none; the four cases of
@@ -3788,6 +3883,26 @@ def plain_attention():
     return mock.patch.object(FT, "takes", lambda *a: False)
 
 
+def head_kernel_calls(m, cd, pd, rows):
+    """How many head products a forward of ``rows`` tokens sends through
+    the split-bf16 kernels: one where ``_f32_matmul``'s rule takes the
+    compute dtype ``cd`` against the untied head weight in ``pd``."""
+    from repro_torch.kernels.head_gemm import ops as HO
+    if m.tie_embeddings:
+        return 0
+    x = torch.empty((rows, m.d_model), dtype=cd, device="meta")
+    w = torch.empty((m.d_model, m.vocab_size), dtype=pd, device="meta")
+    return int(HO.shapes_ok(x, w))
+
+
+def plain_head():
+    """A context in which ``models.layers._f32_matmul`` takes its plain
+    form on every call (the head kernels' rule answers no)."""
+    from unittest import mock
+    from repro_torch.kernels.head_gemm import ops as HO
+    return mock.patch.object(HO, "takes", lambda *a: False)
+
+
 def drive_lm(dev, arch, path):
     """One LM at full width (``path``: its entry of ``LM_PATHS``):
     ``lm_loss`` forward under ``torch.no_grad`` with
@@ -3797,17 +3912,21 @@ def drive_lm(dev, arch, path):
     before each of the two and read just after: the forward must launch
     flash_attention once an ``attn`` / ``moe`` layer, wkv6 once an
     ``rwkv`` layer and the training flash op's forward once an MLA layer
-    at the depth run (``flash_train_layers``) and nothing else; serving
-    launches only the training flash op's forward, once a layer that
-    ``flash_train_layers`` counts, in its one prefill (decode keeps the
-    plain attention / scan).  No call launches the op's backward.  With
+    at the depth run (``flash_train_layers``), the head's split of w and
+    its forward product once where ``head_kernel_calls`` says, and nothing
+    else; serving launches only the training flash op's forward, once a
+    layer that ``flash_train_layers`` counts, in its one prefill (decode
+    and the last token's head keep the plain attention / scan / product).
+    No call launches the op's backward or the head's.  With
     ``path["plain"]``, the forward also runs once on the plain path
-    (``plain_attention``: no kernel launches), and the two losses must
+    (``plain_attention`` and ``plain_head``: no kernel launches), and the
+    two losses must
     agree within ``PLAIN_LOSS_TOL``.  Returns the forward's launches of
     each kernel."""
     from repro_torch.configs.registry import get_config
     from repro_torch.data import synthetic_tokens
     from repro_torch.kernels.flash_attention import train as FT
+    from repro_torch.kernels.head_gemm import kernel as HK
     from repro_torch.launch.serve import Request, serve_batch
     from repro_torch.models.blocks import layer_kinds
     from repro_torch.models.transformer import lm_init, lm_loss
@@ -3823,7 +3942,10 @@ def drive_lm(dev, arch, path):
     kinds = layer_kinds(m)
     wrappers = {**kernel_wrappers(),
                 "flash_attention_train": FT.flash_train_fwd_kernel,
-                "flash_attention_train_bwd": FT.flash_train_bwd_kernel}
+                "flash_attention_train_bwd": FT.flash_train_bwd_kernel,
+                "head_split": HK.head_split_kernel,
+                "head_fwd": HK.head_fwd_kernel,
+                "head_dw": HK.head_dw_kernel, "head_dx": HK.head_dx_kernel}
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     params = lm_init(0, m, _dtype(cfg.parallel.param_dtype), dev)
@@ -3850,6 +3972,8 @@ def drive_lm(dev, arch, path):
     want["wkv6"] = kinds.count("rwkv")
     want["flash_attention_train"] = flash_train_layers(
         m, kinds, cd, cfg.parallel.use_flash_kernel)
+    want["head_split"] = want["head_fwd"] = head_kernel_calls(
+        m, cd, _dtype(cfg.parallel.param_dtype), b * s)
     for w in wrappers.values():
         w.launches = 0
     t0 = time.perf_counter()
@@ -3879,7 +4003,7 @@ def drive_lm(dev, arch, path):
         for w in wrappers.values():
             w.launches = 0
         t0 = time.perf_counter()
-        with plain_attention():
+        with plain_attention(), plain_head():
             plain, _ = forward(use_kernel=False)
         torch.cuda.synchronize()
         counts = {k: w.launches for k, w in wrappers.items() if w.launches}
@@ -3933,11 +4057,19 @@ def drive_lm(dev, arch, path):
 
 def phase_lm_paths(dev):
     """Every LM of ``LM_PATHS`` through ``drive_lm``.  Returns (each
-    kernel's forward launches over all of them, and by forward)."""
+    kernel's forward launches over all of them, and by forward); the
+    head's kernels by forward under ``head_gemm``, each forward's launches
+    by kernel."""
     launches, by_path = {}, {}
+    head = {"head_split": "split", "head_fwd": "forward", "head_dw": "dW",
+            "head_dx": "dX"}
     for arch, path in LM_PATHS.items():
         t0 = time.perf_counter()
         for name, n in drive_lm(dev, arch, path).items():
+            if name in head:
+                by_path.setdefault("head_gemm", {}).setdefault(
+                    f"{arch} forward", {})[head[name]] = n
+                continue
             launches[name] = launches.get(name, 0) + n
             by_path.setdefault(name, {})[f"{arch} forward"] = n
         print(f"{arch}: {time.perf_counter() - t0:.1f} s")
@@ -4094,8 +4226,12 @@ def phase_train_paths(dev):
     steps 1 and 3.
     Each prints its warm step's wall, tokens a second, peak memory and
     losses; every loss and parameter is finite and the warm step moves
-    the parameters.  Then a step built with ``use_flash_kernel`` is
-    refused and launches nothing.  Returns adamw's launches by path."""
+    the parameters.  The head's kernels launch 3 splits (w, G, w again),
+    a forward, a dW and a dX a micro-batch where ``head_kernel_calls``
+    takes the head (rwkv6-1.6b's fp32 untied head; not qwen3-14b's bf16
+    weight nor whisper-base's vocab of 51,865).  Then a step built with
+    ``use_flash_kernel`` is refused and launches nothing.  Returns the
+    launches by path of adamw and of the head's kernels."""
     from repro_torch.configs.registry import get_config
     from repro_torch.data import synthetic_lm_batch
     from repro_torch.launch.train import train_loop
@@ -4113,18 +4249,32 @@ def phase_train_paths(dev):
     adamw_paths = {}
 
     from repro_torch.kernels.flash_attention import train as FT
+    from repro_torch.kernels.head_gemm import kernel as HK
     flash_train = (FT.flash_train_fwd_kernel, FT.flash_train_bwd_kernel)
+    head = {"split": HK.head_split_kernel, "forward": HK.head_fwd_kernel,
+            "dW": HK.head_dw_kernel, "dX": HK.head_dx_kernel}
+    head_paths = {}
 
     def zero_counts():
-        for w in [*wrappers.values(), adamw_leaves_kernel, *flash_train]:
+        for w in [*wrappers.values(), adamw_leaves_kernel, *flash_train,
+                  *head.values()]:
             w.launches = 0
         adamw_leaves_kernel.kernel_leaves = 0
         adamw_leaves_kernel.plain_leaves = 0
 
-    def read_counts(label, attn_calls=0, remat="none"):
+    def head_calls(cfg, products, rows):
+        """How many of ``products`` head products of ``rows`` tokens each
+        take the head's kernels under ``cfg``."""
+        return products * head_kernel_calls(
+            cfg.model, _dtype(cfg.parallel.compute_dtype),
+            _dtype(cfg.parallel.param_dtype), rows)
+
+    def read_counts(label, attn_calls=0, remat="none", heads=0):
         """No forward-only kernel launched; the training attention kernels
         once a bf16 attention call forward and backward (the forward again
-        under ``remat="full"``)."""
+        under ``remat="full"``); the head's kernels 3 splits, a forward, a
+        dW and a dX for each of ``heads`` products (the head is outside
+        every checkpoint: no forward again)."""
         counts = {k: w.launches for k, w in wrappers.items() if w.launches}
         check(not counts, f"{label}: kernel launches {counts}, expected none")
         got = tuple(w.launches for w in flash_train)
@@ -4135,6 +4285,14 @@ def phase_train_paths(dev):
             print(f"{label}: flash_attention_train {got[0]} forward and "
                   f"{got[1]} backward launches (remat {remat})")
             counts["flash_attention_train"] = got
+        got = {k: w.launches for k, w in head.items()}
+        want = dict(zip(head, (3 * heads, heads, heads, heads)))
+        check(got == want, f"{label}: head_gemm launches {got}, expected "
+              f"{want}")
+        if heads:
+            print(f"{label}: head_gemm launches {got} ({heads} head "
+                  f"products, forward and backward)")
+            counts["head_gemm"] = head_paths[label] = got
         return counts
 
     def adamw_counts(label, cfg, updates, tree):
@@ -4173,11 +4331,14 @@ def phase_train_paths(dev):
         walls.append(seconds)
         digests.append(tree_digest(params))
 
+    heads = head_calls(cfg, a["steps"] * cfg.parallel.microbatches,
+                       a["batch"] * a["seq"] // cfg.parallel.microbatches)
+    check(heads > 0, "rwkv6-1.6b's head does not take the head kernels")
     zero_counts()
     params, losses = train_loop(cfg, a["steps"], device=dev, on_step=on_step,
                                 log_every=a["steps"])
     torch.cuda.synchronize()
-    counts = read_counts("rwkv6-1.6b train_loop")
+    counts = read_counts("rwkv6-1.6b train_loop", heads=heads)
     adamw_counts("rwkv6-1.6b train_loop", cfg, a["steps"], params)
     peak = torch.cuda.max_memory_allocated(dev)
     check(all(math.isfinite(x) for x in losses),
@@ -4227,9 +4388,11 @@ def phase_train_paths(dev):
         losses.append(float(met["loss"]))
         walls.append(time.perf_counter() - ts)
         digests.append(tree_digest(params))
-    counts = read_counts("qwen3-14b train step", m.num_layers
-                         * cfg.parallel.microbatches * b["steps"],
-                         cfg.parallel.remat)
+    mb = cfg.parallel.microbatches
+    counts = read_counts("qwen3-14b train step",
+                         m.num_layers * mb * b["steps"], cfg.parallel.remat,
+                         head_calls(cfg, mb * b["steps"],
+                                    b["batch"] * b["seq"] // mb))
     adamw_counts("qwen3-14b train step", cfg, b["steps"], params)
     peak = torch.cuda.max_memory_allocated(dev)
     check(all(math.isfinite(x) for x in losses),
@@ -4299,7 +4462,9 @@ def phase_train_paths(dev):
         check(moved_leaves(prev, now) > 0,
               f"whisper-base FSL step {i} moved nothing")
         prev = now
-    counts = read_counts("whisper-base FSL step")
+    mb = max(1, cfg.parallel.microbatches)
+    counts = read_counts("whisper-base FSL step", heads=head_calls(
+        cfg, c["steps"] * n * mb, c["batch"] * c["seq"] // mb))
     adamw_counts("whisper-base FSL step", cfg, c["steps"] * n, params)
     peak = torch.cuda.max_memory_allocated(dev)
     check(all(math.isfinite(x) for x in losses),
@@ -4332,7 +4497,7 @@ def phase_train_paths(dev):
     read_counts("use_flash_kernel train step")
     print("a train step built with parallel.use_flash_kernel is refused "
           "(the kernels are forward-only), no kernel launched")
-    return adamw_paths
+    return {"adamw": adamw_paths, "head_gemm": head_paths}
 
 
 def phase_train_small_reference(dev):
@@ -4626,7 +4791,7 @@ def main() -> int:
     rows = [phase_fedavg(dev), phase_dp_clip(dev),
             phase_boundary_fuse(dev), *phase_agg_fuse(dev),
             phase_flash_attention(dev), phase_flash_train(dev),
-            phase_wkv6(dev), phase_adamw(dev)]
+            phase_head_gemm(dev), phase_wkv6(dev), phase_adamw(dev)]
     print(f"kernel vs plain: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     launches, by_path = phase_main_paths(dev)
@@ -4648,7 +4813,11 @@ def main() -> int:
     by_path.update(lm_by_path)
     print(f"LM paths: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    by_path["adamw"] = {**ADAMW_BY_PATH, **phase_train_paths(dev)}
+    train = phase_train_paths(dev)
+    by_path["adamw"] = {**ADAMW_BY_PATH, **train["adamw"]}
+    by_path.setdefault("head_gemm", {}).update(train["head_gemm"])
+    launches["head_gemm"] = sum(n for path in by_path["head_gemm"].values()
+                                for n in path.values())
     print(f"train paths: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_dryrun(dev)

@@ -24,7 +24,8 @@ SOURCES: Dict[str, str] = {"fedavg": "fedavg.cu", "dp_clip": "dp_clip.cu",
                            "agg_fuse": "agg_fuse.cu",
                            "flash_attention": "flash_attention.cu",
                            "wkv6": "wkv6.cu", "adamw": "adamw.cu",
-                           "flash_attention_train": "flash_attention_train.cu"}
+                           "flash_attention_train": "flash_attention_train.cu",
+                           "head_gemm": "head_gemm.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import train as flash_train
+from repro_torch.kernels.head_gemm import ops as head_gemm
 from repro_torch.obs.trace import count
 from repro_torch.sharding.specs import Lg, constrain
 
@@ -126,9 +127,17 @@ def embedding_apply(p, ids, compute_dtype=None):
 
 def _f32_matmul(x, w):
     """``x @ w`` with fp32 accumulation and an fp32 result, as the
-    reference's ``preferred_element_type=float32`` contractions: both
-    operands go to fp32, where a product of two bf16 values is exact."""
-    return x.to(torch.float32) @ w.to(torch.float32)
+    reference's ``preferred_element_type=float32`` contractions.  Dispatch:
+    bf16 ``x`` and fp32 ``w`` on CUDA with enough rows
+    (``kernels/head_gemm/ops.py`` ``takes``) go through the split-bf16
+    tensor-core kernels, which keep every product exact in fp32; every
+    other call runs the plain form, both operands in fp32.  Under a tracer
+    each call counts ``head_kernel`` or ``head_plain``."""
+    kernel = head_gemm.takes(x, w)
+    count(head_kernel=int(kernel), head_plain=int(not kernel))
+    if kernel:
+        return head_gemm.head_matmul(x, w)
+    return head_gemm.head_matmul_plain(x, w)
 
 
 def unembed_apply(p, x):

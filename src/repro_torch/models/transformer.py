@@ -257,7 +257,8 @@ def _head(params, x, m: ModelConfig):
     x = norm_apply(m, params["final_norm"], x)
     if m.tie_embeddings:
         return L.unembed_apply(params["embed"], x)
-    # bf16 operands, fp32 accumulation and result, as the reference
+    # x in the compute dtype, the fp32 weight as it is: fp32 products,
+    # accumulation and result, as the reference
     return L._f32_matmul(x, params["head"]["w"])
 
 
